@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -16,10 +16,27 @@ no result, when there is no card.  Phases, each printing its lines:
    finiteness and agreement with the plain ``UDEForecaster.forward``, and
    the kernels' launch counters read around those 4 requests;
 4. times: each kernel and the whole request against the plain path, by CUDA
-   events (kernels) and host clock with a synchronize (requests).
+   events (kernels) and host clock with a synchronize (requests);
+5. the training kernels against their twins at the training shape of the
+   ``state`` config (32 windows x 64 samples, 8 weekly points, dt = 1): K3
+   and K4 (the encoder's forward and BPTT: value and every weight and bias
+   gradient, against autograd of the twin) and K5 and K6 (the stats-mode
+   trajectory: trajectory, the five sums and every cotangent), under a
+   padded-curriculum ``tmask`` and under all-ones;
+6. training end to end: ``Trainer(fused_train=True, fused_stats=True).
+   train_curriculum_padded`` over the weekly grid (7 stages x 1 epoch x 2
+   batches = 14 steps) with the launch counters of K3-K6 read around it, a
+   checkpoint round trip, and its first step (the seeded weights) held
+   against the same step with ``fused_train=False``;
+7. times of K3-K6 against their twins (CUDA events), of a training step
+   against the plain step (host clock), and a ``torch.profiler`` trace of a
+   few steps with the device's idle share.
 
 Agreement is ``|got - ref| <= atol + rtol * |ref|`` with rtol 2e-4, atol 2e-5
-(the bound of ``tests/test_pallas_ude.py``).  The trajectory checks skip the
+(the bound of ``tests/test_pallas_ude.py``); a gradient agrees when
+``max|got - ref| <= 2e-3 * max|ref| + 1e-5`` over the tensor (the stats-mode
+bound of ``tests/test_pallas_train.py:306-308``, made relative to the
+tensor's largest entry because each entry sums 2048 rows).  The trajectory checks skip the
 ensemble rows in which some RHS evaluation of the plain integration (a grid
 point or an RK stage) sees an S, I, R state within 1e-5 of a freeze bound
 (x = 2 or x = -1): the field is discontinuous there, so float32 rounding
@@ -27,6 +44,16 @@ decides the evaluation at which such a state freezes, and any two float32
 implementations may then differ by a step's change.  Before any such
 divergence the two paths drift apart by ~2e-6 at most over 85 points.  The
 script prints how many rows that leaves out and fails if it is more than half.
+A gradient sums over all rows, so one row that freezes at another stage
+spoils it: the training kernels are held against their twins on the held
+rows only, and the training step's comparison redraws, from the same numpy
+stream, the eps of every row that is not held (failing if more than half
+must be redrawn).  The step's KL_z term is ill-conditioned in float32 by
+itself: its terms grow as 1/std^2 and the encoder gives a few std entries
+of ~1e-7 at this shape, so float32 rounding of the plain encoder alone
+moves it by 4e-4 to 7e-3 relative.  kl_latent, if it misses rel 2e-4, is
+held instead to its float64 value within twice the first-order change that
+the K3 encoder outputs' own deviation from float64 makes in it.
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Any failed check raises.
@@ -50,6 +77,11 @@ STATE = dict(n_regions=49, latent_dim=8, n_qs=8,
 BATCH, SAMPLES, T_IN, T_OUT, DT = 32, 64, 42, 85, 1.0 / 7.0
 REQUESTS = 4
 SMALL_B = 100   # CONN and SONN: a ragged tile count
+WEEKS = 8       # the training grid: 8 weekly points, dt = 1
+WINDOWS = 64    # the training loader: 2 batches of BATCH
+GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-5
+LR = 1e-3
+TMASKS = ([1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0], [1.0] * (WEEKS - 1))
 
 
 def log(msg: str) -> None:
@@ -80,6 +112,21 @@ def compare(name, got, ref, rows=None) -> float:
     if worst > 1.0:
         raise RuntimeError(f"{name}: disagrees beyond rtol {RTOL} atol {ATOL}")
     return max_abs
+
+
+def compare_grad(name, got, ref) -> float:
+    """Raise unless max|got - ref| <= GRAD_RTOL * max|ref| + GRAD_ATOL."""
+    import torch
+    if got.shape != ref.shape:
+        raise RuntimeError(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: non-finite gradient")
+    err = (got - ref).abs().max().item()
+    bound = GRAD_RTOL * ref.abs().max().item() + GRAD_ATOL
+    log(f"  {name}: max|d| {err:.3g}, bound {bound:.3g}")
+    if err > bound:
+        raise RuntimeError(f"{name}: gradient disagrees beyond the bound")
+    return err
 
 
 def held_rows(rhs, z0, t):
@@ -129,6 +176,339 @@ def in_turns(plain, kernel, n_plain: int, n_kernel: int):
     """Mean times of plain, kernel, kernel, plain."""
     p1, k1, k2, p2 = plain(n_plain), kernel(n_kernel), kernel(n_kernel), plain(n_plain)
     return (p1 + p2) / 2, (k1 + k2) / 2
+
+
+def encoder_vs_twin(model, x, rng):
+    """K3 + K4 against autograd of the twin: (value err, max gradient err)."""
+    import torch
+    from fiude_tpu_torch.ops import fused_gru_train
+    params = fused_gru_train.encoder_params(model.encoder)
+    n_layers = len(model.encoder.rnn_layers)
+    shape = (x.shape[0], model.n_regions, model.encoder.latent_dim)
+    g_mean, g_std = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                                  device=x.device) for _ in range(2))
+    outs = {}
+    for path in ("kernel", "plain"):
+        if path == "kernel":
+            mean, std = fused_gru_train.encode_train(x, model.encoder)
+        else:
+            mean, std = model.encoder.split(
+                fused_gru_train.backgru_train_plain(x, params, n_layers))
+        loss = (mean * g_mean).sum() + (std * g_std).sum()
+        outs[path] = (mean, std, torch.autograd.grad(loss, params))
+    (mk, sk, gk), (mp, sp, gp) = outs["kernel"], outs["plain"]
+    err = max(compare(f"K3 mean {tuple(mk.shape)}", mk.detach(), mp.detach()),
+              compare(f"K3 std {tuple(sk.shape)}", sk.detach(), sp.detach()))
+    names = [n for n, _ in model.encoder.named_parameters()]
+    grad_err = max(compare_grad(f"K4 d/d {name} {tuple(a.shape)}", a, b)
+                   for name, a, b in zip(names, gk, gp))
+    return err, grad_err
+
+
+def trajectory_vs_twin(model, z0, tmask, rng, tag):
+    """K5 + K6 against autograd of the twin on the rows held from the freeze
+    bounds: (trajectory err, max gradient err)."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.ops import fused_train
+    from fiude_tpu_torch.ops.fused_ude import pack_field
+    dev = z0.device
+    with torch.no_grad():
+        rows = held_rows(model.rhs_fn(1.0), z0, np.arange(WEEKS, dtype=np.float64))
+    z = z0[rows]
+    B, R, L = z.shape
+    log(f"  {tag}: {B} of {z0.shape[0]} rows held ({z0.shape[0] - B} dropped)")
+    if 2 * B < z0.shape[0]:
+        raise RuntimeError(f"{tag}: most rows pass near a freeze bound")
+    dts = torch.ones(WEEKS - 1, device=dev)
+    tm = torch.tensor(tmask, device=dev)
+    g_traj = torch.tensor(rng.standard_normal((WEEKS, B, 3 * R)), dtype=torch.float32,
+                          device=dev)
+    c = torch.tensor(rng.standard_normal(5), dtype=torch.float32, device=dev)
+    params = list(model.ode.parameters())
+    outs = {}
+    for path in ("kernel", "plain"):
+        zz = z.clone().requires_grad_(True)
+        fa_w = torch.tensor(1.0, device=dev, requires_grad=True)
+        w = pack_field(model.ode, detach=False)
+        head, tail = zz[..., :3].reshape(B, -1), zz[..., 3:].reshape(B, -1)
+        fn = fused_train.train_trajectory if path == "kernel" else \
+            fused_train.train_trajectory_plain
+        traj, r1, r2, f2 = fn(head, tail, w, fa_w=fa_w, dts=dts, tmask=tm)
+        loss = ((traj * g_traj).sum() + (r1 * c[:2]).sum() + (r2 * c[2:4]).sum() * 1e-3
+                + f2 * c[4] * 1e-3)
+        outs[path] = ((traj, r1, r2, f2), torch.autograd.grad(loss, [zz, fa_w] + params,
+                                                              allow_unused=True))
+    (vk, gk), (vp, gp) = outs["kernel"], outs["plain"]
+    err = compare(f"K5 {tag} trajectory {tuple(vk[0].shape)}", vk[0].detach(), vp[0].detach())
+    for name, a, b in zip(("r1", "r2", "f2"), vk[1:], vp[1:]):
+        compare(f"K5 {tag} {name}", a.detach(), b.detach())
+    grad_err = max(compare_grad(f"K6 {tag} d/d z0 head", gk[0][..., :3], gp[0][..., :3]),
+                   compare_grad(f"K6 {tag} d/d z0 tail", gk[0][..., 3:], gp[0][..., 3:]))
+    if gp[1] is not None:
+        grad_err = max(grad_err, compare_grad(f"K6 {tag} d/d fa_w", gk[1], gp[1]))
+    names = [n for n, _ in model.ode.named_parameters()]
+    for name, a, b in zip(names, gk[2:], gp[2:]):
+        grad_err = max(grad_err, compare_grad(f"K6 {tag} d/d {name} {tuple(a.shape)}", a, b))
+    return err, grad_err
+
+
+def training_inputs(model, rng):
+    """The loader's windows and targets, made from the seed."""
+    import numpy as np
+    x = rng.uniform(0, 1, (WINDOWS, T_IN, model.encoder.input_size)).astype(np.float32)
+    y = rng.uniform(0, 1, (WINDOWS, WEEKS, model.n_regions)).astype(np.float32)
+    return x, y
+
+
+def held_eps(model, x, rng):
+    """eps (S, B, R, Le) whose every folded row stays FREEZE_MARGIN from the
+    freeze bounds along the plain integration, redrawing from ``rng``."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.models.vae import reparam
+    shape = (SAMPLES, x.shape[0], model.n_regions, model.encoder.latent_dim)
+    eps = rng.standard_normal(shape).astype(np.float32)
+    grid = np.arange(WEEKS, dtype=np.float64)
+    first = None
+    for _ in range(50):
+        with torch.no_grad():
+            mean, std = model.encoder(x)
+            e = torch.tensor(eps, device=x.device)
+            z = reparam(e, std, mean) + model.ic_jitter
+            held = held_rows(model.rhs_fn(1.0), z, grid).reshape(SAMPLES, -1).cpu().numpy()
+        if first is None:
+            first = int((~held).sum())
+        if held.all():
+            log(f"  eps: {first} of {held.size} rows redrawn to keep them off the freeze bounds")
+            if 2 * first > held.size:
+                raise RuntimeError("more than half the rows pass near a freeze bound")
+            return torch.tensor(eps, device=x.device)
+        eps[~held] = rng.standard_normal((int((~held).sum()),) + shape[2:]).astype(np.float32)
+    raise RuntimeError("rows still near a freeze bound after 50 redraws")
+
+
+def kl_latent_bound(build, weights, x, len_tr, kl_w):
+    """KL_z's terms grow as 1/std^2, and the encoder gives std entries of
+    ~1e-7, so float32 rounding of the encoder alone moves kl_latent by up to
+    ~1e-2 relative.  Returns ``check(value) -> (|value - kl64|, bound)``: the
+    float64 kl_latent of the same weights, and 2x the first-order change that
+    the K3 encoder outputs' deviation from the float64 outputs makes in it,
+    plus rel 2e-4."""
+    import torch
+    from fiude_tpu_torch.train.losses import kl_z_loss
+    model = build(False)
+    model.load_state_dict(weights)
+    model.double()
+    mean64, std64 = (t.detach().requires_grad_(True) for t in model.encoder(x.double()))
+    kl64 = kl_w * kl_z_loss(mean64, std64, latent_dim=model.latent_dim, len_tr=len_tr)
+    g_mean, g_std = torch.autograd.grad(kl64, [mean64, std64])
+    fused = build(True)
+    fused.load_state_dict(weights)
+    with torch.no_grad():
+        mean_k, std_k = fused._encode(x)                          # K3
+        change = ((g_mean * (mean_k.double() - mean64)).abs().sum()
+                  + (g_std * (std_k.double() - std64)).abs().sum()).item()
+    kl64 = kl64.item()
+    return lambda value: (abs(value - kl64), 2.0 * change + 2e-4 * abs(kl64))
+
+
+def train_end_to_end(dev, rng, tmp):
+    """Phase 6: returns (the launch counters, the trainer, the step inputs)."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.data import ArrayLoader
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.ops import fused_gru_train, fused_train
+    from fiude_tpu_torch.train import TRAINING_INFO, Trainer, load_params, save_params
+
+    def build(fused, seed=SEED + 3):
+        return UDEForecaster.build(ode_name="UONN", fused_train=fused, fused_stats=fused,
+                                   device=dev, generator=torch.Generator().manual_seed(seed),
+                                   **STATE)
+
+    model = build(True)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    x_all, y_all = training_inputs(model, rng)
+    loader = ArrayLoader(x_all, y_all, batch_size=BATCH, seed=SEED)
+    trainer = Trainer(model, loss_cfg=TRAINING_INFO["UONN"], seed=SEED,
+                      file_prefix=f"{tmp}/uonn_")
+    trainer.setup_training(lr=LR)
+    steps = (WEEKS - 1) * len(loader)
+    counters = (fused_gru_train.encoder_forward_cuda, fused_gru_train.encoder_backward_cuda,
+                fused_train.train_forward_cuda, fused_train.train_backward_cuda)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    trainer.train_curriculum_padded(loader, np.arange(WEEKS, dtype=np.float64),
+                                    np.arange(WEEKS), epochs_per_stage=1, grad_lim=5000.0,
+                                    n_samples=SAMPLES, checkpoint=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(zip(("K3", "K4", "K5", "K6"), (c.launches for c in counters)))
+    log(f"  {steps} steps in {seconds:.2f} s; launches during them: {launches}")
+    for k, n in launches.items():
+        if n != steps:
+            raise RuntimeError(f"{k} launched {n} times for {steps} training steps")
+    losses = [b["loss"] for epoch in trainer.history.batch_history for b in epoch]
+    log(f"  losses by step: {', '.join(f'{v:.4f}' for v in losses)}")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise RuntimeError("training losses are not finite")
+    log(f"  grad norms: {', '.join(f'{v:.1f}' for v in trainer.batch_grad_norms)}")
+
+    save_params(f"{tmp}/saved_", model)
+    for prefix in (f"{tmp}/saved_", f"{tmp}/uonn_chkpt_"):
+        load_params(build(False, seed=SEED + 9), prefix, strict=True)
+    restored = load_params(build(False, seed=SEED + 9), f"{tmp}/saved_", strict=True)
+    for (name, a), b in zip(model.state_dict().items(), restored.state_dict().values()):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"checkpoint round trip changed {name}")
+    log("  checkpoint round trip: saved and best-epoch checkpoints load strictly; "
+        "weights unchanged")
+
+    # the first step again, against the plain step on the same weights and eps
+    model.load_state_dict(initial)
+    x = torch.tensor(x_all[:BATCH], device=dev)
+    y = torch.tensor(y_all[:BATCH], device=dev)
+    eps = held_eps(model, x, rng)
+    tm = torch.tensor(TMASKS[0], device=dev)
+    em = torch.tensor([1.0] + TMASKS[0], device=dev)
+    pair = {}
+    for fused in (True, False):
+        m = build(fused)
+        m.load_state_dict(initial)
+        tr = Trainer(m, loss_cfg=TRAINING_INFO["UONN"], seed=SEED)
+        tr.setup_training(lr=LR)
+        before = {n: p.detach().clone() for n, p in m.named_parameters()}
+        metrics = tr.train_step(x, y, np.arange(WEEKS, dtype=np.float64), eps, epoch=1,
+                                grad_lim=5000.0, time_mask=tm, eval_mask=em)
+        pair[fused] = (tr, metrics, before)
+    (tk, mk, _), (tp, mp, before) = pair[True], pair[False]
+    kl_bound = kl_latent_bound(build, initial, x, tk.len_tr, mp["kl_w"])
+    for k in sorted(mp):
+        rel = abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30)
+        log(f"  step metric {k}: kernels {mk[k]:.7g}, plain {mp[k]:.7g}, rel {rel:.3g}")
+        if k == "kl_latent" and rel > 2e-4:
+            err, bound = kl_bound(mk[k])
+            log(f"    from float64: {err:.3g}, bound (the K3 encoder's own deviation from "
+                f"float64, propagated) {bound:.3g}")
+            if err > bound:
+                raise RuntimeError("training step kl_latent disagrees beyond what the encoder "
+                                   "outputs' deviation from float64 explains")
+        elif rel > 2e-4:
+            raise RuntimeError(f"training step metric {k} disagrees beyond rel 2e-4")
+    small = 0
+    for (name, pk), pp in zip(tk.model.named_parameters(), tp.model.parameters()):
+        compare_grad(f"step d/d {name} {tuple(pk.shape)}", pk.grad, pp.grad)
+        under = pp.grad.abs() <= GRAD_RTOL * pp.grad.abs().max() + GRAD_ATOL
+        small += int(under.sum())
+        bound = torch.where(under, torch.full_like(pp, 2 * LR), 1e-6 + 1e-4 * pp.detach().abs())
+        if ((pk.detach() - pp.detach()).abs() > bound).any():
+            raise RuntimeError(f"post-Adam {name} disagrees")
+        moved = (pp.detach() - before[name]).abs().max().item()
+        if moved == 0.0:
+            raise RuntimeError(f"the plain step left {name} unchanged")
+    log(f"  post-Adam parameters agree (rtol 1e-4, atol 1e-6; {small} entries whose "
+        f"reference gradient is under the gradient bound held to atol {2 * LR:g})")
+    return launches, (tk, tp, x, y, eps, tm, em)
+
+
+def train_times(model, x, z0, step_inputs):
+    """(plain ms, kernel ms) of K3, K4, K5, K6 (CUDA events, in turns) and of a
+    training step (host clock with a synchronize)."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.ops import fused_gru_train, fused_train
+    from fiude_tpu_torch.ops.fused_ude import pack_field
+    out = []
+    params = fused_gru_train.encoder_params(model.encoder)
+    n_layers = len(model.encoder.rnn_layers)
+    w_enc = fused_gru_train.in_out_weights(params, n_layers, contiguous=True)
+    head, hseq, gates = fused_gru_train.encoder_forward_cuda(x, w_enc)
+    g = torch.ones_like(head)
+    out.append(in_turns(
+        lambda n: cuda_ms(lambda: fused_gru_train.backgru_train_plain(x, params, n_layers), n),
+        lambda n: cuda_ms(lambda: fused_gru_train.encoder_forward_cuda(x, w_enc), n), 3, 10))
+    head_p = fused_gru_train.backgru_train_plain(x, params, n_layers)
+    out.append(in_turns(
+        lambda n: cuda_ms(lambda: torch.autograd.grad(head_p, params, g, retain_graph=True), n),
+        lambda n: cuda_ms(lambda: fused_gru_train.encoder_backward_cuda(
+            x, params, w_enc, hseq, gates, g), n), 3, 10))
+
+    B = z0.shape[0]
+    head0, tail0 = z0[..., :3].reshape(B, -1).contiguous(), z0[..., 3:].reshape(B, -1).contiguous()
+    w = pack_field(model.ode)
+    fa_w = torch.tensor(1.0, device=x.device)
+    dts = torch.ones(WEEKS - 1, device=x.device)
+    tm = torch.tensor(TMASKS[0], device=x.device)
+    traj = fused_train.train_forward_cuda(head0, tail0, w, fa_w, dts, tm)[0]
+    g_traj = torch.ones_like(traj)
+    gstats = torch.full((5,), 1e-3, device=x.device)
+    wg = pack_field(model.ode, detach=False)
+    hg, tg = head0.clone().requires_grad_(True), tail0.clone().requires_grad_(True)
+    outs = fused_train.train_trajectory_plain(hg, tg, wg, fa_w=fa_w, dts=dts, tmask=tm)
+    inputs = [hg, tg] + list(model.ode.parameters())
+    grads_out = [g_traj] + [gstats[:2], gstats[2:4], gstats[4]]
+    out.append(in_turns(
+        lambda n: cuda_ms(lambda: fused_train.train_trajectory_plain(
+            hg, tg, wg, fa_w=fa_w, dts=dts, tmask=tm), n),
+        lambda n: cuda_ms(lambda: fused_train.train_forward_cuda(
+            head0, tail0, w, fa_w, dts, tm), n), 3, 10))
+    out.append(in_turns(
+        lambda n: cuda_ms(lambda: torch.autograd.grad(outs, inputs, grads_out,
+                                                      retain_graph=True), n),
+        lambda n: cuda_ms(lambda: fused_train.train_backward_cuda(
+            traj, g_traj, tail0, w, fa_w, dts, tm, gstats), n), 3, 10))
+
+    tk, tp, xs, ys, eps, tmask, emask = step_inputs
+    grid = np.arange(WEEKS, dtype=np.float64)
+
+    def step(tr):
+        return lambda: tr.train_step(xs, ys, grid, eps, epoch=1, grad_lim=5000.0,
+                                     time_mask=tmask, eval_mask=emask)
+
+    out.append(in_turns(lambda n: host_ms(step(tp), n), lambda n: host_ms(step(tk), n), 3, 5))
+    return out
+
+
+def trace_steps(step_inputs, smi, n_steps: int = 5) -> None:
+    """A torch.profiler trace of training steps through the kernels: device
+    time by kernel and the device's idle share of the host span."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    tk, _, xs, ys, eps, tmask, emask = step_inputs
+    grid = np.arange(WEEKS, dtype=np.float64)
+    for _ in range(2):
+        tk.train_step(xs, ys, grid, eps, epoch=1, grad_lim=5000.0, time_mask=tmask,
+                      eval_mask=emask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            tk.train_step(xs, ys, grid, eps, epoch=1, grad_lim=5000.0, time_mask=tmask,
+                          eval_mask=emask)
+        torch.cuda.synchronize()
+        span_us = (time.perf_counter() - t0) * 1e6
+    by_name, n_kernels = {}, 0
+    for e in prof.events():
+        # device kernels and copies; not the annotations that span them
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith("Optimizer.")):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n_kernels += 1
+    busy = sum(by_name.values())
+    if busy == 0.0:
+        log("  trace: the profiler saw no device time (not measured)")
+        return
+    log(f"  trace of {n_steps} training steps [{smi}]: {n_kernels / n_steps:.0f} device "
+        f"kernels a step, device busy {busy / n_steps / 1e3:.4f} ms a step of a "
+        f"{span_us / n_steps / 1e3:.4f} ms host span, idle share "
+        f"{1.0 - busy / span_us:.1%}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"    {us / n_steps / 1e3:9.4f} ms a step {us / busy:6.1%}  {name[:90]}")
 
 
 def main() -> int:
@@ -260,6 +640,41 @@ def main() -> int:
     log(f"  request ({BATCH} windows x {SAMPLES} samples, T={T_OUT}): kernels "
         f"{req_ms:.4f} ms, plain {req_plain:.4f} ms [{smi}]")
 
+    # -- 5. training kernels vs plain twins ------------------------------------
+    log(f"phase 5: training kernels vs plain twins at the training shape "
+        f"({BATCH} windows x {SAMPLES} samples, {WEEKS} weekly points)")
+    k3_err, k4_err = encoder_vs_twin(model, x, rng)
+    with torch.no_grad():
+        mean, std = model.encoder(x)
+        z_train = reparam(eps, std, mean) + model.ic_jitter        # (2048, R, L)
+    k5_err = k6_err = 0.0
+    for tmask in TMASKS:
+        e5, e6 = trajectory_vs_twin(model, z_train, tmask, rng, f"UONN tmask {tmask}")
+        k5_err, k6_err = max(k5_err, e5), max(k6_err, e6)
+    for ode_name in ("CONN", "SONN"):
+        m = UDEForecaster.build(ode_name=ode_name, device=dev,
+                                generator=torch.Generator().manual_seed(SEED + 1), **STATE)
+        trajectory_vs_twin(m, z_train[:SMALL_B], TMASKS[0], rng, f"{ode_name} B={SMALL_B}")
+
+    # -- 6. training end to end ------------------------------------------------
+    log(f"phase 6: training, train_curriculum_padded over {WEEKS} weekly points, "
+        f"{WINDOWS} windows in batches of {BATCH} x {SAMPLES} samples")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, step_inputs = train_end_to_end(dev, rng, tmp)
+
+    # -- 7. training times ---------------------------------------------------
+    log(f"phase 7: training times on {card}")
+    times = train_times(model, x, z_train, step_inputs)
+    (k3_plain, k3_ms), (k4_plain, k4_ms), (k5_plain, k5_ms), (k6_plain, k6_ms) = times[:4]
+    step_plain, step_ms = times[4]
+    for name, (plain, ms) in zip(("K3 encoder forward", "K4 encoder BPTT",
+                                  "K5 trajectory forward", "K6 trajectory backward"),
+                                 times[:4]):
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms [{smi}]")
+    log(f"  training step ({BATCH} windows x {SAMPLES} samples, {WEEKS} weekly points): "
+        f"kernels {step_ms:.4f} ms, plain {step_plain:.4f} ms [{smi}]")
+    trace_steps(step_inputs, smi)
+
     log(json.dumps({"kernels": [
         {"name": "fused_backgru", "route": "cuda",
          "source": "fiude_tpu_torch/csrc/fused_gru.cu",
@@ -269,6 +684,22 @@ def main() -> int:
          "source": "fiude_tpu_torch/csrc/fused_ude.cu",
          "replaces": "fiude_tpu/ops/pallas_ude.py:306", "launches": launches["K2"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "fused_backgru_train_forward", "route": "cuda",
+         "source": "fiude_tpu_torch/csrc/fused_gru.cu",
+         "replaces": "fiude_tpu/ops/pallas_gru_train.py:282", "launches": train_launches["K3"],
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain},
+        {"name": "fused_backgru_train_backward", "route": "cuda",
+         "source": "fiude_tpu_torch/csrc/fused_gru_train.cu",
+         "replaces": "fiude_tpu/ops/pallas_gru_train.py:302", "launches": train_launches["K4"],
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain},
+        {"name": "fused_train_trajectory_forward", "route": "cuda",
+         "source": "fiude_tpu_torch/csrc/fused_train.cu",
+         "replaces": "fiude_tpu/ops/pallas_train.py:654", "launches": train_launches["K5"],
+         "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain},
+        {"name": "fused_train_trajectory_backward", "route": "cuda",
+         "source": "fiude_tpu_torch/csrc/fused_train.cu",
+         "replaces": "fiude_tpu/ops/pallas_train.py:728", "launches": train_launches["K6"],
+         "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain},
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,19 @@
-// Back-GRU encoder forward for Hopper (sm_90a): kernel K1 of the serving path.
+// Back-GRU encoder forward for Hopper (sm_90a): kernel K1 of the serving path,
+// and K3, its training forward.
 //
 // Replaces: fiude_tpu/ops/pallas_gru.py::_fused_backgru (kernel body
 // _make_kernel, pallas_gru.py:72-121), the one-launch TPU encoder: layer 0's
 // input projection for every step, the stacked GRU recurrence over the
 // time-reversed window, then the ReLU head with the reference ordering
-// Linear, (ReLU, Linear)*, Linear.
+// Linear, (ReLU, Linear)*, Linear.  Also replaces
+// fiude_tpu/ops/pallas_gru_train.py::_get_enc_train.fwd_impl (K3), which
+// runs the serving kernel unchanged under custom_vjp: here the same kernel,
+// given the optional hseq/gates outputs, also stores every layer's hidden
+// state and gate values (r, z, n and W_hn h + b_hn) at every step, which the
+// backward (csrc/fused_gru_train.cu, K4) reads instead of re-running the
+// 42-step forward sweep as the TPU backward does.  They cost 5 floats a
+// hidden unit a step (~10 MB at the `state` shape) and save the backward a
+// sequential sweep; serving passes null and writes nothing.
 //
 // What bounds it on the card: the recurrence is T sequential steps of
 // (rows x H) x (H x 3H) products.  At the `state` config (H = 256, 128) the
@@ -50,6 +59,8 @@ struct GruArgs {
   int ff_out[kMaxFF];
   const float* ff_w[kMaxFF];       // (in, out)
   const float* ff_b[kMaxFF];
+  float* hseq[kMaxLayers];         // optional (B, T, H): h after step t
+  float* gates[kMaxLayers];        // optional (B, T, 4H): r | z | n | W_hn h + b_hn
 };
 
 // ---------------------------------------------------------------------------
@@ -108,11 +119,13 @@ sgemm_bias_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
+// One unit's GRU update; r, z, n are returned for the training forward.
 __device__ __forceinline__ float gru_update(float xr, float xz, float xn, float hr,
-                                            float hz, float hn, float h) {
-  const float r = sigmoidf(xr + hr);
-  const float z = sigmoidf(xz + hz);
-  const float n = tanhf(xn + r * hn);
+                                            float hz, float hn, float h, float& r,
+                                            float& z, float& n) {
+  r = sigmoidf(xr + hr);
+  z = sigmoidf(xz + hz);
+  n = tanhf(xn + r * hn);
   return (1.f - z) * n + z * h;
 }
 
@@ -192,10 +205,21 @@ backgru_recurrence_kernel(const float* __restrict__ xproj, int B, int T,
         const float4 h = hc[j];
         float4 o;
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
+        for (int r = 0; r < kRows; ++r) {
+          float gr, gz, gn;
           set_lane(o, r, gru_update(lane(gx[0], r), lane(gx[1], r), lane(gx[2], r),
                                     lane(gh[0], r), lane(gh[1], r), lane(gh[2], r),
-                                    lane(h, r)));
+                                    lane(h, r), gr, gz, gn));
+          if (a.hseq[l] != nullptr && row0 + r < B) {
+            const size_t at = (size_t)(row0 + r) * T + t;
+            a.hseq[l][at * H + j] = lane(o, r);
+            float* g = a.gates[l] + at * 4 * H;
+            g[j] = gr;
+            g[H + j] = gz;
+            g[2 * H + j] = gn;
+            g[3 * H + j] = lane(gh[2], r);
+          }
+        }
         hn[j] = o;
       }
       __syncthreads();
@@ -249,12 +273,15 @@ const char* fiude_cuda_error_string(int code) {
 }
 
 // x (B, T, I) float32; weights (in, out) float32; xproj scratch (B*T, 3*H[0]);
-// out (B, ff_out[n_ff-1]).  Launches on `stream`; returns cudaGetLastError().
+// out (B, ff_out[n_ff-1]); hseq and gates null (serving, K1) or per layer
+// (B, T, H[l]) and (B, T, 4*H[l]) (training forward, K3).  Launches on
+// `stream`; returns cudaGetLastError().
 int fused_backgru_forward(const float* x, int B, int T, int I, int n_layers,
                           const int* H, const void* const* w_ih,
                           const void* const* w_hh, const void* const* b_ih,
                           const void* const* b_hh, int n_ff, const int* ff_out,
                           const void* const* ff_w, const void* const* ff_b,
+                          void* const* hseq, void* const* gates,
                           float* xproj, float* out, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || n_ff < 1 || n_ff > kMaxFF ||
       B < 1 || T < 1 || I < 1)
@@ -269,6 +296,8 @@ int fused_backgru_forward(const float* x, int B, int T, int I, int n_layers,
     a.w_hh[l] = static_cast<const float*>(w_hh[l]);
     a.b_ih[l] = static_cast<const float*>(b_ih[l]);
     a.b_hh[l] = static_cast<const float*>(b_hh[l]);
+    a.hseq[l] = hseq != nullptr ? static_cast<float*>(hseq[l]) : nullptr;
+    a.gates[l] = hseq != nullptr ? static_cast<float*>(gates[l]) : nullptr;
     floats4 += 2 * (size_t)H[l];
   }
   a.n_ff = n_ff;

@@ -2,4 +2,4 @@ from fiude_tpu_torch.models.nn import MLP, elu_mlp, relu_mlp, init_linear_, init
 from fiude_tpu_torch.models.encoders import BackGRUEncoder, sir_scaler_vector, split_mean_std
 from fiude_tpu_torch.models.decoder import LinearDecoder
 from fiude_tpu_torch.models.rhs import SIRRates, NeuralAug, UDE
-from fiude_tpu_torch.models.vae import UDEForecaster, ForwardExtras, reparam
+from fiude_tpu_torch.models.vae import UDEForecaster, ForwardExtras, make_prior, reparam

@@ -84,6 +84,15 @@ class NeuralAug(nn.Module):
         return _finish(fa, x), {"fa": fa}
 
 
+def empirical_rate_posterior(rates_aux: torch.Tensor, ddof: int = 1):
+    """Empirical Normal over every collected (beta, gamma) evaluation:
+    ``rates_aux`` (..., R, 2) flattened to (-1, 2), mean and (unbiased by
+    default) std per column (``fiude_tpu/models/rhs.py:171-180``, reference
+    ``lib/models.py:152-156``)."""
+    flat = rates_aux.reshape(-1, 2)
+    return flat.mean(dim=0), torch.std(flat, dim=0, correction=ddof)
+
+
 class UDE(nn.Module):
     """UONN / "FaFp": mechanistic SIR-rates field + fa_w * neural field."""
 

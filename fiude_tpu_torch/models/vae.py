@@ -1,18 +1,23 @@
 """The forecaster: variational encoder -> SIR latent UDE -> linear decoder.
 
 Counterpart of ``fiude_tpu/models/vae.py`` (``reparam`` :37-51,
-``UDEForecaster.build`` :103-181, ``sample_eps`` :195-199, ``apply``
-:233-373) for the deterministic families::
+``make_prior`` :54-68, ``UDEForecaster.build`` :103-181, ``sample_eps``
+:195-199, ``_encode`` :217-231, ``apply`` :233-373) for the deterministic
+families::
 
     eps ~ N(0,1)^(S,B,R,Le)            Le = latent_dim - 1
     mean, std = encoder(x)
     z = reparam(eps, std, mean) + 1e-5   simplex R := 1 - |S| - |I|; fold S into B
-    latent = odeint_grid(ode, z, t)      Kutta 3/8
+    latent, aux = odeint_grid(ode, z, t) Kutta 3/8, stage-ordered aux
     y = decoder(latent)                  -> (B, S, T, R)
 
 :meth:`UDEForecaster.forward` is the plain twin of the whole serving path
 that ``fiude_tpu_torch.ops.fused_ude.FusedForecaster`` runs through the two
-CUDA kernels.
+CUDA kernels.  With ``fused_train`` (and ``fused_stats``, which the
+production sweeps always set with it) the same forward is the training
+path: the encoder runs through K3/K4 (``ops.fused_gru_train``) and the
+trajectory through K5/K6 (``ops.fused_train``), which reduce the loss's aux
+to five masked sums on the card.
 """
 
 from __future__ import annotations
@@ -48,10 +53,24 @@ def reparam(eps: torch.Tensor, std: Optional[torch.Tensor], mean: torch.Tensor,
     return z.reshape(z.shape[0] * z.shape[1], *z.shape[2:])
 
 
+def make_prior(mean: torch.Tensor, *, latent_dim: int, z_prior=(0.1, 0.01)):
+    """Latent IC prior: S, I anchored at the encoder mean with tight stds,
+    the other dims standard normal (reference ``lib/models.py:9-14``).
+    Returns ``(prior_mean, prior_std)`` shaped like ``mean``."""
+    prior_mean = torch.cat([mean[..., :2], torch.zeros_like(mean[..., 2:])], dim=-1)
+    std = torch.cat([torch.tensor(z_prior, dtype=mean.dtype, device=mean.device),
+                     torch.ones(latent_dim - len(z_prior) - 1, dtype=mean.dtype,
+                                device=mean.device)])
+    return prior_mean, torch.abs(std).expand(prior_mean.shape)
+
+
 class ForwardExtras(NamedTuple):
     mean: torch.Tensor
     std: Optional[torch.Tensor]
     latent: torch.Tensor
+    aux: Any = None
+    """the stage-ordered RHS aux {"rates", "fa"} (T-1, 4, B, R, k), or with
+    ``fused_stats`` {"rate_stats": (r1, r2, count), "fa_sq": f2}"""
 
 
 class UDEForecaster(nn.Module):
@@ -60,14 +79,27 @@ class UDEForecaster(nn.Module):
     def __init__(self, encoder: BackGRUEncoder, ode: nn.Module,
                  decoder: LinearDecoder, *, latent_dim: int = 8,
                  n_regions: int = 1, uncertainty: bool = True,
-                 method: str = "rk4", ic_jitter: float = 1e-5):
+                 method: str = "rk4", substeps: int = 1, ic_jitter: float = 1e-5,
+                 fused_train: bool = False, fused_stats: bool = False):
         super().__init__()
+        if fused_train and not fused_stats:
+            raise NotImplementedError(
+                "fused_train without fused_stats (the aux-streaming K5/K6 mode) is "
+                "not ported yet (ROADMAP.md, queue B, 'K5/K6 aux-streaming mode')")
+        if fused_train and (method not in ("rk4", "rk4_38") or substeps != 1):
+            raise NotImplementedError(
+                "fused_train integrates with one Kutta 3/8 step an interval; other "
+                "methods and substeps are not ported yet (ROADMAP.md, queue A, "
+                "'Other solvers')")
         self.encoder, self.ode, self.decoder = encoder, ode, decoder
         self.latent_dim = latent_dim
         self.n_regions = n_regions
         self.uncertainty = uncertainty
         self.method = method
+        self.substeps = substeps
         self.ic_jitter = ic_jitter
+        self.fused_train = fused_train
+        self.fused_stats = fused_stats
 
     @classmethod
     def build(cls, *, n_regions: int, latent_dim: int, n_qs: int,
@@ -78,7 +110,7 @@ class UDEForecaster(nn.Module):
               uncertainty: bool = True, dtype: torch.dtype = torch.float32,
               generator: Optional[torch.Generator] = None,
               device: Optional[torch.device] = None,
-              fused_train: bool = False, **kwargs) -> "UDEForecaster":
+              **kwargs) -> "UDEForecaster":
         """Mirror of ``fiude_tpu``'s ``UDEForecaster.build`` (reference
         ``lib/VAE.py:36-89``) with one config dict per submodule.
 
@@ -96,10 +128,6 @@ class UDEForecaster(nn.Module):
             raise NotImplementedError(
                 f"encoder {encoder_name!r} is not ported yet "
                 "(ROADMAP.md, queue A, 'Other encoders')")
-        if fused_train:
-            raise NotImplementedError(
-                "fused_train needs the training kernels, not ported yet "
-                "(ROADMAP.md, queue B)")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         enc_params = dict(enc_params or {})
@@ -138,19 +166,59 @@ class UDEForecaster(nn.Module):
             return lambda t, y: self.ode(t, y, fa_w=fa_w)
         return self.ode
 
+    def _encode(self, x: torch.Tensor):
+        """Encoder forward ``x -> (mean, std)``; with ``fused_train`` a
+        Back-GRU encoder runs through K3/K4 on the card (no VMEM guard: on a
+        CUDA tensor the kernels run or raise)."""
+        if self.fused_train and isinstance(self.encoder, BackGRUEncoder):
+            from fiude_tpu_torch.ops.fused_gru_train import encode_train  # ops import models
+            return encode_train(x, self.encoder)
+        return self.encoder(x)
+
+    def _fused_trajectory(self, z: torch.Tensor, t, fa_w, time_mask):
+        """K5/K6 in stats mode: the latent trajectory and the stats aux
+        (``fiude_tpu/models/vae.py:292-357``)."""
+        from fiude_tpu_torch.ops.fused_train import train_trajectory, traj_to_model_layout
+        from fiude_tpu_torch.ops.fused_ude import pack_field
+        batch, n_regions, latent_dim = z.shape
+        grid = torch.as_tensor(t).detach().to("cpu", torch.float64)
+        dts = (grid[1:] - grid[:-1]).to(z.device, z.dtype)
+        if time_mask is None:
+            tmask = torch.ones_like(dts)
+        else:
+            tmask = torch.as_tensor(time_mask).to(z.device, z.dtype)
+        tail = z[..., 3:].reshape(batch, -1)
+        w = pack_field(self.ode, detach=False)
+        traj, r1, r2, f2 = train_trajectory(z[..., :3].reshape(batch, -1), tail, w,
+                                            fa_w=fa_w, dts=dts, tmask=tmask)
+        latent = traj_to_model_layout(traj, tail, n_regions, latent_dim)
+        aux = {}
+        if w.n0_fp:
+            aux["rate_stats"] = (r1, r2, 4.0 * batch * n_regions * tmask.sum())
+        if w.aug:
+            aux["fa_sq"] = f2
+        return latent, aux
+
     def forward(self, x: torch.Tensor, t, eps: torch.Tensor, *,
-                fa_w: float = 1.0):
-        """x: (B, T_in, F) window; t: (T,) grid; eps: (S, B, R, Le).
+                fa_w: float = 1.0, time_mask=None):
+        """x: (B, T_in, F) window; t: (T,) grid; eps: (S, B, R, Le);
+        ``time_mask``: optional (T-1,) per-interval loss weights of the padded
+        curriculum, read only by the fused stats path (every other path
+        applies it in the loss).
 
         Returns ``(y_pred (B, S, T, R), ForwardExtras)``.
         """
         n_samples, batch = eps.shape[0], eps.shape[1]
-        mean, std = self.encoder(x)
+        mean, std = self._encode(x)
         if not self.uncertainty:
             n_samples, eps = 1, eps[:1]
         z = reparam(eps, std, mean, uncertainty=self.uncertainty)
         z = z + self.ic_jitter
-        latent = odeint_grid(self.rhs_fn(fa_w), z, t, method=self.method)
+        if self.fused_train:
+            latent, aux = self._fused_trajectory(z, t, fa_w, time_mask)
+        else:
+            latent, aux = odeint_grid(self.rhs_fn(fa_w), z, t, method=self.method,
+                                      substeps=self.substeps)
         y = self.decoder(latent)                               # (T, S*B, R)
         y = y.reshape(y.shape[0], n_samples, batch, self.n_regions)
-        return y.permute(2, 1, 0, 3), ForwardExtras(mean, std, latent)
+        return y.permute(2, 1, 0, 3), ForwardExtras(mean, std, latent, aux)

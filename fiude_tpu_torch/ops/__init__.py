@@ -8,9 +8,18 @@ from fiude_tpu_torch.ops.fused_gru import (
     pack_backgru,
 )
 from fiude_tpu_torch.ops.fused_ude import (
+    FieldWeights,
     FusedForecaster,
     UDEWeights,
+    pack_field,
     pack_ude,
     trajectory_decode,
     trajectory_decode_plain,
+)
+from fiude_tpu_torch.ops.fused_gru_train import backgru_train_plain, encode_train
+from fiude_tpu_torch.ops.fused_train import (
+    RATE_SHIFT,
+    train_trajectory,
+    train_trajectory_plain,
+    traj_to_model_layout,
 )

@@ -3,10 +3,12 @@
 No counterpart in ``fiude_tpu`` (Pallas kernels compile inside ``jax.jit``).
 
 Every ``fiude_tpu_torch/csrc/*.cu`` goes into one shared library with a plain
-``extern "C"`` interface (no PyTorch headers, so a build takes seconds)::
+``extern "C"`` interface (no PyTorch headers, so a build takes seconds).  The
+sources compile in parallel, one nvcc each, then link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o libfiude_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c -o <name>.o csrc/<name>.cu          # all at once
+    nvcc -shared -o libfiude_kernels-<hash>.so *.o
 
 The library is named by a hash of the sources and the flags, built into
 ``fiude_tpu_torch/_build/`` and published by writing a temporary file and
@@ -33,7 +35,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 
 def sources() -> list[Path]:
@@ -41,7 +44,7 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -57,6 +60,18 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+def _run_all(commands) -> str:
+    """Run the commands at once; raise with the stderr of any that failed,
+    else return all their stderr."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                              text=True) for cmd in commands]
+    errs = [proc.communicate()[1] for proc in procs]
+    for proc, err in zip(procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{err}")
+    return "".join(errs)
+
+
 def build() -> Path:
     """Compile the library unless a build of these sources exists."""
     so = library_path()
@@ -64,21 +79,17 @@ def build() -> Path:
         return so
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
+    work = tempfile.mkdtemp(dir=BUILD_DIR, suffix=".tmp")
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp,
-                               *map(str, sources())],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        Path(tmp + ".log").write_text(proc.stderr)
-        os.replace(tmp + ".log", str(so) + ".log")
-        os.replace(tmp, so)
+        objs = [os.path.join(work, src.stem + ".o") for src in sources()]
+        log = _run_all([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                       for obj, src in zip(objs, sources()))
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", os.path.join(work, "lib.so"), *objs]])
+        Path(work, "lib.log").write_text(log)
+        os.replace(os.path.join(work, "lib.log"), str(so) + ".log")
+        os.replace(os.path.join(work, "lib.so"), so)
     finally:
-        for leftover in (tmp, tmp + ".log"):
-            if os.path.exists(leftover):
-                os.remove(leftover)
+        shutil.rmtree(work, ignore_errors=True)
     return so
 
 

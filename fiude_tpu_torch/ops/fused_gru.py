@@ -76,17 +76,18 @@ def _launcher():
     ptr, ptrs, ints, i = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
                           ctypes.POINTER(ctypes.c_int), ctypes.c_int)
     fn.argtypes = [ptr, i, i, i, i, ints, ptrs, ptrs, ptrs, ptrs,
-                   i, ints, ptrs, ptrs, ptr, ptr, ptr]
+                   i, ints, ptrs, ptrs, ptrs, ptrs, ptr, ptr, ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
-def backgru_encode_cuda(x: torch.Tensor, w: BackGRUWeights) -> torch.Tensor:
-    """Launch K1 on ``x``'s device and current stream."""
+def check_backgru(x: torch.Tensor, w: BackGRUWeights):
+    """Raise unless K1 (and K3) can take ``x`` and ``w``; returns the hidden
+    widths and the head's output width."""
     if x.dim() != 3 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous float32 (B, T, I) tensor, got "
                          f"{x.dtype} {tuple(x.shape)}")
-    B, T, I = x.shape
+    I = x.shape[2]
     n_layers, n_ff = len(w.grus), len(w.ff)
     if not (1 <= n_layers <= _MAX_LAYERS and 1 <= n_ff <= _MAX_LAYERS):
         raise ValueError(f"K1 takes 1-{_MAX_LAYERS} GRU and head layers, got "
@@ -104,19 +105,34 @@ def backgru_encode_cuda(x: torch.Tensor, w: BackGRUWeights) -> torch.Tensor:
         k = wf.shape[1]
     _build.check_weights([t for g in w.grus for t in g] + [t for f in w.ff for t in f],
                          x.device)
+    return hidden, k
 
-    launch = _launcher()
-    out = torch.empty(B, k, device=x.device, dtype=torch.float32)
+
+def launch_backgru(x: torch.Tensor, w: BackGRUWeights, hidden, out_width: int,
+                   hseq=None, gates=None) -> torch.Tensor:
+    """Launch the forward kernel on checked inputs (:func:`check_backgru`);
+    ``hseq`` / ``gates`` (per layer (B, T, H) / (B, T, 4H)) make it K3."""
+    B, T, I = x.shape
+    out = torch.empty(B, out_width, device=x.device, dtype=torch.float32)
     xproj = torch.empty(B * T, 3 * hidden[0], device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = launch(
-            x.data_ptr(), B, T, I, n_layers, _build.c_ints(hidden),
+        code = _launcher()(
+            x.data_ptr(), B, T, I, len(w.grus), _build.c_ints(hidden),
             *(_build.c_ptrs([g[i] for g in w.grus]) for i in range(4)),
-            n_ff, _build.c_ints([f[0].shape[1] for f in w.ff]),
+            len(w.ff), _build.c_ints([f[0].shape[1] for f in w.ff]),
             _build.c_ptrs([f[0] for f in w.ff]), _build.c_ptrs([f[1] for f in w.ff]),
+            None if hseq is None else _build.c_ptrs(hseq),
+            None if gates is None else _build.c_ptrs(gates),
             xproj.data_ptr(), out.data_ptr(), stream)
     _build.check(code, "fused_backgru_forward")
+    return out
+
+
+def backgru_encode_cuda(x: torch.Tensor, w: BackGRUWeights) -> torch.Tensor:
+    """Launch K1 on ``x``'s device and current stream."""
+    hidden, k = check_backgru(x, w)
+    out = launch_backgru(x, w, hidden, k)
     backgru_encode.launches += 1
     return out
 

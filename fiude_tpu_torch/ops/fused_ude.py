@@ -48,34 +48,61 @@ class UDEWeights(NamedTuple):
     dec_b: torch.Tensor     # (R_out,)
 
 
-def pack_ude(ode, decoder) -> UDEWeights:
-    """Lay out a deterministic RHS and its decoder for :func:`trajectory_decode`,
-    on their device and in their dtype (K2 takes float32)."""
+class FieldWeights(NamedTuple):
+    """A UDE field in the kernels' layout: the first fields of
+    :class:`UDEWeights`, without the decoder."""
+    w0_head: torch.Tensor
+    w0_tail: torch.Tensor
+    b0: torch.Tensor
+    n0_fp: int
+    fp: Tuple[Layer, ...]
+    aug: Tuple[Layer, ...]
+
+
+def pack_field(ode, *, detach: bool = True) -> FieldWeights:
+    """Lay out a deterministic RHS's nets on their device and in their dtype.
+
+    With ``detach=False`` the layout is built with differentiable ops
+    (transpose, concatenation, row gather), so autograd maps a gradient of
+    the packed tensors back onto the ``Fp_net`` / ``aug_net`` parameters: the
+    training path (K5/K6) takes its weights this way.
+    """
     if not isinstance(ode, (SIRRates, UDE, NeuralAug)):
         raise TypeError("the fused path supports SIRRates/UDE/NeuralAug RHS only, "
                         f"got {type(ode).__name__}")
+
+    def p(t):
+        return t.detach() if detach else t
+
     fp_net = getattr(ode, "Fp_net", None)
     aug_net = getattr(ode, "aug_net", None)
     nets = [net for net in (fp_net, aug_net) if net is not None]
-    w0 = torch.cat([net.linears[0].weight.detach().T for net in nets], dim=1)
-    b0 = torch.cat([net.linears[0].bias.detach() for net in nets])
+    w0 = torch.cat([p(net.linears[0].weight).T for net in nets], dim=1)
+    b0 = torch.cat([p(net.linears[0].bias) for net in nets])
     idx = torch.arange(ode.n_regions * ode.latent_dim, device=w0.device)
     idx = idx.reshape(ode.n_regions, ode.latent_dim)
 
     def later(net):
         if net is None:
             return ()
-        return tuple((lin.weight.detach().T.contiguous(), lin.bias.detach().contiguous())
+        return tuple((p(lin.weight).T.contiguous(), p(lin.bias).contiguous())
                      for lin in net.linears[1:])
 
-    dec = decoder.linear
-    return UDEWeights(
+    return FieldWeights(
         w0_head=w0[idx[:, :3].reshape(-1)].contiguous(),
         w0_tail=w0[idx[:, 3:].reshape(-1)].contiguous(),
         b0=b0.contiguous(),
         n0_fp=fp_net.linears[0].out_features if fp_net is not None else 0,
-        fp=later(fp_net), aug=later(aug_net),
-        dec_w=dec.weight.detach().T.contiguous(), dec_b=dec.bias.detach().contiguous())
+        fp=later(fp_net), aug=later(aug_net))
+
+
+def pack_ude(ode, decoder) -> UDEWeights:
+    """Lay out a deterministic RHS and its decoder for :func:`trajectory_decode`,
+    on their device and in their dtype (K2 takes float32)."""
+    field = pack_field(ode)
+    dec = decoder.linear
+    return UDEWeights(*field, dec_w=dec.weight.detach().T.contiguous(),
+                      dec_b=dec.bias.detach().contiguous())
 
 
 def _later_layers(h: torch.Tensor, layers) -> torch.Tensor:
@@ -108,7 +135,7 @@ def trajectory_decode_plain(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: floa
 
     zs = [z0[..., :3].reshape(B, 3 * R)]       # the S, I, R head, r*3 + c
     for _ in range(T - 1):
-        zs.append(rk4_38_step(field, 0.0, dt, zs[-1]))
+        zs.append(rk4_38_step(field, 0.0, dt, zs[-1])[0])
     return torch.stack(zs) @ w.dec_w + w.dec_b
 
 

@@ -87,13 +87,19 @@ def load_state_from_flat(model: nn.Module, flat: Dict[str, np.ndarray], *,
     return copied
 
 
-def save_params(prefix: str, model: nn.Module) -> None:
-    """Write ``{prefix}{enc,ode,dec}.npz`` (reference ``lib/VAE.py:308-315``)."""
+def save_flat(prefix: str, parts: Dict[str, Dict[str, np.ndarray]]) -> None:
+    """Write ``{prefix}{enc,ode,dec}.npz`` from :func:`flat_from_module`'s
+    arrays, one dict per part."""
     d = os.path.dirname(prefix)
     if d:
         os.makedirs(d, exist_ok=True)
     for part in PARTS:
-        np.savez(f"{prefix}{part}.npz", **flat_from_module(model, part))
+        np.savez(f"{prefix}{part}.npz", **parts[part])
+
+
+def save_params(prefix: str, model: nn.Module) -> None:
+    """Write ``{prefix}{enc,ode,dec}.npz`` (reference ``lib/VAE.py:308-315``)."""
+    save_flat(prefix, {part: flat_from_module(model, part) for part in PARTS})
 
 
 def load_params(model: nn.Module, prefix: str, *, strict: bool = False) -> nn.Module:

@@ -135,7 +135,7 @@ class TestTrajectoryTwin:
             got = fused_ude.trajectory_decode_plain(
                 z0, fused_ude.pack_ude(port.ode, port.decoder), T=5, dt=1 / 7,
                 fa_w=0.5)
-            want = port.decoder(odeint_grid(port.rhs_fn(0.5), z0, np.arange(5) / 7))
+            want = port.decoder(odeint_grid(port.rhs_fn(0.5), z0, np.arange(5) / 7)[0])
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
@@ -189,7 +189,8 @@ class TestBuild:
         path = _build.library_path()
         assert path.parent == _build.BUILD_DIR
         assert path == _build.library_path()
-        assert [p.name for p in _build.sources()] == ["fused_gru.cu", "fused_ude.cu"]
+        assert [p.name for p in _build.sources()] == [
+            "fused_gru.cu", "fused_gru_train.cu", "fused_train.cu", "fused_ude.cu"]
         src = tmp_path / "csrc"
         src.mkdir()
         (src / "a.cu").write_text("one")

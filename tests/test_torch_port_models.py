@@ -200,7 +200,7 @@ class TestIntegrate:
         ys_j, _ = jax_odeint_grid(jm.rhs_fn(params.ode, 0.8), jnp.asarray(y0),
                                   jnp.asarray(t), method="rk4")
         with torch.no_grad():
-            ys_t = odeint_grid(port.rhs_fn(0.8), t64(y0), t64(t), method="rk4")
+            ys_t, _ = odeint_grid(port.rhs_fn(0.8), t64(y0), t64(t), method="rk4")
         assert ys_t.shape == (5, 3, 2, 5)
         close(ys_t, ys_j)
 
