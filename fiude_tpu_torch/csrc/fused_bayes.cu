@@ -1,0 +1,166 @@
+// The Bayes (mean-field variational) families' serving trajectory for Hopper
+// (sm_90a): kernel K7, and the weight draw that K7, K8 and K9 share.
+//
+// Replaces: fiude_tpu/ops/pallas_bayes.py::fused_bayes_trajectory_decode
+// (kernel body _make_bayes_kernel, pallas_bayes.py:103-230): K2's T-1 Kutta
+// 3/8 steps and per-step decode with effective weights w = mean + z * |std|
+// drawn fresh on each of the 4(T-1) RHS evaluations, one draw shared by every
+// row of the folded ensemble, and the frozen tail's first-layer product on
+// every evaluation (the first layer is resampled, so it cannot be hoisted,
+// pallas_bayes.py:29-31).
+//
+// Where the noise is made.  The TPU kernel materializes the effective
+// weights inside every batch-tile program from the on-core generator; its
+// tiles are 1024 rows, so the draw is small beside the products.  On the
+// card a block holds 16 rows: were every block to draw all P = 73,493
+// normals itself per evaluation (the `state` config), ~100 integer and
+// transcendental operations a weight would stand against 16 multiply-adds a
+// weight, 128 blocks over, and the 294 KB of effective weights do not fit a
+// block's shared memory beside its state.  The noise is shared by all rows,
+// so it is drawn ONCE for all blocks: bayes_draw_kernel writes the effective
+// weights of every evaluation (E, P) to global memory (and, for training,
+// their transposes and the noise z itself), launched by the same wrapper on
+// the same stream; the trajectory kernel is then K2's loop (fused_ude.cuh
+// with kBayes) with the weight base moved by P floats an evaluation and the
+// tail product inside the loop.  Cost: one more launch and E * P floats (99 MB
+// for a request of 85 daily points, 8 MB for a training step of 8 weekly
+// points), read back through L2 by blocks that walk the evaluations nearly in
+// step.
+//
+// What bounds K7 on the card: float32 arithmetic, as K2, with 392 x 128
+// instead of 147 x 128 multiply-adds a row in the first layer (72,960
+// multiply-adds a row an evaluation against K2's 41,600).
+//
+// The draw is Philox4x32-10 + Box-Muller (philox.cuh), a pure function of
+// (seed, evaluation, packed array, element): the same bits for every block,
+// in the backward as in the forward, and in the plain PyTorch version
+// (ops/philox.py).  In injected-noise mode (tests) z is read from a buffer
+// (E, P) instead.
+
+#include "fused_ude.cuh"
+#include "philox.cuh"
+
+namespace {
+
+constexpr int kMaxArrays = 3 + 4 * kMaxDeep;   // w0_head, w0_tail, b0, (w, b) per later layer
+
+struct Packed {           // the packed arrays, end to end
+  int n;
+  int off[kMaxArrays + 1];
+  int rows[kMaxArrays];   // a bias is one row
+  int cols[kMaxArrays];
+};
+
+// w[e][p] = mean[p] + z * std[p] with z = noise[e][p] or the Philox normal of
+// (seed, e, array, element); wt (optional) holds each matrix transposed in its
+// own slot; zout (optional) keeps z for the backward.
+__global__ void bayes_draw_kernel(const float* __restrict__ mean, const float* __restrict__ stdabs,
+                                  const float* __restrict__ noise, unsigned long long seed,
+                                  int P, Packed pk, float* __restrict__ w,
+                                  float* __restrict__ wt, float* __restrict__ zout) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const int e = blockIdx.y;
+  if (p >= P) return;
+  int k = 0;
+  while (k + 1 < pk.n && p >= pk.off[k + 1]) ++k;
+  const int i = p - pk.off[k];
+  const size_t base = (size_t)e * P;
+  const float z = noise != nullptr ? noise[base + p]
+                                   : philox::normal(seed, (uint32_t)e, (uint32_t)k, (uint32_t)i);
+  const float v = mean[p] + z * stdabs[p];
+  w[base + p] = v;
+  if (zout != nullptr) zout[base + p] = z;
+  if (wt != nullptr) {
+    const int r = i / pk.cols[k], c = i % pk.cols[k];
+    wt[base + pk.off[k] + (size_t)c * pk.rows[k] + r] = v;
+  }
+}
+
+// Offsets of a field's packed arrays (w0_head, w0_tail, b0, then each later
+// (w, b) of the rates net, then of the Fa net); returns P.
+size_t packed_offsets(int R, int DT, int N0, int n0_fp, int n_fp, const int* fp_out, int n_aug,
+                      const int* aug_out, size_t* w_off, size_t* b_off) {
+  size_t off = (size_t)3 * R * N0 + (size_t)DT * N0 + N0;
+  int in = n0_fp, q = 0;
+  for (int d = 0; d < n_fp; ++d, ++q) {
+    w_off[q] = off; off += (size_t)in * fp_out[d];
+    b_off[q] = off; off += fp_out[d];
+    in = fp_out[d];
+  }
+  in = N0 - n0_fp;
+  for (int d = 0; d < n_aug; ++d, ++q) {
+    w_off[q] = off; off += (size_t)in * aug_out[d];
+    b_off[q] = off; off += aug_out[d];
+    in = aug_out[d];
+  }
+  return off;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The effective weights of E evaluations.  mean, stdabs (P): the packed
+// arrays end to end, n_arr of them with rows[k] x cols[k] elements; noise
+// (E, P) or null (then Philox from `seed`); writes w (E, P) and, unless null,
+// wt (E, P) and z (E, P).  Launches on `stream`; returns cudaGetLastError().
+int fused_bayes_draw(const float* mean, const float* stdabs, const float* noise,
+                     unsigned long long seed, int E, int P, int n_arr, const int* rows,
+                     const int* cols, float* w, float* wt, float* z, void* stream) {
+  if (E < 1 || E > 65535 || P < 1 || n_arr < 1 || n_arr > kMaxArrays) return cudaErrorInvalidValue;
+  Packed pk = {};
+  pk.n = n_arr;
+  for (int k = 0; k < n_arr; ++k) {
+    if (rows[k] < 0 || cols[k] < 1) return cudaErrorInvalidValue;
+    pk.rows[k] = rows[k];
+    pk.cols[k] = cols[k];
+    pk.off[k + 1] = pk.off[k] + rows[k] * cols[k];
+  }
+  if (pk.off[n_arr] != P) return cudaErrorInvalidValue;
+  const int threads = 256;
+  const dim3 grid((P + threads - 1) / threads, E);
+  bayes_draw_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      mean, stdabs, noise, seed, P, pk, w, wt, z);
+  return cudaGetLastError();
+}
+
+// K7.  zh0 (B, 3R) region-major head; ztail (B, DT); weff (4(T-1), P) from
+// fused_bayes_draw, each evaluation's packed arrays ((in, out) weights);
+// decoder (3R, R_out); out (T, B, R_out).  Launches on `stream`; returns
+// cudaGetLastError().
+int fused_bayes_trajectory(const float* zh0, const float* ztail, int B, int T, float dt,
+                           float fa_w, int R, int DT, int N0, int n0_fp, int R_out,
+                           const float* weff, int P, int n_fp, const int* fp_out, int n_aug,
+                           const int* aug_out, const void* dec_w, const void* dec_b,
+                           float* out, void* stream) {
+  if (B < 1 || T < 1 || R < 1 || DT < 0 || N0 < 1 || R_out < 1 || n_fp < 0 || n_fp > kMaxDeep ||
+      n_aug < 0 || n_aug > kMaxDeep || (n_fp > 0) != (n0_fp > 0) || (n_aug > 0) != (N0 > n0_fp))
+    return cudaErrorInvalidValue;
+  size_t w_off[2 * kMaxDeep], b_off[2 * kMaxDeep];
+  if (packed_offsets(R, DT, N0, n0_fp, n_fp, fp_out, n_aug, aug_out, w_off, b_off) != (size_t)P)
+    return cudaErrorInvalidValue;
+  UdeArgs a = {};
+  a.P = P;
+  a.R = R; a.DT = DT; a.N0 = N0; a.n0_fp = n0_fp; a.R_out = R_out;
+  a.w0h = weff;
+  a.w0t = weff + (size_t)3 * R * N0;
+  a.b0 = a.w0t + (size_t)DT * N0;
+  a.dec_w = static_cast<const float*>(dec_w);
+  a.dec_b = static_cast<const float*>(dec_b);
+  a.fp.n = n_fp;
+  for (int d = 0; d < n_fp; ++d) {
+    a.fp.out[d] = fp_out[d];
+    a.fp.w[d] = weff + w_off[d];
+    a.fp.b[d] = weff + b_off[d];
+  }
+  a.aug.n = n_aug;
+  for (int d = 0; d < n_aug; ++d) {
+    a.aug.out[d] = aug_out[d];
+    a.aug.w[d] = weff + w_off[n_fp + d];
+    a.aug.b[d] = weff + b_off[n_fp + d];
+  }
+  const int wmax = pingpong_width(R_out, n_fp, fp_out, n_aug, aug_out);
+  return launch_trajectory<true>(zh0, ztail, B, T, dt, fa_w, a, wmax, out, stream);
+}
+
+}  // extern "C"

@@ -45,6 +45,30 @@
 //  * the statistics are accumulated per thread over the whole trajectory and
 //    reduced once per block, in a fixed order.
 // All arithmetic is float32.  The kernels allocate nothing.
+//
+// K8 and K9, the Bayes families' training trajectory, are the same kernels
+// under the compile-time switch kBayes.  They replace
+// fiude_tpu/ops/pallas_bayes_train.py::_get_bayes_train_traj.fwd_impl (K8,
+// _make_fwd_kernel, pallas_bayes_train.py:113-274) and ::bwd_impl (K9,
+// _make_bwd_kernel, :281-598) in stats mode: K5/K6's math on effective
+// weights w(e) = mean + z(e) * |std| that differ on every RHS evaluation e.
+// The weights are not drawn here: fused_bayes_draw (csrc/fused_bayes.cu)
+// writes w(e), its transposes and z(e) for every evaluation to global memory
+// once for all blocks (the noise is shared by every row), and evaluation e
+// reads its arrays P * e floats past evaluation 0's.  What changes with
+// kBayes:
+//  * the frozen tail's first-layer term is recomputed on every evaluation
+//    (the first layer is resampled), so the tail keeps its own shared buffer;
+//  * the tail's cotangent, the tail weights' and the first bias's are
+//    contracted on every evaluation, with that evaluation's weights; the
+//    tail's cotangent accumulates in the output rows the block owns;
+//  * a block's slice holds two cotangent sets: g_mean += g_w and, P floats
+//    further on, g_stdabs += g_w * z(e), with z(e) read at accumulation time
+//    (it cannot be formed from the summed g_mean); the sign of std is
+//    autograd's, outside the kernel;
+//  * no per-block copy of any weight: the Bayes backward uses the shared
+//    memory of K6 less the summed first-layer cotangent plus the tail
+//    (216,320 bytes a block at the `state` config, K6 208,832).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -67,7 +91,12 @@ struct Net {
   size_t gw[kMaxDeep], gb[kMaxDeep];   // offsets of the cotangents in a slice
 };
 
+// With kBayes every weight pointer is that of evaluation 0 in a buffer of
+// effective weights (E, P) (the transposes likewise), and the offsets of the
+// cotangent slice are also the packed offsets of the arrays in P.
 struct Args {
+  size_t P;            // floats of one evaluation's packed weights
+  const float* z;      // (E, P) the evaluations' noise (kBayes backward only)
   int B, T, R, DT, N0, n0_fp;
   int dmax;            // the widest layer after the first
   const float* w0h;    // (3R, N0)
@@ -90,6 +119,7 @@ struct Acts {
 };
 
 struct Stash {
+  float4 *tail;        // the frozen tail, kept for every evaluation (kBayes only)
   float4 *ct, *h0pre, *h0post;
   Acts fp, aug;
 };
@@ -161,15 +191,21 @@ __device__ void dense_back(const float* __restrict__ Wt, const float4* delta, in
 }
 
 // This block's slice: gw (K, N) += x^T delta, gb (N) += column sums of delta,
-// over the tile's rows.  Each element has one owner thread.
+// over the tile's rows.  Each element has one owner thread.  With kBayes the
+// std cotangents, P floats further on, take the same sums times this
+// evaluation's noise zw (K, N), zb (N).
+template <bool kBayes>
 __device__ void weight_grad(const float4* x, int K, const float4* delta, int N,
-                            float* __restrict__ gw, float* __restrict__ gb) {
+                            float* __restrict__ gw, float* __restrict__ gb,
+                            const float* __restrict__ zw, const float* __restrict__ zb,
+                            size_t P) {
   for (int it = threadIdx.x; it < K * N; it += blockDim.x) {
     const int k = it / N, j = it % N;
     float s = 0.f;
 #pragma unroll
     for (int g = 0; g < kG; ++g) s += dot4(x[k * kG + g], delta[j * kG + g]);
     gw[it] += s;
+    if (kBayes) gw[P + it] += s * __ldg(zw + it);
   }
   if (gb != nullptr) {
     for (int j = threadIdx.x; j < N; j += blockDim.x) {
@@ -180,16 +216,38 @@ __device__ void weight_grad(const float4* x, int K, const float4* delta, int N,
         s += d.x + d.y + d.z + d.w;
       }
       gb[j] += s;
+      if (kBayes) gb[P + j] += s * __ldg(zb + j);
     }
+  }
+}
+
+// out (B, K) rows row0.. += delta @ W^T for the tile's valid rows, Wt (N, K):
+// the tail's cotangent, accumulated over evaluations in the rows this block
+// owns (kBayes).  Each element has one owner thread.
+__device__ void dense_back_rows(const float* __restrict__ Wt, const float4* delta, int N, int K,
+                                float* __restrict__ out, int row0, int valid) {
+  for (int it = threadIdx.x; it < K * kG; it += blockDim.x) {
+    const int k = it % K, g = it / K;
+    float4 acc = splat(0.f);
+    const float4* d4 = delta + g;
+#pragma unroll 4
+    for (int j = 0; j < N; ++j) fma4(acc, d4[j * kG], __ldg(Wt + (size_t)j * K + k));
+    const int r = 4 * g;
+    float* o = out + (size_t)(row0 + r) * K + k;
+    if (r < valid) o[0] += acc.x;
+    if (r + 1 < valid) o[K] += acc.y;
+    if (r + 2 < valid) o[2 * (size_t)K] += acc.z;
+    if (r + 3 < valid) o[3 * (size_t)K] += acc.w;
   }
 }
 
 // A net's layers after the first, reading `in` (width K), pre/post-activations
 // into `acts`.  Layer d's output is ELU'd for layer d+1 when d < n-2.
-__device__ void net_forward(const Net& net, const float4* in, int K, const Acts& acts) {
+__device__ void net_forward(const Net& net, size_t woff, const float4* in, int K,
+                            const Acts& acts) {
   for (int d = 0; d < net.n; ++d) {
     const bool last = d == net.n - 1;
-    dense(net.w[d], net.b[d], nullptr, in, K, net.out[d], acts.pre[d],
+    dense(net.w[d] + woff, net.b[d] + woff, nullptr, in, K, net.out[d], acts.pre[d],
           last ? nullptr : acts.post[d], net.out[d], d < net.n - 2, false);
     in = acts.post[d];
     K = net.out[d];
@@ -198,14 +256,21 @@ __device__ void net_forward(const Net& net, const float4* in, int K, const Acts&
 
 // One RHS evaluation at zs, keeping every activation in `st`.  With `field`,
 // also writes the field; with `stats`, adds this evaluation's statistics
-// (weight m, tile rows < valid) to the thread's accumulators.
+// (weight m, tile rows < valid) to the thread's accumulators.  `e` is the
+// evaluation's index: with kBayes its weights, and the tail's first-layer
+// term recomputed from them.
+template <bool kBayes>
 __device__ void rhs_eval(const Args& a, const Stash& st, const float4* zs, float4* field,
-                         float fa_w, float m, int valid, float* stats) {
+                         float fa_w, float m, int valid, float* stats, int e) {
   const bool mech = a.n0_fp > 0, has_aug = a.aug.n > 0;
-  dense(a.w0h, nullptr, st.ct, zs, 3 * a.R, a.N0, st.h0pre, st.h0post, a.n0_fp,
+  const size_t woff = kBayes ? a.P * (size_t)e : 0;
+  if (kBayes)
+    dense(a.w0t + woff, a.b0 + woff, nullptr, st.tail, a.DT, a.N0, st.ct, nullptr, 0, false,
+          false);
+  dense(a.w0h + woff, nullptr, st.ct, zs, 3 * a.R, a.N0, st.h0pre, st.h0post, a.n0_fp,
         a.fp.n >= 2, a.aug.n >= 2);
-  if (mech) net_forward(a.fp, st.h0post, a.n0_fp, st.fp);
-  if (has_aug) net_forward(a.aug, st.h0post + a.n0_fp * kG, a.N0 - a.n0_fp, st.aug);
+  if (mech) net_forward(a.fp, woff, st.h0post, a.n0_fp, st.fp);
+  if (has_aug) net_forward(a.aug, woff, st.h0post + a.n0_fp * kG, a.N0 - a.n0_fp, st.aug);
   if (field == nullptr && stats == nullptr) return;
 
   const float* z = reinterpret_cast<const float*>(zs);
@@ -317,6 +382,7 @@ __device__ void block_sum(const float* v, int nv, float* buf, float* __restrict_
 // K5: forward.  Shared memory: zh, zs, k1..k4 ([3R][kTile] each; the tail is
 // staged over the stages first), then the stash.
 // ---------------------------------------------------------------------------
+template <bool kBayes>
 __global__ void __launch_bounds__(kThreads)
 train_forward_kernel(const float* __restrict__ zh0, const float* __restrict__ ztail,
                      Args a, float* __restrict__ traj, float* __restrict__ stats_out) {
@@ -330,15 +396,18 @@ train_forward_kernel(const float* __restrict__ zh0, const float* __restrict__ zt
   float4* k[4];
   float4* stages = p;
   for (int q = 0; q < 4; ++q) { k[q] = p; p += W3 * kG; }
-  if (a.DT > 4 * W3) p = stages + a.DT * kG;
+  float4* tail = stages;
+  if (kBayes) { tail = p; p += a.DT * kG; }
+  else if (a.DT > 4 * W3) p = stages + a.DT * kG;
   Stash st;
   carve_stash(a, p, st);
+  st.tail = tail;
   const float fa_w = *a.fa_w;
 
   load_tile(zh0, B, W3, row0, zh);
-  load_tile(ztail, B, a.DT, row0, stages);
+  load_tile(ztail, B, a.DT, row0, tail);
   __syncthreads();
-  dense(a.w0t, a.b0, nullptr, stages, a.DT, a.N0, st.ct, nullptr, 0, false, false);
+  if (!kBayes) dense(a.w0t, a.b0, nullptr, tail, a.DT, a.N0, st.ct, nullptr, 0, false, false);
   store_tile(zh, B, W3, row0, traj);
 
   float acc[kStats] = {};
@@ -352,16 +421,16 @@ train_forward_kernel(const float* __restrict__ zh0, const float* __restrict__ zt
   const float third = 1.f / 3.f;
   for (int i = 0; i + 1 < a.T; ++i) {
     const float dt = a.dts[i], m = a.tmask[i];
-    rhs_eval(a, st, zh, k[0], fa_w, m, valid, acc);
+    rhs_eval<kBayes>(a, st, zh, k[0], fa_w, m, valid, acc, 4 * i + 0);
     for (int e = threadIdx.x; e < n; e += blockDim.x) zsf[e] = zhf[e] + dt * k1[e] * third;
     __syncthreads();
-    rhs_eval(a, st, zs, k[1], fa_w, m, valid, acc);
+    rhs_eval<kBayes>(a, st, zs, k[1], fa_w, m, valid, acc, 4 * i + 1);
     for (int e = threadIdx.x; e < n; e += blockDim.x) zsf[e] = zhf[e] + dt * (k2[e] - k1[e] * third);
     __syncthreads();
-    rhs_eval(a, st, zs, k[2], fa_w, m, valid, acc);
+    rhs_eval<kBayes>(a, st, zs, k[2], fa_w, m, valid, acc, 4 * i + 2);
     for (int e = threadIdx.x; e < n; e += blockDim.x) zsf[e] = zhf[e] + dt * (k1[e] - k2[e] + k3[e]);
     __syncthreads();
-    rhs_eval(a, st, zs, k[3], fa_w, m, valid, acc);
+    rhs_eval<kBayes>(a, st, zs, k[3], fa_w, m, valid, acc, 4 * i + 3);
     for (int e = threadIdx.x; e < n; e += blockDim.x)
       zhf[e] = zhf[e] + dt * (k1[e] + 3.f * (k2[e] + k3[e]) + k4[e]) * 0.125f;
     __syncthreads();
@@ -384,9 +453,11 @@ struct Grad {          // [feature][kTile] buffers of the reverse sweep
 // Backprop a net's layers after the first from `delta` (its last layer's
 // output cotangent, in buffer `x`), into the first layer's columns
 // [c0, c0 + K0) of g.d0; ping-pongs through x and y.
+template <bool kBayes>
 __device__ void net_backward(const Args& a, const Net& net, const Acts& acts,
                              const Stash& st, int c0, int K0, float4* x, float4* y,
-                             const Grad& g, float* slice) {
+                             const Grad& g, float* slice, size_t woff) {
+  const float* z = kBayes ? a.z + woff : nullptr;
   float4* delta = x;
   float4* other = y;
   for (int d = net.n - 1; d >= 0; --d) {
@@ -394,9 +465,10 @@ __device__ void net_backward(const Args& a, const Net& net, const Acts& acts,
     const float4* in_pre = d == 0 ? st.h0pre + c0 * kG : acts.pre[d - 1];
     const int K = d == 0 ? K0 : net.out[d - 1];
     const bool act = d == 0 ? net.n >= 2 : d - 1 < net.n - 2;
-    weight_grad(in, K, delta, net.out[d], slice + net.gw[d], slice + net.gb[d]);
+    weight_grad<kBayes>(in, K, delta, net.out[d], slice + net.gw[d], slice + net.gb[d],
+                        z + net.gw[d], z + net.gb[d], a.P);
     float4* dst = d == 0 ? g.d0 + c0 * kG : other;
-    dense_back(net.wt[d], delta, net.out[d], K, dst, in_pre, act, false);
+    dense_back(net.wt[d] + woff, delta, net.out[d], K, dst, in_pre, act, false);
     other = delta;
     delta = dst;
   }
@@ -406,12 +478,17 @@ __device__ void net_backward(const Args& a, const Net& net, const Acts& acts,
 // weight cotangent added to this block's slice.  In stats mode the aux
 // cotangents are m * (g1 + 2 (rate - shift) g2) for the rates and
 // m * 2 g_f2 Fa for the Fa field (pallas_train.py:435-445).  The freeze mask
-// zeroes the field's cotangent, not the state's.
+// zeroes the field's cotangent, not the state's.  With kBayes the weights
+// (and the noise of the std cotangents) are evaluation e's, and the tail's
+// terms are contracted here, into g_ztail's rows row0...
+template <bool kBayes>
 __device__ void rhs_vjp(const Args& a, const Stash& st, const Grad& g, const float4* u,
                         float fa_w, float m, const float* gs, int valid, float* slice,
-                        float& faw_acc) {
+                        float& faw_acc, int e, float* __restrict__ g_ztail, int row0) {
   const bool mech = a.n0_fp > 0, has_aug = a.aug.n > 0;
-  rhs_eval(a, st, u, nullptr, fa_w, m, valid, nullptr);
+  const size_t woff = kBayes ? a.P * (size_t)e : 0;
+  const float* zn = kBayes ? a.z + woff : nullptr;
+  rhs_eval<kBayes>(a, st, u, nullptr, fa_w, m, valid, nullptr, e);
 
   const float* z = reinterpret_cast<const float*>(u);
   const float* go = reinterpret_cast<const float*>(g.gout);
@@ -463,24 +540,39 @@ __device__ void rhs_vjp(const Args& a, const Stash& st, const Grad& g, const flo
     gu[iR] = 0.f;
   }
   __syncthreads();
-  if (mech) net_backward(a, a.fp, st.fp, st, 0, a.n0_fp, g.da, g.db, g, slice);
-  if (has_aug) net_backward(a, a.aug, st.aug, st, a.n0_fp, a.N0 - a.n0_fp, g.dc, g.db, g, slice);
-  // first layer: its weights' cotangent per evaluation, the bias and tail
-  // terms from the sum over evaluations (at the end), the input cotangent
-  weight_grad(u, 3 * a.R, g.d0, a.N0, slice + a.g_w0h, nullptr);
-  float* d0sum = reinterpret_cast<float*>(g.d0sum);
-  const float* d0 = reinterpret_cast<const float*>(g.d0);
-  for (int e = threadIdx.x; e < a.N0 * kTile; e += blockDim.x) d0sum[e] += d0[e];
-  dense_back(a.w0ht, g.d0, a.N0, 3 * a.R, g.gu, nullptr, false, true);
+  if (mech)
+    net_backward<kBayes>(a, a.fp, st.fp, st, 0, a.n0_fp, g.da, g.db, g, slice, woff);
+  if (has_aug)
+    net_backward<kBayes>(a, a.aug, st.aug, st, a.n0_fp, a.N0 - a.n0_fp, g.dc, g.db, g, slice,
+                         woff);
+  // first layer: its weights' cotangent per evaluation; the bias and tail
+  // terms from the sum over evaluations (at the end) when the weights are
+  // fixed, per evaluation when they are resampled; the input cotangent
+  weight_grad<kBayes>(u, 3 * a.R, g.d0, a.N0, slice + a.g_w0h, nullptr, zn + a.g_w0h, nullptr,
+                      a.P);
+  if (kBayes) {
+    weight_grad<true>(st.tail, a.DT, g.d0, a.N0, slice + a.g_w0t, slice + a.g_b0,
+                      zn + a.g_w0t, zn + a.g_b0, a.P);
+    dense_back_rows(a.w0tt + woff, g.d0, a.N0, a.DT, g_ztail, row0, valid);
+  } else {
+    float* d0sum = reinterpret_cast<float*>(g.d0sum);
+    const float* d0 = reinterpret_cast<const float*>(g.d0);
+    for (int q = threadIdx.x; q < a.N0 * kTile; q += blockDim.x) d0sum[q] += d0[q];
+  }
+  dense_back(a.w0ht + woff, g.d0, a.N0, 3 * a.R, g.gu, nullptr, false, true);
 }
 
-size_t grad_features(const Args& a) {
-  return 11 * (size_t)(3 * a.R) + 2 * (size_t)a.N0 + 3 * (size_t)a.dmax;
+size_t grad_features(const Args& a, bool bayes) {
+  const size_t W3 = 3 * (size_t)a.R;
+  const size_t tail = bayes || (size_t)a.DT > 6 * W3 ? a.DT : 0;
+  return 11 * W3 + (bayes ? 1 : 2) * (size_t)a.N0 + 3 * (size_t)a.dmax + tail;
 }
 
 // Shared memory: the Grad buffers (zh, u2..u4, gz, gacc, gk1..gk3, gout, gu
 // [3R]; d0, d0sum [N0]; da, db, dc [widest deep layer]), then the stash.  The
-// tail is staged over gacc.. (free at the start and at the end).
+// tail is staged over gacc.. (free at the start and at the end).  With kBayes
+// there is no d0sum and the tail has its own buffer.
+template <bool kBayes>
 __global__ void __launch_bounds__(kThreads)
 train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ gtraj,
                       const float* __restrict__ ztail, const float* __restrict__ gstats,
@@ -500,25 +592,31 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
                    &g.gout, &g.gu};
   for (float4** b : w3) { *b = p; p += W3 * kG; }
   g.d0 = p;    p += a.N0 * kG;
-  g.d0sum = p; p += a.N0 * kG;
+  g.d0sum = p;
+  if (!kBayes) p += a.N0 * kG;
   g.da = p;    p += dmax * kG;
   g.db = p;    p += dmax * kG;
   g.dc = p;    p += dmax * kG;
   float4* tail = g.gacc;                  // 6 * 3R features free up to gu
-  if (a.DT > 6 * W3) { tail = p; p += a.DT * kG; }
+  if (kBayes || a.DT > 6 * W3) { tail = p; p += a.DT * kG; }
   Stash st;
   carve_stash(a, p, st);
+  st.tail = tail;
   const float fa_w = *a.fa_w;
   float gs[5];
   for (int q = 0; q < 5; ++q) gs[q] = gstats[q];
 
   for (size_t e = tid; e < a.n_grad; e += blockDim.x) slice[e] = 0.f;
-  float* d0sum = reinterpret_cast<float*>(g.d0sum);
-  for (int e = tid; e < a.N0 * kTile; e += blockDim.x) d0sum[e] = 0.f;
+  if (kBayes) {
+    for (int e = tid; e < valid * a.DT; e += blockDim.x) g_ztail[(size_t)row0 * a.DT + e] = 0.f;
+  } else {
+    float* d0sum = reinterpret_cast<float*>(g.d0sum);
+    for (int e = tid; e < a.N0 * kTile; e += blockDim.x) d0sum[e] = 0.f;
+  }
   load_tile(ztail, B, a.DT, row0, tail);
   load_tile(gtraj + (size_t)(a.T - 1) * B * W3, B, W3, row0, g.gz);
   __syncthreads();
-  dense(a.w0t, a.b0, nullptr, tail, a.DT, a.N0, st.ct, nullptr, 0, false, false);
+  if (!kBayes) dense(a.w0t, a.b0, nullptr, tail, a.DT, a.N0, st.ct, nullptr, 0, false, false);
 
   const int n = W3 * kTile;
   float* zh = reinterpret_cast<float*>(g.zh);
@@ -539,13 +637,13 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
     load_tile(traj + (size_t)i * B * W3, B, W3, row0, g.zh);
     __syncthreads();
     // the stages, recomputed from the stored state (k1..k3 in gk1..gk3)
-    rhs_eval(a, st, g.zh, g.gk1, fa_w, m, valid, nullptr);
+    rhs_eval<kBayes>(a, st, g.zh, g.gk1, fa_w, m, valid, nullptr, 4 * i);
     for (int e = tid; e < n; e += blockDim.x) u2[e] = zh[e] + dt * gk1[e] * third;
     __syncthreads();
-    rhs_eval(a, st, g.u2, g.gk2, fa_w, m, valid, nullptr);
+    rhs_eval<kBayes>(a, st, g.u2, g.gk2, fa_w, m, valid, nullptr, 4 * i + 1);
     for (int e = tid; e < n; e += blockDim.x) u3[e] = zh[e] + dt * (gk2[e] - gk1[e] * third);
     __syncthreads();
-    rhs_eval(a, st, g.u3, g.gk3, fa_w, m, valid, nullptr);
+    rhs_eval<kBayes>(a, st, g.u3, g.gk3, fa_w, m, valid, nullptr, 4 * i + 2);
     for (int e = tid; e < n; e += blockDim.x) {
       u4[e] = zh[e] + dt * (gk1[e] - gk2[e] + gk3[e]);
       const float c = gz[e];
@@ -556,7 +654,8 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
       gacc[e] = c;
     }
     __syncthreads();
-    rhs_vjp(a, st, g, g.u4, fa_w, m, gs, valid, slice, faw_acc);
+    rhs_vjp<kBayes>(a, st, g, g.u4, fa_w, m, gs, valid, slice, faw_acc, 4 * i + 3, g_ztail,
+                    row0);
     for (int e = tid; e < n; e += blockDim.x) {
       gacc[e] += gu[e];
       gk1[e] += dt * gu[e];
@@ -565,7 +664,8 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
       gout[e] = gk3[e];
     }
     __syncthreads();
-    rhs_vjp(a, st, g, g.u3, fa_w, m, gs, valid, slice, faw_acc);
+    rhs_vjp<kBayes>(a, st, g, g.u3, fa_w, m, gs, valid, slice, faw_acc, 4 * i + 2, g_ztail,
+                    row0);
     for (int e = tid; e < n; e += blockDim.x) {
       gacc[e] += gu[e];
       gk2[e] += dt * gu[e];
@@ -573,14 +673,16 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
       gout[e] = gk2[e];
     }
     __syncthreads();
-    rhs_vjp(a, st, g, g.u2, fa_w, m, gs, valid, slice, faw_acc);
+    rhs_vjp<kBayes>(a, st, g, g.u2, fa_w, m, gs, valid, slice, faw_acc, 4 * i + 1, g_ztail,
+                    row0);
     for (int e = tid; e < n; e += blockDim.x) {
       gacc[e] += gu[e];
       gk1[e] += dt * gu[e] * third;
       gout[e] = gk1[e];
     }
     __syncthreads();
-    rhs_vjp(a, st, g, g.zh, fa_w, m, gs, valid, slice, faw_acc);
+    rhs_vjp<kBayes>(a, st, g, g.zh, fa_w, m, gs, valid, slice, faw_acc, 4 * i + 0, g_ztail,
+                    row0);
     for (int e = tid; e < n; e += blockDim.x) gacc[e] += gu[e];
     __syncthreads();
     load_tile(gtraj + (size_t)i * B * W3, B, W3, row0, g.gout);
@@ -592,12 +694,16 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
 
   // the tail's terms, from the first layer's cotangent summed over every
   // evaluation: g_tail = d0sum @ W0t^T, g_W0t += tail^T d0sum, g_b0 += sums
-  load_tile(ztail, B, a.DT, row0, tail);
-  __syncthreads();
-  weight_grad(tail, a.DT, g.d0sum, a.N0, slice + a.g_w0t, slice + a.g_b0);
-  __syncthreads();
-  dense_back(a.w0tt, g.d0sum, a.N0, a.DT, tail, nullptr, false, false);
-  store_tile(tail, B, a.DT, row0, g_ztail);
+  // (with kBayes they were contracted on every evaluation)
+  if (!kBayes) {
+    load_tile(ztail, B, a.DT, row0, tail);
+    __syncthreads();
+    weight_grad<false>(tail, a.DT, g.d0sum, a.N0, slice + a.g_w0t, slice + a.g_b0, nullptr,
+                       nullptr, 0);
+    __syncthreads();
+    dense_back(a.w0tt, g.d0sum, a.N0, a.DT, tail, nullptr, false, false);
+    store_tile(tail, B, a.DT, row0, g_ztail);
+  }
   __syncthreads();
   // blockDim floats from the start of shared memory (>= 38 * kTile floats)
   block_sum(&faw_acc, 1, reinterpret_cast<float*>(smem), slice + a.g_faw);
@@ -610,9 +716,9 @@ void fill_net(Net& net, int n, const int* outs, const void* const* w,
   net.n = n;
   for (int d = 0; d < n; ++d) {
     net.out[d] = outs[d];
-    net.w[d] = static_cast<const float*>(w[d]);
+    net.w[d] = w != nullptr ? static_cast<const float*>(w[d]) : nullptr;
     net.wt[d] = wt != nullptr ? static_cast<const float*>(wt[d]) : nullptr;
-    net.b[d] = static_cast<const float*>(b[d]);
+    net.b[d] = b != nullptr ? static_cast<const float*>(b[d]) : nullptr;
   }
 }
 
@@ -621,7 +727,7 @@ int fill_args(Args& a, int B, int T, const float* dts, const float* tmask,
               const void* w0t, const void* b0, int n_fp, const int* fp_out,
               const void* const* fp_w, const void* const* fp_wt, const void* const* fp_b,
               int n_aug, const int* aug_out, const void* const* aug_w,
-              const void* const* aug_wt, const void* const* aug_b) {
+              const void* const* aug_wt, const void* const* aug_b, bool bayes = false) {
   if (B < 1 || T < 1 || R < 1 || DT < 0 || N0 < 1 || n_fp < 0 || n_fp > kMaxDeep ||
       n_aug < 0 || n_aug > kMaxDeep || (n_fp > 0) != (n0_fp > 0) ||
       (n_aug > 0) != (N0 > n0_fp))
@@ -654,9 +760,57 @@ int fill_args(Args& a, int B, int T, const float* dts, const float* tmask,
     a.aug.gb[d] = off; off += aug_out[d];
     in = aug_out[d];
   }
+  a.P = off;
+  if (bayes) off *= 2;       // the std cotangents follow the mean cotangents
   a.g_faw = off; off += kStats;
   a.n_grad = off;
   return cudaSuccess;
+}
+
+// Point the weights at evaluation 0 of the effective-weight buffers: the
+// packed offsets are the slice's.
+void point_at(Args& a, const float* w, const float* wt) {
+  a.w0h = w + a.g_w0h; a.w0t = w + a.g_w0t; a.b0 = w + a.g_b0;
+  a.w0ht = wt != nullptr ? wt + a.g_w0h : nullptr;
+  a.w0tt = wt != nullptr ? wt + a.g_w0t : nullptr;
+  Net* nets[2] = {&a.fp, &a.aug};
+  for (Net* net : nets)
+    for (int d = 0; d < net->n; ++d) {
+      net->w[d] = w + net->gw[d];
+      net->b[d] = w + net->gb[d];
+      net->wt[d] = wt != nullptr ? wt + net->gw[d] : nullptr;
+    }
+}
+
+template <bool kBayes>
+int launch_forward(const float* zh0, const float* ztail, const Args& a, float* traj,
+                   float* stats, void* stream) {
+  const size_t W3 = 3 * (size_t)a.R, DT = a.DT;
+  const size_t stages = kBayes ? 4 * W3 + DT : DT > 4 * W3 ? DT : 4 * W3;
+  size_t feats = 2 * W3 + stages + stash_features(a);
+  const size_t red = (5 * kThreads + kTile - 1) / kTile;   // block_sum's buffer
+  if (stages < red) feats += red - stages;
+  const size_t smem = feats * kTile * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(train_forward_kernel<kBayes>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  train_forward_kernel<kBayes><<<(a.B + kTile - 1) / kTile, kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(zh0, ztail, a, traj, stats);
+  return cudaGetLastError();
+}
+
+template <bool kBayes>
+int launch_backward(const float* traj, const float* gtraj, const float* ztail,
+                    const float* gstats, const Args& a, float* g_zhead, float* g_ztail,
+                    float* partials, void* stream) {
+  const size_t smem = (grad_features(a, kBayes) + stash_features(a)) * kTile * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(train_backward_kernel<kBayes>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  train_backward_kernel<kBayes><<<(a.B + kTile - 1) / kTile, kThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      traj, gtraj, ztail, gstats, a, g_zhead, g_ztail, partials);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -695,18 +849,7 @@ int fused_train_forward(const float* zh0, const float* ztail, int B, int T,
   int err = fill_args(a, B, T, dts, tmask, fa_w, R, DT, N0, n0_fp, w0h, w0t, b0, n_fp,
                       fp_out, fp_w, nullptr, fp_b, n_aug, aug_out, aug_w, nullptr, aug_b);
   if (err != cudaSuccess) return err;
-  const size_t W3 = 3 * (size_t)R;
-  const size_t stages = (size_t)DT > 4 * W3 ? (size_t)DT : 4 * W3;
-  size_t feats = 2 * W3 + stages + stash_features(a);
-  const size_t red = (5 * kThreads + kTile - 1) / kTile;   // block_sum's buffer
-  if (stages < red) feats += red - stages;
-  const size_t smem = feats * kTile * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(train_forward_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  train_forward_kernel<<<fused_train_blocks(B), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(zh0, ztail, a, traj, stats);
-  return cudaGetLastError();
+  return launch_forward<false>(zh0, ztail, a, traj, stats, stream);
 }
 
 // K6.  traj (T, B, 3R) from K5, gtraj its cotangent, ztail (B, DT), gstats (5)
@@ -730,16 +873,50 @@ int fused_train_backward(const float* traj, const float* gtraj, const float* zta
   if (err != cudaSuccess) return err;
   a.w0ht = static_cast<const float*>(w0ht);
   a.w0tt = static_cast<const float*>(w0tt);
-  size_t feats = grad_features(a) + stash_features(a);
-  if ((size_t)DT > 6 * 3 * (size_t)R) feats += DT;
-  const size_t smem = feats * kTile * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(train_backward_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  train_backward_kernel<<<fused_train_blocks(B), kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      traj, gtraj, ztail, gstats, a, g_zhead, g_ztail, partials);
-  return cudaGetLastError();
+  return launch_backward<false>(traj, gtraj, ztail, gstats, a, g_zhead, g_ztail, partials,
+                                stream);
+}
+
+// K8.  As fused_train_forward, with the weights of evaluation e = 4 * step +
+// stage read from weff (4(T-1), P), fused_bayes_draw's output: each
+// evaluation's packed arrays (w0_head, w0_tail, b0, then each later (w, b) of
+// the rates net, then of the Fa net; (in, out) weights).
+int fused_bayes_train_forward(const float* zh0, const float* ztail, int B, int T,
+                              const float* dts, const float* tmask, const float* fa_w, int R,
+                              int DT, int N0, int n0_fp, const float* weff, long long P,
+                              int n_fp, const int* fp_out, int n_aug, const int* aug_out,
+                              float* traj, float* stats, void* stream) {
+  Args a;
+  int err = fill_args(a, B, T, dts, tmask, fa_w, R, DT, N0, n0_fp, nullptr, nullptr, nullptr,
+                      n_fp, fp_out, nullptr, nullptr, nullptr, n_aug, aug_out, nullptr, nullptr,
+                      nullptr, true);
+  if (err != cudaSuccess) return err;
+  if ((long long)a.P != P) return cudaErrorInvalidValue;
+  point_at(a, weff, nullptr);
+  return launch_forward<true>(zh0, ztail, a, traj, stats, stream);
+}
+
+// K9.  As fused_train_backward, with weff, wteff (each matrix transposed in
+// its slot) and z (4(T-1), P) from fused_bayes_draw.  partials (blocks,
+// 2 P + 8): each block's share of the cotangents of the packed means, then of
+// the packed |std|s (g_w * z summed over the evaluations), then of fa_w.
+int fused_bayes_train_backward(const float* traj, const float* gtraj, const float* ztail,
+                               int B, int T, const float* dts, const float* tmask,
+                               const float* fa_w, const float* gstats, int R, int DT, int N0,
+                               int n0_fp, const float* weff, const float* wteff,
+                               const float* z, long long P, int n_fp, const int* fp_out,
+                               int n_aug, const int* aug_out, float* g_zhead, float* g_ztail,
+                               float* partials, void* stream) {
+  Args a;
+  int err = fill_args(a, B, T, dts, tmask, fa_w, R, DT, N0, n0_fp, nullptr, nullptr, nullptr,
+                      n_fp, fp_out, nullptr, nullptr, nullptr, n_aug, aug_out, nullptr, nullptr,
+                      nullptr, true);
+  if (err != cudaSuccess) return err;
+  if ((long long)a.P != P) return cudaErrorInvalidValue;
+  point_at(a, weff, wteff);
+  a.z = z;
+  return launch_backward<true>(traj, gtraj, ztail, gstats, a, g_zhead, g_ztail, partials,
+                               stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,7 @@
 """Latent ODE right-hand sides: mechanistic SIR x neural hybrids.
 
-Counterpart of ``fiude_tpu/models/rhs.py:48-163`` for the deterministic
-families (the Bayes variants wait for ``ROADMAP.md``, queue A, "Bayes
-families"):
+Counterpart of ``fiude_tpu/models/rhs.py:48-163``, the deterministic
+families (the Bayes variants are in :mod:`fiude_tpu_torch.models.bayes`):
 
 * :class:`SIRRates` (Fp / CONN): rates ``|Fp_net(x)|`` give per-region
   (beta, gamma); ``dS=-beta*S*I, dI=beta*S*I-gamma*I, dR=gamma*I``.

@@ -2,8 +2,7 @@
 
 Counterpart of ``fiude_tpu/models/vae.py`` (``reparam`` :37-51,
 ``make_prior`` :54-68, ``UDEForecaster.build`` :103-181, ``sample_eps``
-:195-199, ``_encode`` :217-231, ``apply`` :233-373) for the deterministic
-families::
+:195-199, ``_encode`` :217-231, ``apply`` :233-373)::
 
     eps ~ N(0,1)^(S,B,R,Le)            Le = latent_dim - 1
     mean, std = encoder(x)
@@ -18,6 +17,15 @@ production sweeps always set with it) the same forward is the training
 path: the encoder runs through K3/K4 (``ops.fused_gru_train``) and the
 trajectory through K5/K6 (``ops.fused_train``), which reduce the loss's aux
 to five masked sums on the card.
+
+The Bayes families (CONNb, SONNb, UONNb; ``models.bayes``) draw fresh weight
+noise on every RHS evaluation from ``(noise_seed, e)``; their serving twin is
+``ops.fused_bayes.FusedBayesForecaster`` (K7) and with ``fused_train`` their
+trajectory runs through K8/K9 (``ops.fused_bayes_train``).
+
+Entry points run on the card: :meth:`UDEForecaster.build` puts the model on
+the CUDA device unless the caller passes ``device="cpu"``
+(:func:`resolve_device`).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
+from fiude_tpu_torch.models.bayes import BayesNeuralAug, BayesSIRRates, BayesUDE
 from fiude_tpu_torch.models.decoder import LinearDecoder
 from fiude_tpu_torch.models.encoders import BackGRUEncoder
 from fiude_tpu_torch.models.rhs import UDE, NeuralAug, SIRRates
@@ -34,8 +43,31 @@ from fiude_tpu_torch.ops.integrate import odeint_grid
 
 _RHS = {"Fp": SIRRates, "CONN": SIRRates,
         "Fa": NeuralAug, "SONN": NeuralAug,
-        "FaFp": UDE, "UONN": UDE}
-_BAYES = ("Bayes_Fp", "CONNb", "Bayes_Fa", "SONNb", "Bayes_FaFp", "UONNb")
+        "FaFp": UDE, "UONN": UDE,
+        "Bayes_Fp": BayesSIRRates, "CONNb": BayesSIRRates,
+        "Bayes_Fa": BayesNeuralAug, "SONNb": BayesNeuralAug,
+        "Bayes_FaFp": BayesUDE, "UONNb": BayesUDE}
+# the reference's RHS constructors take **kwargs and ignore extras
+# (lib/models.py:110,159,200): the sizes each family reads
+_RHS_KWARGS = {SIRRates: ("net_sizes",), NeuralAug: ("aug_net_sizes",),
+               UDE: ("net_sizes", "aug_net_sizes"),
+               BayesSIRRates: ("net_sizes", "prior_std"),
+               BayesNeuralAug: ("aug_net_sizes", "prior_std"),
+               BayesUDE: ("net_sizes", "aug_net_sizes", "prior_std")}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds on: the current CUDA device unless
+    the caller names one.  The CPU is taken only when asked for
+    (``device="cpu"``), since a CPU model runs the kernels' plain twins; with
+    no ``device`` and no card this raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: fiude_tpu_torch runs on the card by default; pass "
+            "device=\"cpu\" to build on the CPU (the kernels' plain twins)")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def reparam(eps: torch.Tensor, std: Optional[torch.Tensor], mean: torch.Tensor,
@@ -74,7 +106,7 @@ class ForwardExtras(NamedTuple):
 
 
 class UDEForecaster(nn.Module):
-    """Encoder / ODE / decoder stack (deterministic RHS families)."""
+    """Encoder / ODE / decoder stack."""
 
     def __init__(self, encoder: BackGRUEncoder, ode: nn.Module,
                  decoder: LinearDecoder, *, latent_dim: int = 8,
@@ -84,8 +116,9 @@ class UDEForecaster(nn.Module):
         super().__init__()
         if fused_train and not fused_stats:
             raise NotImplementedError(
-                "fused_train without fused_stats (the aux-streaming K5/K6 mode) is "
-                "not ported yet (ROADMAP.md, queue B, 'K5/K6 aux-streaming mode')")
+                "fused_train without fused_stats (the aux-streaming mode of K5/K6 and, "
+                "for the Bayes families, of K8/K9) is not ported yet (ROADMAP.md, "
+                "queue B, 'K5/K6 aux-streaming mode')")
         if fused_train and (method not in ("rk4", "rk4_38") or substeps != 1):
             raise NotImplementedError(
                 "fused_train integrates with one Kutta 3/8 step an interval; other "
@@ -109,19 +142,16 @@ class UDEForecaster(nn.Module):
               dec_params: Optional[Dict[str, Any]] = None,
               uncertainty: bool = True, dtype: torch.dtype = torch.float32,
               generator: Optional[torch.Generator] = None,
-              device: Optional[torch.device] = None,
-              **kwargs) -> "UDEForecaster":
+              device=None, **kwargs) -> "UDEForecaster":
         """Mirror of ``fiude_tpu``'s ``UDEForecaster.build`` (reference
         ``lib/VAE.py:36-89``) with one config dict per submodule.
 
         Weights are drawn on the CPU from ``generator`` (seed 0 when None),
         in the order encoder, ODE, decoder, then moved to ``device``: one
-        seed gives the same model on every device.
+        seed gives the same model on every device.  ``device=None`` is the
+        CUDA device (:func:`resolve_device`); tests pass ``device="cpu"``.
         """
-        if ode_name in _BAYES:
-            raise NotImplementedError(
-                f"{ode_name!r} is a Bayes family, not ported yet "
-                "(ROADMAP.md, queue A, 'Bayes families')")
+        device = resolve_device(device)
         if ode_name not in _RHS:
             raise ValueError(f"unknown ode_name {ode_name!r}")
         if encoder_name not in ("back_gru", "Encoder_Back_GRU"):
@@ -134,12 +164,8 @@ class UDEForecaster(nn.Module):
         if "SIR_scaler" in enc_params:
             enc_params["sir_scaler"] = tuple(enc_params.pop("SIR_scaler"))
         rhs_cls = _RHS[ode_name]
-        # the reference's RHS constructors take **kwargs and ignore extras
-        # (lib/models.py:110,159,200): keep the sizes this family reads
-        accepted = {SIRRates: ("net_sizes",), NeuralAug: ("aug_net_sizes",),
-                    UDE: ("net_sizes", "aug_net_sizes")}[rhs_cls]
-        ode_kw = {k: tuple(v) for k, v in (ode_params or {}).items()
-                  if k in accepted}
+        ode_kw = {k: (v if k == "prior_std" else tuple(v))
+                  for k, v in (ode_params or {}).items() if k in _RHS_KWARGS[rhs_cls]}
 
         encoder = BackGRUEncoder(n_regions, n_qs=n_qs, latent_dim=latent_dim - 1,
                                  uncertainty=uncertainty, generator=generator,
@@ -150,7 +176,7 @@ class UDEForecaster(nn.Module):
                                 **(dec_params or {}))
         model = cls(encoder, ode, decoder, latent_dim=latent_dim,
                     n_regions=n_regions, uncertainty=uncertainty, **kwargs)
-        return model.to(device) if device is not None else model
+        return model.to(device)
 
     def sample_eps(self, batch_size: int, n_samples: int, *,
                    generator: torch.Generator,
@@ -160,10 +186,18 @@ class UDEForecaster(nn.Module):
                            self.encoder.latent_dim, generator=generator,
                            dtype=dtype, device=generator.device)
 
+    @property
+    def is_bayes(self) -> bool:
+        return getattr(self.ode, "uncertainty", "none") == "bayes"
+
     def rhs_fn(self, fa_w: float = 1.0):
-        """Bind ``fa_w`` (read by the UDE only) into ``(t, y) -> (dy, aux)``."""
+        """Bind ``fa_w`` (read by the UDE families only) into ``(t, y) ->
+        (dy, aux)``; a Bayes RHS also takes ``seed=`` and ``e=``, which
+        ``odeint_grid(..., noise_seed=)`` passes on every evaluation."""
         if isinstance(self.ode, UDE):
             return lambda t, y: self.ode(t, y, fa_w=fa_w)
+        if isinstance(self.ode, BayesUDE):
+            return lambda t, y, **noise: self.ode(t, y, fa_w=fa_w, **noise)
         return self.ode
 
     def _encode(self, x: torch.Tensor):
@@ -175,9 +209,11 @@ class UDEForecaster(nn.Module):
             return encode_train(x, self.encoder)
         return self.encoder(x)
 
-    def _fused_trajectory(self, z: torch.Tensor, t, fa_w, time_mask):
-        """K5/K6 in stats mode: the latent trajectory and the stats aux
-        (``fiude_tpu/models/vae.py:292-357``)."""
+    def _fused_trajectory(self, z: torch.Tensor, t, fa_w, time_mask, noise_seed):
+        """K5/K6 in stats mode, K8/K9 for a Bayes family: the latent
+        trajectory and the stats aux (``fiude_tpu/models/vae.py:292-357``)."""
+        from fiude_tpu_torch.ops.fused_bayes import pack_bayes_field
+        from fiude_tpu_torch.ops.fused_bayes_train import bayes_train_trajectory
         from fiude_tpu_torch.ops.fused_train import train_trajectory, traj_to_model_layout
         from fiude_tpu_torch.ops.fused_ude import pack_field
         batch, n_regions, latent_dim = z.shape
@@ -188,9 +224,16 @@ class UDEForecaster(nn.Module):
         else:
             tmask = torch.as_tensor(time_mask).to(z.device, z.dtype)
         tail = z[..., 3:].reshape(batch, -1)
-        w = pack_field(self.ode, detach=False)
-        traj, r1, r2, f2 = train_trajectory(z[..., :3].reshape(batch, -1), tail, w,
-                                            fa_w=fa_w, dts=dts, tmask=tmask)
+        head = z[..., :3].reshape(batch, -1)
+        if self.is_bayes:
+            bw = pack_bayes_field(self.ode, detach=False)
+            w = bw.mean
+            traj, r1, r2, f2 = bayes_train_trajectory(head, tail, bw, fa_w=fa_w, dts=dts,
+                                                      tmask=tmask, seed=noise_seed)
+        else:
+            w = pack_field(self.ode, detach=False)
+            traj, r1, r2, f2 = train_trajectory(head, tail, w, fa_w=fa_w, dts=dts,
+                                                tmask=tmask)
         latent = traj_to_model_layout(traj, tail, n_regions, latent_dim)
         aux = {}
         if w.n0_fp:
@@ -200,11 +243,13 @@ class UDEForecaster(nn.Module):
         return latent, aux
 
     def forward(self, x: torch.Tensor, t, eps: torch.Tensor, *,
-                fa_w: float = 1.0, time_mask=None):
+                fa_w: float = 1.0, time_mask=None, noise_seed: Optional[int] = None):
         """x: (B, T_in, F) window; t: (T,) grid; eps: (S, B, R, Le);
         ``time_mask``: optional (T-1,) per-interval loss weights of the padded
         curriculum, read only by the fused stats path (every other path
-        applies it in the loss).
+        applies it in the loss).  ``noise_seed``: the weight-noise seed of a
+        Bayes family (0 when None, as the JAX package defaults its key);
+        evaluation ``e = 4*i + stage`` draws from ``(noise_seed, e)``.
 
         Returns ``(y_pred (B, S, T, R), ForwardExtras)``.
         """
@@ -214,11 +259,14 @@ class UDEForecaster(nn.Module):
             n_samples, eps = 1, eps[:1]
         z = reparam(eps, std, mean, uncertainty=self.uncertainty)
         z = z + self.ic_jitter
+        if self.is_bayes and noise_seed is None:
+            noise_seed = 0
         if self.fused_train:
-            latent, aux = self._fused_trajectory(z, t, fa_w, time_mask)
+            latent, aux = self._fused_trajectory(z, t, fa_w, time_mask, noise_seed)
         else:
             latent, aux = odeint_grid(self.rhs_fn(fa_w), z, t, method=self.method,
-                                      substeps=self.substeps)
+                                      substeps=self.substeps,
+                                      noise_seed=noise_seed if self.is_bayes else None)
         y = self.decoder(latent)                               # (T, S*B, R)
         y = y.reshape(y.shape[0], n_samples, batch, self.n_regions)
         return y.permute(2, 1, 0, 3), ForwardExtras(mean, std, latent, aux)

@@ -17,9 +17,22 @@ from fiude_tpu_torch.ops.fused_ude import (
     trajectory_decode_plain,
 )
 from fiude_tpu_torch.ops.fused_gru_train import backgru_train_plain, encode_train
+from fiude_tpu_torch.ops.fused_bayes import (
+    BayesField,
+    BayesWeights,
+    FusedBayesForecaster,
+    bayes_trajectory_decode,
+    bayes_trajectory_decode_plain,
+    pack_bayes,
+    pack_bayes_field,
+)
 from fiude_tpu_torch.ops.fused_train import (
     RATE_SHIFT,
     train_trajectory,
     train_trajectory_plain,
     traj_to_model_layout,
+)
+from fiude_tpu_torch.ops.fused_bayes_train import (
+    bayes_train_trajectory,
+    bayes_train_trajectory_plain,
 )

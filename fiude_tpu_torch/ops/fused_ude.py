@@ -59,41 +59,50 @@ class FieldWeights(NamedTuple):
     aug: Tuple[Layer, ...]
 
 
-def pack_field(ode, *, detach: bool = True) -> FieldWeights:
-    """Lay out a deterministic RHS's nets on their device and in their dtype.
-
-    With ``detach=False`` the layout is built with differentiable ops
-    (transpose, concatenation, row gather), so autograd maps a gradient of
-    the packed tensors back onto the ``Fp_net`` / ``aug_net`` parameters: the
-    training path (K5/K6) takes its weights this way.
-    """
-    if not isinstance(ode, (SIRRates, UDE, NeuralAug)):
-        raise TypeError("the fused path supports SIRRates/UDE/NeuralAug RHS only, "
-                        f"got {type(ode).__name__}")
-
-    def p(t):
-        return t.detach() if detach else t
-
-    fp_net = getattr(ode, "Fp_net", None)
-    aug_net = getattr(ode, "aug_net", None)
-    nets = [net for net in (fp_net, aug_net) if net is not None]
-    w0 = torch.cat([p(net.linears[0].weight).T for net in nets], dim=1)
-    b0 = torch.cat([p(net.linears[0].bias) for net in nets])
-    idx = torch.arange(ode.n_regions * ode.latent_dim, device=w0.device)
-    idx = idx.reshape(ode.n_regions, ode.latent_dim)
+def pack_layers(fp_layers, aug_layers, n_regions: int, latent_dim: int) -> FieldWeights:
+    """The kernels' layout from each net's ``[(W (out, in), b), ...]`` (None
+    for a net the family lacks), with differentiable ops only (transpose,
+    concatenation, row gather)."""
+    nets = [net for net in (fp_layers, aug_layers) if net is not None]
+    w0 = torch.cat([net[0][0].T for net in nets], dim=1)
+    b0 = torch.cat([net[0][1] for net in nets])
+    idx = torch.arange(n_regions * latent_dim, device=w0.device)
+    idx = idx.reshape(n_regions, latent_dim)
 
     def later(net):
         if net is None:
             return ()
-        return tuple((p(lin.weight).T.contiguous(), p(lin.bias).contiguous())
-                     for lin in net.linears[1:])
+        return tuple((w.T.contiguous(), b.contiguous()) for w, b in net[1:])
 
     return FieldWeights(
         w0_head=w0[idx[:, :3].reshape(-1)].contiguous(),
         w0_tail=w0[idx[:, 3:].reshape(-1)].contiguous(),
         b0=b0.contiguous(),
-        n0_fp=fp_net.linears[0].out_features if fp_net is not None else 0,
-        fp=later(fp_net), aug=later(aug_net))
+        n0_fp=fp_layers[0][0].shape[0] if fp_layers is not None else 0,
+        fp=later(fp_layers), aug=later(aug_layers))
+
+
+def pack_field(ode, *, detach: bool = True) -> FieldWeights:
+    """Lay out a deterministic RHS's nets on their device and in their dtype.
+
+    With ``detach=False`` the layout is built with differentiable ops, so
+    autograd maps a gradient of the packed tensors back onto the ``Fp_net`` /
+    ``aug_net`` parameters: the training path (K5/K6) takes its weights this
+    way.
+    """
+    if not isinstance(ode, (SIRRates, UDE, NeuralAug)):
+        raise TypeError("the fused path supports SIRRates/UDE/NeuralAug RHS only, "
+                        f"got {type(ode).__name__}")
+
+    def layers(net):
+        if net is None:
+            return None
+        return [(lin.weight.detach(), lin.bias.detach()) if detach
+                else (lin.weight, lin.bias) for lin in net.linears]
+
+    return pack_layers(layers(getattr(ode, "Fp_net", None)),
+                       layers(getattr(ode, "aug_net", None)),
+                       ode.n_regions, ode.latent_dim)
 
 
 def pack_ude(ode, decoder) -> UDEWeights:

@@ -6,12 +6,15 @@ one array per parameter, named by the JAX parameter tree's
 
     enc  .grus[i].w_ih|w_hh|b_ih|b_hh   .ff[i].w|b
     ode  .fp_net[i].w|b   .aug_net[i].w|b
+         .fp_net[i].w_mean|w_std|b_mean|b_std   .aug_net[i]...  (Bayes families)
     dec  .out.w|b
 
 So a model trained by ``fiude_tpu`` serves from this package with no JAX
 installed, and a model saved here loads there.  Loading merges by key and
 shape and keeps the model's own value for anything missing or mismatched
-(torch ``strict=False``), unless ``strict=True``.
+(torch ``strict=False``), unless ``strict=True``.  A CONN checkpoint loaded
+into a CONNb model therefore copies nothing for the ODE (different keys), as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +35,19 @@ def _linears(prefix: str, linears) -> Iterator[Tuple[str, torch.Tensor, bool]]:
         yield f".{prefix}[{i}].b", lin.bias, False
 
 
+def _net(prefix: str, net) -> Iterator[Tuple[str, torch.Tensor, bool]]:
+    """A rates or Fa net's entries: ``w, b`` of an MLP's linears, or ``w_mean,
+    w_std, b_mean, b_std`` of a variational MLP's layers."""
+    if hasattr(net, "linears"):
+        yield from _linears(prefix, net.linears)
+        return
+    for i, lay in enumerate(net.layers):
+        yield f".{prefix}[{i}].w_mean", lay.w_mean, True
+        yield f".{prefix}[{i}].w_std", lay.w_std, True
+        yield f".{prefix}[{i}].b_mean", lay.b_mean, False
+        yield f".{prefix}[{i}].b_std", lay.b_std, False
+
+
 def param_map(model: nn.Module, part: str) -> Iterator[Tuple[str, torch.Tensor, bool]]:
     """``(jax_key, parameter, transposed)`` for one part of a
     :class:`~fiude_tpu_torch.models.vae.UDEForecaster`; ``transposed`` marks
@@ -45,9 +61,9 @@ def param_map(model: nn.Module, part: str) -> Iterator[Tuple[str, torch.Tensor, 
         yield from _linears("ff", model.encoder.ff_layers.linears)
     elif part == "ode":
         if hasattr(model.ode, "Fp_net"):
-            yield from _linears("fp_net", model.ode.Fp_net.linears)
+            yield from _net("fp_net", model.ode.Fp_net)
         if hasattr(model.ode, "aug_net"):
-            yield from _linears("aug_net", model.ode.aug_net.linears)
+            yield from _net("aug_net", model.ode.aug_net)
     elif part == "dec":
         yield ".out.w", model.decoder.linear.weight, True
         yield ".out.b", model.decoder.linear.bias, False

@@ -199,7 +199,7 @@ def latent_init_loss(x, mask=None):
 def compute_loss(loss_cfg: LossConfig, y_pred, y_true, extras, *, kl_w,
                  latent_dim: int, len_tr: int,
                  prior_params: Optional[Dict[str, Any]] = None,
-                 time_mask=None, eval_mask=None
+                 time_mask=None, eval_mask=None, ode_kl=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The gated loss: ``(scalar loss, metrics)``.
 
@@ -208,6 +208,8 @@ def compute_loss(loss_cfg: LossConfig, y_pred, y_true, extras, *, kl_w,
     curriculum; ``eval_mask`` (T,) masks the nll/mse columns.  Both None
     reproduce the reference's exact-horizon loss.  With the fused stats
     path, ``extras.aux`` holds ``rate_stats`` / ``fa_sq`` already masked.
+    ``ode_kl``: the variational layers' KL of a Bayes RHS
+    (``models.bayes.variational_kl``), weighted by ``loss_cfg.ode_kl_w``.
     """
     prior_params = prior_params or {"means": [0.8, 0.55], "stds": [0.2, 0.2]}
     loss = torch.zeros((), dtype=y_pred.dtype, device=y_pred.device)
@@ -248,6 +250,9 @@ def compute_loss(loss_cfg: LossConfig, y_pred, y_true, extras, *, kl_w,
         metrics["reg_loss"] = 0.1 * latent_init_loss(extras.latent[..., :3],
                                                      mask=latent_mask)
         loss = loss + metrics["reg_loss"]
+    if ode_kl is not None:
+        metrics["ode_kl"] = loss_cfg.ode_kl_w * ode_kl
+        loss = loss + metrics["ode_kl"]
 
     metrics["loss"] = loss
     metrics["kl_w"] = torch.as_tensor(kl_w, dtype=y_pred.dtype).to(y_pred.device)

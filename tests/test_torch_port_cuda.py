@@ -9,6 +9,10 @@ and K5/K6 (``csrc/fused_train.cu``) are compared with autograd of their
 twins, values at that bound and every gradient at
 ``max|d| <= 2e-3 * max|ref| + 1e-5`` (the stats-mode bound of
 ``tests/test_pallas_train.py``, relative to the tensor's largest entry).
+The Bayes kernels K7 (``csrc/fused_bayes.cu``) and K8/K9
+(``csrc/fused_train.cu`` with kBayes) are held to the same bounds against
+their twins in both noise modes (injected, and Philox from a seed on both
+sides), and the draw kernel's normals against ``ops/philox.py``.
 Every test skips without a CUDA device.  The file imports no JAX, so it runs
 on a machine that has only torch::
 
@@ -19,7 +23,9 @@ import pytest
 import torch
 
 from fiude_tpu_torch.models import UDEForecaster
-from fiude_tpu_torch.ops import fused_gru, fused_gru_train, fused_train, fused_ude
+from fiude_tpu_torch.ops import (
+    fused_bayes, fused_bayes_train, fused_gru, fused_gru_train, fused_train, fused_ude, philox,
+)
 from fiude_tpu_torch.train import TRAINING_INFO, Trainer
 
 pytestmark = pytest.mark.cuda
@@ -265,3 +271,185 @@ def test_training_wrappers_raise_on_inputs_the_kernels_cannot_take(dev):
     with pytest.raises(ValueError):                     # g of the wrong width
         fused_gru_train.encoder_backward_cuda(x, params, w_enc, hseq, gates,
                                               torch.zeros(2, 3, device=dev))
+
+
+# -- the Bayes families: the draw, K7, K8/K9 -------------------------------------
+
+STATE_ODE = dict(R=49, net=(64, 64, 32), aug=(64, 64))
+
+
+def injected_noise(dev, like, n_evals, seed=5):
+    rng = np.random.default_rng(seed)
+    return [on(dev, rng.standard_normal((n_evals,) + tuple(a.shape)))
+            for a in fused_bayes.field_arrays(like)]
+
+
+def test_draw_kernel_matches_philox_module(dev):
+    model = build(dev, "UONNb", R=3, L=6, net=(16, 16, 8))
+    bw = fused_bayes.pack_bayes_field(model.ode)
+    mean, std = fused_bayes.flatten_field(bw.mean), fused_bayes.flatten_field(bw.std)
+    sizes = [a.numel() for a in fused_bayes.field_arrays(bw.mean)]
+    seed = (7 << 32) + 12345               # both key words in use
+    w, wt, z = fused_bayes.bayes_draw_cuda(mean, std, bw.mean, 8, seed=seed, transposed=True,
+                                           keep_noise=True)
+    want = philox.packed_normal(seed, torch.arange(8, device=dev).reshape(8, 1), sizes,
+                                device=dev)
+    assert (z - want).abs().max().item() < 1e-5
+    torch.testing.assert_close(w, mean + want * std, rtol=1e-5, atol=1e-6)
+    off = 0
+    for a in fused_bayes.field_arrays(bw.mean):        # each matrix transposed in its slot
+        n = a.numel()
+        if a.dim() == 2:
+            assert torch.equal(wt[:, off:off + n].reshape(8, a.shape[1], a.shape[0]),
+                               w[:, off:off + n].reshape(8, *a.shape).transpose(1, 2))
+        else:
+            assert torch.equal(wt[:, off:off + n], w[:, off:off + n])
+        off += n
+
+
+@pytest.mark.parametrize("ode_name,cfg,L,B,T,mode", [
+    ("UONNb", dict(R=3, net=(16, 16, 8), aug=(16, 16)), 6, 37, 6, "noise"),   # ragged tile
+    ("UONNb", dict(R=3, net=(16, 16, 8), aug=(16, 16)), 6, 37, 6, "seed"),
+    ("CONNb", dict(R=3, net=(16, 16, 8)), 5, 13, 6, "seed"),
+    ("SONNb", dict(R=3, aug=(16, 16)), 5, 20, 6, "noise"),
+    ("UONNb", dict(R=3, net=(16, 16), aug=(16, 16)), 3, 5, 4, "seed"),        # no frozen tail
+    ("UONNb", STATE_ODE, 8, 64, 5, "noise"),                                  # `state` widths
+    ("UONNb", STATE_ODE, 8, 64, 5, "seed"),
+])
+def test_bayes_trajectory_kernel_matches_plain(dev, ode_name, cfg, L, B, T, mode):
+    model = build(dev, ode_name, L=L, **cfg)
+    w = fused_bayes.pack_bayes(model.ode, model.decoder)
+    rng = np.random.default_rng(1)
+    z0 = on(dev, rng.uniform(0.0, 0.6, (B, cfg["R"], L)))
+    z0[0, 0, 0] = 2.5        # out of range: frozen from the start
+    kw = {"seed": 9} if mode == "seed" else \
+        {"noise": injected_noise(dev, w.field.mean, 4 * (T - 1))}
+    d0, k0 = fused_bayes.bayes_draw_cuda.launches, fused_bayes.bayes_trajectory_cuda.launches
+    got = fused_bayes.bayes_trajectory_decode(z0, w, T=T, dt=1 / 7, fa_w=0.8, **kw)
+    torch.cuda.synchronize()
+    assert (fused_bayes.bayes_draw_cuda.launches,
+            fused_bayes.bayes_trajectory_cuda.launches) == (d0 + 1, k0 + 1)
+    want = fused_bayes.bayes_trajectory_decode_plain(z0, w, T=T, dt=1 / 7, fa_w=0.8, **kw)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_bayes_trajectory_with_zero_std_is_the_deterministic_one(dev):
+    model = build(dev, "UONNb", R=3, L=6, net=(16, 16, 8))
+    plain = build(dev, "UONN", R=3, L=6, net=(16, 16, 8))
+    with torch.no_grad():
+        for name, net in model.ode.nets():
+            for lay, lin in zip(net.layers, getattr(plain.ode, name).linears):
+                lay.w_std.zero_(); lay.b_std.zero_()
+                lin.weight.copy_(lay.w_mean); lin.bias.copy_(lay.b_mean)
+        plain.decoder.load_state_dict(model.decoder.state_dict())
+    z0 = on(dev, np.random.default_rng(3).uniform(0.0, 0.6, (20, 3, 6)))
+    got = fused_bayes.bayes_trajectory_decode(
+        z0, fused_bayes.pack_bayes(model.ode, model.decoder), T=6, dt=1 / 7, seed=4)
+    want = fused_ude.trajectory_decode(z0, fused_ude.pack_ude(plain.ode, plain.decoder),
+                                       T=6, dt=1 / 7)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_fused_bayes_forecaster_matches_forward(dev):
+    model = build(dev, "UONNb", R=3, L=6, n_qs=3, net=(16, 16, 8))
+    rng = np.random.default_rng(2)
+    x = on(dev, rng.uniform(0, 1, (4, 10, model.encoder.input_size)))
+    eps = model.sample_eps(4, 5, generator=torch.Generator(device=dev).manual_seed(0))
+    t = torch.arange(6, dtype=torch.float32, device=dev) / 7
+    forecaster = fused_bayes.FusedBayesForecaster(model, fa_w=0.7)
+    got = forecaster(x, t, eps, seed=21)
+    with torch.no_grad():
+        want, _ = model(x, t, eps, fa_w=0.7, noise_seed=21)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, forecaster(x, t, eps, seed=21))
+    assert not torch.equal(got, forecaster(x, t, eps, seed=22))
+
+
+@pytest.mark.parametrize("ode_name,cfg,L,B,tmask,mode", [
+    ("UONNb", dict(R=3, net=(16, 16, 8), aug=(16, 16)), 6, 37, [1.0, 1.0, 0.0], "noise"),
+    ("UONNb", dict(R=3, net=(16, 16, 8), aug=(16, 16)), 6, 37, [1.0, 1.0, 1.0], "seed"),
+    ("CONNb", dict(R=3, net=(16, 16, 8)), 5, 13, [1.0, 0.0, 0.0], "seed"),
+    ("SONNb", dict(R=3, aug=(16, 16)), 5, 20, [1.0, 1.0, 1.0], "noise"),
+    ("UONNb", dict(R=3, net=(16, 16), aug=(16, 16)), 3, 5, [1.0, 1.0, 1.0], "seed"),
+    ("UONNb", STATE_ODE, 8, 40, [1.0, 1.0, 0.0], "noise"),                    # `state` widths
+    ("UONNb", STATE_ODE, 8, 40, [1.0, 1.0, 1.0], "seed"),
+])
+def test_bayes_train_kernels_match_autograd_of_twin(dev, ode_name, cfg, L, B, tmask, mode):
+    model = build(dev, ode_name, L=L, **cfg)
+    R, T = cfg["R"], len(tmask) + 1
+    rng = np.random.default_rng(4)
+    z0 = on(dev, rng.uniform(0.0, 0.6, (B, R, L)))
+    dts = on(dev, [1.0, 0.5, 1.0])
+    tm = on(dev, tmask)
+    g_traj = on(dev, rng.standard_normal((T, B, 3 * R)))
+    c = on(dev, rng.standard_normal(5))
+    like = fused_bayes.pack_bayes_field(model.ode).mean
+    kw = {"seed": 13} if mode == "seed" else {"noise": injected_noise(dev, like, 4 * (T - 1))}
+    params = list(model.ode.parameters())
+    outs = {}
+    for path in ("kernel", "plain"):
+        zz = z0.clone().requires_grad_(True)
+        fa_w = torch.tensor(0.7, device=dev, requires_grad=True)
+        bw = fused_bayes.pack_bayes_field(model.ode, detach=False)
+        head, tail = zz[..., :3].reshape(B, -1), zz[..., 3:].reshape(B, -1)
+        fn = fused_bayes_train.bayes_train_trajectory if path == "kernel" else \
+            fused_bayes_train.bayes_train_trajectory_plain
+        f0, b0 = (fused_bayes_train.bayes_train_forward_cuda.launches,
+                  fused_bayes_train.bayes_train_backward_cuda.launches)
+        traj, r1, r2, f2 = fn(head, tail, bw, fa_w=fa_w, dts=dts, tmask=tm, **kw)
+        loss = ((traj * g_traj).sum() + (r1 * c[:2]).sum() + (r2 * c[2:4]).sum()
+                + f2 * c[4])
+        grads = torch.autograd.grad(loss, [zz, fa_w] + params, allow_unused=True)
+        if path == "kernel":
+            assert (fused_bayes_train.bayes_train_forward_cuda.launches,
+                    fused_bayes_train.bayes_train_backward_cuda.launches) == (f0 + 1, b0 + 1)
+        outs[path] = ((traj, r1, r2, f2), grads)
+    (vk, gk), (vp, gp) = outs["kernel"], outs["plain"]
+    for a, b in zip(vk, vp):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    for a, b in zip(gk, gp):
+        if b is None:
+            assert a is None or not a.abs().any()
+        else:
+            assert_grad_close(a, b)
+
+
+def test_bayes_gradients_repeat_bit_for_bit(dev):
+    model = build(dev, "UONNb", R=3, L=6, net=(16, 16, 8))
+    z0 = on(dev, np.random.default_rng(6).uniform(0.0, 0.6, (50, 3, 6)))
+    dts, tm = on(dev, [1.0, 1.0]), on(dev, [1.0, 1.0])
+
+    def grads():
+        bw = fused_bayes.pack_bayes_field(model.ode, detach=False)
+        traj, r1, r2, f2 = fused_bayes_train.bayes_train_trajectory(
+            z0[..., :3].reshape(50, -1), z0[..., 3:].reshape(50, -1), bw, fa_w=1.0, dts=dts,
+            tmask=tm, seed=3)
+        loss = traj.square().sum() + r1.sum() + r2.sum() + f2
+        return torch.autograd.grad(loss, list(model.ode.parameters()))
+
+    for a, b in zip(grads(), grads()):
+        assert torch.equal(a, b)
+
+
+def test_bayes_trainer_steps_through_the_kernels(dev):
+    model = UDEForecaster.build(
+        n_regions=2, latent_dim=5, n_qs=4, ode_name="UONNb", fused_train=True,
+        fused_stats=True, enc_params={"q_sizes": (24, 16), "ff_sizes": (12,)},
+        ode_params={"net_sizes": (16, 16), "aug_net_sizes": (16, 16)},
+        generator=torch.Generator().manual_seed(0))       # no device: the card
+    assert next(model.parameters()).device.type == "cuda"
+    trainer = Trainer(model, loss_cfg=TRAINING_INFO["UONNb"], seed=0, ode_kl_w=1 / 153)
+    trainer.setup_training(lr=1e-3)
+    rng = np.random.default_rng(0)
+    x = on(dev, rng.uniform(0, 1, (6, 8, model.encoder.input_size)))
+    y = on(dev, rng.uniform(0, 1, (6, 4, 2)))
+    std0 = model.ode.Fp_net.layers[0].w_std.detach().clone()
+    counters = (fused_gru_train.encoder_forward_cuda, fused_gru_train.encoder_backward_cuda,
+                fused_bayes_train.bayes_train_forward_cuda,
+                fused_bayes_train.bayes_train_backward_cuda)
+    before = [c.launches for c in counters]
+    for _ in range(2):
+        metrics = trainer.train_step(x, y, np.arange(4.0), epoch=1, grad_lim=1e9, n_samples=5)
+    assert [c.launches for c in counters] == [n + 2 for n in before]
+    assert np.isfinite(metrics["loss"]) and metrics["ode_kl"] > 0
+    assert not torch.equal(std0, model.ode.Fp_net.layers[0].w_std)

@@ -41,7 +41,7 @@ def build_pair(ode_name="FaFp", *, R=2, L=5, n_qs=4, q=(24, 16), ff=(12,),
               uncertainty=uncertainty)
     jm = JaxForecaster.build(**kw)
     params = jm.init(jax.random.PRNGKey(key))
-    port = UDEForecaster.build(**kw)
+    port = UDEForecaster.build(device="cpu", **kw)
     flat = {}
     for part in ("enc", "ode", "dec"):
         flat.update(tree_to_flat_dict(getattr(params, part)))
@@ -190,7 +190,8 @@ class TestBuild:
         assert path.parent == _build.BUILD_DIR
         assert path == _build.library_path()
         assert [p.name for p in _build.sources()] == [
-            "fused_gru.cu", "fused_gru_train.cu", "fused_train.cu", "fused_ude.cu"]
+            "fused_bayes.cu", "fused_gru.cu", "fused_gru_train.cu", "fused_train.cu",
+            "fused_ude.cu"]
         src = tmp_path / "csrc"
         src.mkdir()
         (src / "a.cu").write_text("one")

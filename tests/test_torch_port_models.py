@@ -53,7 +53,7 @@ def build_pair(ode_name="FaFp", *, R=2, L=5, n_qs=3, q=(16, 12), ff=(8, 8),
               uncertainty=uncertainty)
     jm = JaxForecaster.build(dtype="float64", **kw)
     params = jm.init(jax.random.PRNGKey(key))
-    port = UDEForecaster.build(dtype=F64, **kw)
+    port = UDEForecaster.build(device="cpu", dtype=F64, **kw)
     flat = {}
     for part in ("enc", "ode", "dec"):
         flat.update(tree_to_flat_dict(getattr(params, part)))
@@ -257,17 +257,18 @@ class TestForecaster:
         close(y_t, y_j)
 
     @pytest.mark.parametrize("kwargs", [
-        {"ode_name": "UONNb"}, {"ode_name": "Bayes_Fp"},
+        {"ode_name": "UONNb", "fused_train": True},     # Bayes aux-streaming (K8/K9)
+        {"ode_name": "Bayes_Fp", "fused_train": True},
         {"encoder_name": "bigru"}, {"fused_train": True}])
     def test_unported_options_raise(self, kwargs):
         kw = dict(n_regions=2, latent_dim=5, n_qs=3, ode_name="FaFp")
         kw.update(kwargs)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            UDEForecaster.build(**kw)
+            UDEForecaster.build(device="cpu", **kw)
 
     def test_same_seed_same_weights(self):
         def weights(seed):
-            return UDEForecaster.build(n_regions=2, latent_dim=5, n_qs=3,
+            return UDEForecaster.build(device="cpu", n_regions=2, latent_dim=5, n_qs=3,
                                        generator=torch.Generator().manual_seed(seed)
                                        ).state_dict()
         a, b, c = weights(4), weights(4), weights(5)

@@ -68,14 +68,14 @@ class TestServing:
         y_jax = trainer.forecast(jnp.asarray(x), t, n_samples=4, key=key, fused=True)
         eps = jm.sample_eps(key, 4, 4, jnp.float32)     # the draw forecast makes
 
-        port = UDEForecaster.build(**config(ode_name))
+        port = UDEForecaster.build(device="cpu", **config(ode_name))
         load_state_from_flat(port, jax_flat(trainer.params), strict=True)
         y = FusedForecaster(port, fa_w=trainer.fa_w)(f32(x), t, f32(eps))
         assert y.shape == (4, 4, 5, 2)
         np.testing.assert_allclose(y.numpy(), np.asarray(y_jax), rtol=RTOL, atol=ATOL)
 
     def test_fused_matches_plain_forward(self):
-        port = UDEForecaster.build(**config(), generator=torch.Generator().manual_seed(2))
+        port = UDEForecaster.build(device="cpu", **config(), generator=torch.Generator().manual_seed(2))
         rng = np.random.default_rng(1)
         x = f32(rng.uniform(0, 1, (3, 8, 8)))
         eps = port.sample_eps(3, 5, generator=torch.Generator().manual_seed(4))
@@ -86,13 +86,13 @@ class TestServing:
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
     def test_rejects_non_uniform_grid_and_deterministic_models(self):
-        port = UDEForecaster.build(**config())
+        port = UDEForecaster.build(device="cpu", **config())
         x = torch.zeros(2, 4, 8)
         eps = torch.zeros(3, 2, 2, 5)
         with pytest.raises(ValueError, match="uniform"):
             FusedForecaster(port)(x, [0.0, 0.1, 0.3], eps)
         with pytest.raises(ValueError, match="uncertainty"):
-            FusedForecaster(UDEForecaster.build(uncertainty=False, **config()))
+            FusedForecaster(UDEForecaster.build(device="cpu", uncertainty=False, **config()))
 
 
 class TestCheckpoints:
@@ -103,7 +103,7 @@ class TestCheckpoints:
         prefix = str(tmp_path / "ckpt" / "m_")
         jax_ckpt.save_params(prefix, params)
 
-        port = load_params(UDEForecaster.build(**config(ode_name)), prefix, strict=True)
+        port = load_params(UDEForecaster.build(device="cpu", **config(ode_name)), prefix, strict=True)
         rng = np.random.default_rng(2)
         x = rng.uniform(0, 1, (3, 9, 8)).astype(np.float32)
         eps = rng.standard_normal((4, 3, 2, 5)).astype(np.float32)
@@ -115,7 +115,7 @@ class TestCheckpoints:
 
     @pytest.mark.parametrize("ode_name", ["CONN", "SONN", "UONN"])
     def test_port_checkpoint_loads_strictly_into_jax(self, ode_name, tmp_path):
-        port = UDEForecaster.build(**config(ode_name),
+        port = UDEForecaster.build(device="cpu", **config(ode_name),
                                    generator=torch.Generator().manual_seed(6))
         prefix = str(tmp_path / "p_")
         save_params(prefix, port)
@@ -130,7 +130,7 @@ class TestCheckpoints:
                 np.testing.assert_array_equal(got[k], want[k])
 
     def test_partial_and_mismatched_entries(self):
-        port = UDEForecaster.build(**config())
+        port = UDEForecaster.build(device="cpu", **config())
         before = {k: v.clone() for k, v in port.decoder.state_dict().items()}
         flat = {".out.w": np.ones((6, 2), np.float32),       # matches
                 ".out.b": np.ones((3,), np.float32),         # wrong shape: kept
@@ -148,7 +148,7 @@ class TestTorchCompat:
     def test_state_dicts_map_through_torch_compat(self, ode_name, jax_name):
         """``torch_compat`` reads the port's state dicts as reference torch
         checkpoints: a second, independent check of the weight mapping."""
-        port = UDEForecaster.build(**config(ode_name),
+        port = UDEForecaster.build(device="cpu", **config(ode_name),
                                    generator=torch.Generator().manual_seed(8))
         parts = {"enc": encoder_params_from_torch(port.encoder.state_dict()),
                  "ode": ode_params_from_torch(port.ode.state_dict(), jax_name),
@@ -161,7 +161,7 @@ class TestTorchCompat:
                 np.testing.assert_array_equal(got[k], want[k])
 
     def test_reference_state_dict_names(self):
-        port = UDEForecaster.build(**config("UONN"))
+        port = UDEForecaster.build(device="cpu", **config("UONN"))
         enc = set(port.encoder.state_dict())
         assert {"rnn_layers.0.weight_ih_l0", "rnn_layers.0.bias_hh_l0",
                 "ff_layers.0.weight", "ff_layers.1.bias"} <= enc
@@ -175,7 +175,7 @@ class TestTorchCompat:
         torch.manual_seed(0)
         enc, _, dec = build_reference_like_modules(2, 3, 6, (12,), (8,), (16, 16),
                                                    (16, 16))
-        port = UDEForecaster.build(**config())
+        port = UDEForecaster.build(device="cpu", **config())
         port.encoder.load_state_dict(enc.state_dict())
         port.decoder.load_state_dict(dec.state_dict())
         x = torch.rand(3, 7, 8)

@@ -179,7 +179,7 @@ class TestIntegratorAux:
                   ode_params={"net_sizes": (10, 10), "aug_net_sizes": (10, 10)})
         jm = JaxForecaster.build(**kw)
         params = jm.init(jax.random.PRNGKey(3))
-        port = UDEForecaster.build(**kw)
+        port = UDEForecaster.build(device="cpu", **kw)
         flat = {}
         for part in ("enc", "ode", "dec"):
             flat.update(tree_to_flat_dict(getattr(params, part)))
@@ -221,7 +221,7 @@ def trainer_pair(fused=True, key=5, **trainer_kw):
     jt = JaxTrainer(model=jm, loss_cfg=JAX_INFO["UONN"], seed=7, len_tr=10, **trainer_kw)
     jt.init_params(jax.random.PRNGKey(key))
     jt.setup_training(lr=1e-3)
-    port = UDEForecaster.build(fused_train=fused, fused_stats=fused, **CONFIG)
+    port = UDEForecaster.build(device="cpu", fused_train=fused, fused_stats=fused, **CONFIG)
     flat = {}
     for part in ("enc", "ode", "dec"):
         flat.update(tree_to_flat_dict(getattr(jt.params, part)))
@@ -309,15 +309,15 @@ class TestTrainStep:
 class TestFusedTrainOptions:
     @pytest.mark.parametrize("kwargs", [
         {"fused_stats": False}, {"fused_stats": True, "method": "euler"},
-        {"fused_stats": True, "substeps": 2}, {"fused_stats": True, "ode_name": "UONNb"}])
+        {"fused_stats": True, "substeps": 2}, {"fused_stats": False, "ode_name": "UONNb"}])
     def test_unported_fused_train_options_raise(self, kwargs):
         kw = dict(CONFIG, fused_train=True)
         kw.update(kwargs)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            UDEForecaster.build(**kw)
+            UDEForecaster.build(device="cpu", **kw)
 
     def test_fused_forward_aux_is_the_stats(self):
-        model = UDEForecaster.build(fused_train=True, fused_stats=True, **CONFIG)
+        model = UDEForecaster.build(device="cpu", fused_train=True, fused_stats=True, **CONFIG)
         x, _, t, eps = step_inputs()
         tm = torch.tensor([1.0, 0.0, 0.0])
         _, ex = model(torch.from_numpy(x), t, torch.from_numpy(eps), time_mask=tm)
@@ -330,7 +330,7 @@ class TestFusedTrainOptions:
 class TestPaddedCurriculum:
     @pytest.mark.parametrize("fused", [False, True])
     def test_padded_gradients_match_exact(self, fused):
-        model = UDEForecaster.build(fused_train=fused, fused_stats=fused,
+        model = UDEForecaster.build(device="cpu", fused_train=fused, fused_stats=fused,
                                     generator=torch.Generator().manual_seed(1),
                                     **dict(CONFIG, n_regions=2, ode_params={
                                         "net_sizes": (10, 10), "aug_net_sizes": (10, 10)}))
@@ -366,8 +366,7 @@ class TestPaddedCurriculum:
 
 class TestLoops:
     def make(self, tmp_path, fused=True):
-        model = UDEForecaster.build(
-            fused_train=fused, fused_stats=fused, generator=torch.Generator().manual_seed(3),
+        model = UDEForecaster.build(device="cpu", fused_train=fused, fused_stats=fused, generator=torch.Generator().manual_seed(3),
             **dict(CONFIG, n_regions=1, ode_params={"net_sizes": (8, 8),
                                                     "aug_net_sizes": (8, 8)}))
         trainer = Trainer(model, loss_cfg=TRAINING_INFO["UONN"], len_tr=12,
@@ -387,7 +386,7 @@ class TestLoops:
         assert len(trainer.batch_grad_norms) == 6                # 3 batches an epoch
         assert all(np.isfinite(h["loss"]) for h in trainer.history.epoch_history)
         assert trainer.state.tr_step == 6
-        restored = UDEForecaster.build(**dict(CONFIG, n_regions=1, ode_params={
+        restored = UDEForecaster.build(device="cpu", **dict(CONFIG, n_regions=1, ode_params={
             "net_sizes": (8, 8), "aug_net_sizes": (8, 8)}))
         Trainer(restored, file_prefix=str(tmp_path / "m_")).load(checkpoint=True)
         for part, arrays in trainer._best_flat.items():     # the best epoch's weights

@@ -47,7 +47,7 @@ def build_pair(ode_name="FaFp", *, R=3, L=6, n_qs=2, q=(12, 8), ff=(8,),
               ode_params={"net_sizes": net, "aug_net_sizes": aug})
     jm = JaxForecaster.build(**kw)
     params = jm.init(jax.random.PRNGKey(key))
-    port = UDEForecaster.build(**kw)
+    port = UDEForecaster.build(device="cpu", **kw)
     flat = {}
     for part in ("enc", "ode", "dec"):
         flat.update(tree_to_flat_dict(getattr(params, part)))
