@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving and training paths on one NVIDIA GPU,
-the deterministic families (phases 2-7) and the Bayes families (phases 8-12).
+"""Smoke run of the PyTorch port's serving and training paths on one NVIDIA GPU:
+the deterministic families (phases 2-7), the Bayes families (phases 8-12), the
+kernels' other modes (phases 13-15) and the experiment recipes (phase 16).
 
     python3 chip_smoke.py
 
@@ -58,12 +59,37 @@ no result, when there is no card.  Phases, each printing its lines:
     in a second pair of steps whose loss leaves out KL_z);
 12. times of the draw, K7, K8 and K9 against their twins, of a Bayes request
     and a Bayes training step, a trace of Bayes steps, and one K8 + K9 pass
-    at the daily shape (85 points, 336 evaluations) as a time only.
+    at the daily shape (85 points, 336 evaluations) as a time only;
+13. K5/K6 and K8/K9 in aux-streaming mode (``stats_mode=False``: the forward
+    writes every evaluation's rates and Fa, the backward takes their
+    cotangents) against autograd of their twins at the training shape, for
+    UONN, CONN, SONN and UONNb (K8/K9 against a twin stepped from K8's own
+    states), under random cotangents on all three outputs and with the Fa
+    cotangent absent; the trajectory against the stats mode's bit for bit,
+    and K5's five sums against float64 sums over the streamed aux;
+14. training with ``fused_train`` alone (aux-streaming), UONN then UONNb: 7
+    steps of ``train_curriculum_padded`` with the launch counters, the first
+    step held against the plain step and against the stats-mode step; times
+    of K5, K6, K8, K9 in that mode and of the steps, and a trace;
+15. K2 and K7 with ``compute_dtype="bfloat16"`` against their bfloat16 twins
+    at the serving shape: over 7 steps, one step at a time from the states an
+    85-point request visits, and by the bulk over 85 points (see
+    ``bf16_serving``: two float32 implementations of the bfloat16 function
+    part ways where a rounding flips); ``FusedForecaster`` and
+    ``FusedBayesForecaster`` serving 4 requests each in bfloat16; times;
+16. ``run_experiment`` for a `state` CONN and UONN config (4 epochs, window
+    28, gamma 28, padded curriculum, ``fused_train``, synthetic data) to the
+    results table (one row a config with the reference's columns; a second
+    run of a config updates its row), then ``run_transfer`` CONN -> UONN (the
+    CONN checkpoint's ``Fp_net`` at the first step, ``fa_w`` ramped to 1.0),
+    each with the launch counters of K3-K6 against the steps taken.
 
 Every kernel's line carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s (the H100 SXM data sheet's rate outside
-the tensor cores; the kernels are IEEE float32), and, for the encoder
+the tensor cores; the kernels are IEEE float32; the bfloat16 rows take the
+field's products at 989 TFLOP/s, the tensor cores' dense bfloat16 rate), and,
+for the encoder
 kernels, the time of the library's call for the same function (two
 ``torch.nn.GRU`` layers through cuDNN plus the head's linears, TF32 off).
 
@@ -141,10 +167,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def compare(name, got, ref, rows=None, limit=1.0) -> float:
+def compare(name, got, ref, rows=None, limit=1.0, min_share=0.5) -> float:
     """Raise unless ``got`` matches ``ref`` within ``limit`` times the bound
     (None: report only); ``rows`` (bool over dim 1 of ``got``) selects the rows
-    held to it.  Returns max abs err."""
+    held to it, at least ``min_share`` of all.  Returns max abs err."""
     import torch
     if got.shape != ref.shape:
         raise RuntimeError(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
@@ -154,7 +180,7 @@ def compare(name, got, ref, rows=None, limit=1.0) -> float:
     if rows is not None:
         note = (f", rows held {int(rows.sum())}/{rows.numel()} (all rows: max abs "
                 f"err {(got - ref).abs().max().item():.3g})")
-        if rows.sum() * 2 < rows.numel():
+        if rows.sum() < min_share * rows.numel():
             raise RuntimeError(f"{name}: most rows pass near a freeze bound{note}")
         got, ref = got[:, rows], ref[:, rows]
     err = (got - ref).abs()
@@ -183,30 +209,36 @@ def compare_grad(name, got, ref) -> float:
     return err
 
 
-def watch_margin(rhs, n_rows, device):
+def watch_margin(rhs, n_rows, device, ignore=None):
     """``rhs`` wrapped to record, per row, the least distance of any S, I, R
-    state it is evaluated at from a freeze bound: ``(wrapped, read)``."""
+    state it is evaluated at from a freeze bound (but for the entries marked
+    in ``ignore`` (rows, R, 3)): ``(wrapped, read)``."""
     import torch
     margin = [torch.full((n_rows,), float("inf"), device=device)]
 
     def watched(tt, y, **noise):
         head = y[..., :3]
         gap = torch.minimum((head - 2.0).abs(), (head + 1.0).abs())
+        if ignore is not None:
+            gap = gap.masked_fill(ignore, float("inf"))
         margin[0] = torch.minimum(margin[0], gap.amin(dim=(1, 2)))
         return rhs(tt, y, **noise)
 
     return watched, lambda: margin[0]
 
 
-def held_rows(rhs, z0, t, noise_seed=None):
+def held_rows(rhs, z0, t, noise_seed=None, margin=None):
     """Rows of z0 (B, R, L) whose every RHS evaluation along the plain
     integration on grid t keeps its S, I, R state FREEZE_MARGIN from a bound;
     a Bayes ``rhs`` is integrated under ``noise_seed``, each evaluation with
-    its own weights, and held BAYES_FREEZE_MARGIN from the bounds."""
+    its own weights, and held BAYES_FREEZE_MARGIN from the bounds; ``margin``
+    overrides either."""
     from fiude_tpu_torch.ops.integrate import odeint_grid
-    watched, margin = watch_margin(rhs, z0.shape[0], z0.device)
+    watched, least = watch_margin(rhs, z0.shape[0], z0.device)
     odeint_grid(watched, z0, t, noise_seed=noise_seed)
-    return margin() >= (FREEZE_MARGIN if noise_seed is None else BAYES_FREEZE_MARGIN)
+    if margin is None:
+        margin = FREEZE_MARGIN if noise_seed is None else BAYES_FREEZE_MARGIN
+    return least() >= margin
 
 
 def held_rows_by_step(rhs, states, dts, noise_seed):
@@ -355,7 +387,8 @@ def trajectory_vs_twin(model, z0, tmask, rng, tag):
         w = pack_field(model.ode, detach=False)
         fn = fused_train.train_trajectory if path == "kernel" else \
             fused_train.train_trajectory_plain
-        traj, r1, r2, f2 = fn(head, tail, w, fa_w=fa_w, dts=dts, tmask=tm)
+        traj, r1, r2, f2 = fn(head, tail, w, fa_w=fa_w, dts=dts, tmask=tm,
+                              stats_mode=True)
         loss = ((traj * g_traj).sum() + (r1 * c[:2]).sum() + (r2 * c[2:4]).sum() * 1e-3
                 + f2 * c[4] * 1e-3)
         outs[path] = ((traj, r1, r2, f2), torch.autograd.grad(loss, [zz, fa_w] + params,
@@ -363,13 +396,19 @@ def trajectory_vs_twin(model, z0, tmask, rng, tag):
     return report_pair(model, kf, kb, tag, outs["kernel"], outs["plain"])
 
 
-def report_pair(model, kf, kb, tag, kernel, plain):
-    """Hold a training trajectory's ``((traj, r1, r2, f2), gradients)`` from
-    the kernels against the twin's: (trajectory err, max gradient err)."""
+def report_pair(model, kf, kb, tag, kernel, plain, names=("r1", "r2", "f2")):
+    """Hold a training trajectory's ``((traj, r1, r2, f2), gradients)`` (in
+    aux-streaming mode ``(traj, rates, Fa)``: pass their ``names``) from the
+    kernels against the twin's: (trajectory err, max gradient err)."""
     (vk, gk), (vp, gp) = kernel, plain
     err = compare(f"{kf} {tag} trajectory {tuple(vk[0].shape)}", vk[0].detach(), vp[0].detach())
-    for name, a, b in zip(("r1", "r2", "f2"), vk[1:], vp[1:]):
-        compare(f"{kf} {tag} {name}", a.detach(), b.detach())
+    for name, a, b in zip(names, vk[1:], vp[1:]):
+        if (a is None) != (b is None):
+            raise RuntimeError(f"{kf} {tag} {name}: present on one side only")
+        if a is not None:
+            aux_err = compare(f"{kf} {tag} {name} {tuple(a.shape)}", a.detach(), b.detach())
+            if a.dim() == 3:          # a streamed output counts with the trajectory
+                err = max(err, aux_err)
     grad_err = max(compare_grad(f"{kb} {tag} d/d z0 head", gk[0][..., :3], gp[0][..., :3]),
                    compare_grad(f"{kb} {tag} d/d z0 tail", gk[0][..., 3:], gp[0][..., 3:]))
     if gp[1] is not None:
@@ -380,9 +419,11 @@ def report_pair(model, kf, kb, tag, kernel, plain):
     return err, grad_err
 
 
-def bayes_trajectory_vs_twin(model, z0, tmask, rng, tag, noise_mode="seed"):
-    """K8 + K9 (noise injected or from a seed, as ``noise_mode`` says) against
-    autograd of their twin: (trajectory err, max gradient err).
+def bayes_trajectory_vs_twin(model, z0, tmask, rng, tag, noise_mode="seed", stream=False):
+    """K8 + K9 (noise injected or from a seed, as ``noise_mode`` says; in stats
+    mode under ``tmask``, or with ``stream`` in aux-streaming mode, where every
+    evaluation's rates and Fa take random cotangents) against autograd of
+    their twin: (trajectory err, max gradient err).
 
     Under fresh weight noise of std 0.1 the weekly steps amplify a float32
     rounding ~3-6x a step (PERF.md, Findings), so two float32
@@ -403,7 +444,7 @@ def bayes_trajectory_vs_twin(model, z0, tmask, rng, tag, noise_mode="seed"):
     E = 4 * n_steps
     like = fused_bayes.pack_bayes_field(model.ode).mean
     dts = torch.ones(n_steps, device=dev)
-    tm = torch.tensor(tmask, device=dev)
+    tm = None if stream else torch.tensor(tmask, device=dev)
     if noise_mode == "seed":
         kw = {"seed": SEED + 21}
         sizes = [a.numel() for a in fused_bayes.field_arrays(like)]
@@ -419,9 +460,13 @@ def bayes_trajectory_vs_twin(model, z0, tmask, rng, tag, noise_mode="seed"):
     def split(zz):
         return zz[..., :3].reshape(zz.shape[0], -1), zz[..., 3:].reshape(zz.shape[0], -1)
 
+    def mode(steps):
+        """The mode's arguments for the steps ``steps`` of the grid."""
+        return {} if stream else {"tmask": tm[steps], "stats_mode": True}
+
     with torch.no_grad():
         bw = fused_bayes.pack_bayes_field(model.ode)
-        args = dict(fa_w=1.0, dts=dts, tmask=tm, **kw)
+        args = dict(fa_w=1.0, dts=dts, **mode(slice(None)), **kw)
         head, tail = split(z0)
         traj_k = fused_bayes_train.bayes_train_trajectory(head, tail, bw, **args)[0]
         traj_p = fused_bayes_train.bayes_train_trajectory_plain(head, tail, bw, **args)[0]
@@ -437,19 +482,30 @@ def bayes_trajectory_vs_twin(model, z0, tmask, rng, tag, noise_mode="seed"):
     g_traj = torch.tensor(rng.standard_normal((WEEKS, B, 3 * R)), dtype=torch.float32,
                           device=dev)
     c = torch.tensor(rng.standard_normal(5), dtype=torch.float32, device=dev)
+    g_aux = [torch.tensor(rng.standard_normal((E, B, k * R)), dtype=torch.float32, device=dev)
+             for k in ((2, 3) if stream else ())]
     params = list(model.ode.parameters())
 
     def stepwise_twin(head, tail, bw, fa_w, anchor):
-        traj, r1, r2, f2 = [head], 0.0, 0.0, 0.0
+        traj, rest = [head], []
         state = head
         for i in range(n_steps):
-            step, a, b, f = fused_bayes_train.bayes_train_trajectory_plain(
-                state, tail, bw, fa_w=fa_w, dts=dts[i:i + 1], tmask=tm[i:i + 1],
+            step, *out = fused_bayes_train.bayes_train_trajectory_plain(
+                state, tail, bw, fa_w=fa_w, dts=dts[i:i + 1], **mode(slice(i, i + 1)),
                 noise=[n[4 * i:4 * i + 4] for n in step_noise])
             traj.append(step[1])
-            r1, r2, f2 = r1 + a, r2 + b, f2 + f
+            rest.append(out)
             state = step[1] + (anchor[i + 1] - step[1]).detach()
-        return torch.stack(traj), r1, r2, f2
+        join = torch.cat if stream else sum       # the streams end to end; the sums added
+        return (torch.stack(traj), *(join([out[k] for out in rest]) for k in range(len(out))))
+
+    def loss_of(values):
+        traj, *rest = values
+        if stream:
+            return (traj * g_traj).sum() + sum((v * g).sum() for v, g in zip(rest, g_aux))
+        r1, r2, f2 = rest
+        return ((traj * g_traj).sum() + (r1 * c[:2]).sum() + (r2 * c[2:4]).sum() * 1e-3
+                + f2 * c[4] * 1e-3)
 
     outs = {}
     for path in ("kernel", "plain"):
@@ -458,22 +514,21 @@ def bayes_trajectory_vs_twin(model, z0, tmask, rng, tag, noise_mode="seed"):
         head, tail = split(zz)
         bw = fused_bayes.pack_bayes_field(model.ode, detach=False)
         if path == "kernel":
-            values = fused_bayes_train.bayes_train_trajectory(head, tail, bw, fa_w=fa_w,
-                                                              dts=dts, tmask=tm, **kw)
+            values = fused_bayes_train.bayes_train_trajectory(
+                head, tail, bw, fa_w=fa_w, dts=dts, **mode(slice(None)), **kw)
         else:
             values = stepwise_twin(head, tail, bw, fa_w, outs["kernel"][0][0].detach())
-        traj, r1, r2, f2 = values
-        loss = ((traj * g_traj).sum() + (r1 * c[:2]).sum() + (r2 * c[2:4]).sum() * 1e-3
-                + f2 * c[4] * 1e-3)
-        outs[path] = (values, torch.autograd.grad(loss, [zz, fa_w] + params, allow_unused=True))
-    return report_pair(model, "K8", "K9", tag, outs["kernel"], outs["plain"])
+        outs[path] = (values, torch.autograd.grad(loss_of(values), [zz, fa_w] + params,
+                                                  allow_unused=True))
+    return report_pair(model, "K8", "K9", tag, outs["kernel"], outs["plain"],
+                       names=("rates", "Fa") if stream else ("r1", "r2", "f2"))
 
 
-def training_inputs(model, rng):
+def training_inputs(model, rng, windows=WINDOWS):
     """The loader's windows and targets, made from the seed."""
     import numpy as np
-    x = rng.uniform(0, 1, (WINDOWS, T_IN, model.encoder.input_size)).astype(np.float32)
-    y = rng.uniform(0, 1, (WINDOWS, WEEKS, model.n_regions)).astype(np.float32)
+    x = rng.uniform(0, 1, (windows, T_IN, model.encoder.input_size)).astype(np.float32)
+    y = rng.uniform(0, 1, (windows, WEEKS, model.n_regions)).astype(np.float32)
     return x, y
 
 
@@ -531,9 +586,11 @@ def kl_latent_bound(build, weights, x, len_tr, kl_w):
     return lambda value: (abs(value - kl64), 2.0 * change + 2e-4 * abs(kl64))
 
 
-def train_end_to_end(dev, rng, tmp, ode_name="UONN"):
-    """Phases 6 and 11 (``ode_name="UONNb"``): returns (the launch counters,
-    the step inputs)."""
+def train_end_to_end(dev, rng, tmp, ode_name="UONN", stats=True, windows=WINDOWS):
+    """Phases 6 and 11 (``ode_name="UONNb"``), and with ``stats=False`` phase
+    14 (``fused_train`` alone: the aux-streaming mode, whose first step is
+    also held against the stats-mode step): returns (the launch counters, the
+    step inputs)."""
     import numpy as np
     import torch
     from fiude_tpu_torch.data import ArrayLoader
@@ -546,14 +603,15 @@ def train_end_to_end(dev, rng, tmp, ode_name="UONN"):
 
     def build(fused, seed=SEED + 3):
         # no device: the entry point's default is the card
-        return UDEForecaster.build(ode_name=ode_name, fused_train=fused, fused_stats=fused,
+        return UDEForecaster.build(ode_name=ode_name, fused_train=bool(fused),
+                                   fused_stats=bool(fused) and (stats or fused == "stats"),
                                    generator=torch.Generator().manual_seed(seed), **STATE)
 
     model = build(True)
     if next(model.parameters()).device != dev:
         raise RuntimeError("UDEForecaster.build() without a device did not build on the card")
     initial = {k: v.clone() for k, v in model.state_dict().items()}
-    x_all, y_all = training_inputs(model, rng)
+    x_all, y_all = training_inputs(model, rng, windows)
     loader = ArrayLoader(x_all, y_all, batch_size=BATCH, seed=SEED)
     trainer = Trainer(model, loss_cfg=TRAINING_INFO[ode_name], seed=SEED,
                       file_prefix=f"{tmp}/uonn_", **trainer_kw)
@@ -568,17 +626,21 @@ def train_end_to_end(dev, rng, tmp, ode_name="UONN"):
         names = ("K3", "K4", "K5", "K6")
         counters = (fused_gru_train.encoder_forward_cuda, fused_gru_train.encoder_backward_cuda,
                     fused_train.train_forward_cuda, fused_train.train_backward_cuda)
+    # the trajectory kernels' launches in the mode this run trains in
+    count = {n: "launches" if stats or n in ("K3", "K4", "draw") else "stream_launches"
+             for n in names}
     torch.cuda.synchronize()
-    for c in counters:
-        c.launches = 0
+    for n, c in zip(names, counters):
+        setattr(c, count[n], 0)
     t0 = time.perf_counter()
     trainer.train_curriculum_padded(loader, np.arange(WEEKS, dtype=np.float64),
                                     np.arange(WEEKS), epochs_per_stage=1, grad_lim=5000.0,
                                     n_samples=SAMPLES, checkpoint=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(zip(names, (c.launches for c in counters)))
-    log(f"  {steps} steps in {seconds:.2f} s; launches during them: {launches}")
+    launches = {n: getattr(c, count[n]) for n, c in zip(names, counters)}
+    log(f"  {steps} steps in {seconds:.2f} s; launches during them"
+        f"{'' if stats else ' in aux-streaming mode'}: {launches}")
     for k, n in launches.items():
         if n != steps:
             raise RuntimeError(f"{k} launched {n} times for {steps} training steps")
@@ -613,11 +675,12 @@ def train_end_to_end(dev, rng, tmp, ode_name="UONN"):
     em = torch.tensor([1.0] + TMASKS[0], device=dev)
     grid = np.arange(WEEKS, dtype=np.float64)
 
-    def step_pair(loss_cfg):
+    def step_pair(loss_cfg, paths=(True, False)):
         """The same step through the kernels and plain: {fused: (trainer,
-        metrics, the parameters before it)}."""
+        metrics, the parameters before it)}; the path "stats" is the kernels
+        in stats mode."""
         pair = {}
-        for fused in (True, False):
+        for fused in paths:
             m = build(fused)
             m.load_state_dict(initial)
             tr = Trainer(m, loss_cfg=loss_cfg, seed=SEED, **trainer_kw)
@@ -673,6 +736,20 @@ def train_end_to_end(dev, rng, tmp, ode_name="UONN"):
     loss_cfg = TRAINING_INFO[ode_name]
     pair = step_pair(loss_cfg)
     hold_metrics(pair)
+    if not stats:
+        # the aux-streaming step against the stats-mode step: the same kernels
+        # but for how the aux reaches the loss (the trajectories are the same bits)
+        other = step_pair(loss_cfg, paths=("stats",))["stats"]
+        for k, v in sorted(other[1].items()):
+            rel = abs(pair[True][1][k] - v) / max(abs(v), 1e-30)
+            log(f"  step metric {k}: aux-streaming {pair[True][1][k]:.7g}, stats mode {v:.7g}, "
+                f"rel {rel:.3g}")
+            if rel > 2e-4:
+                raise RuntimeError(f"the aux-streaming step's {k} disagrees with the stats-mode "
+                                   f"step's beyond rel 2e-4")
+        for (name, pk), ps in zip(pair[True][0].model.named_parameters(),
+                                  other[0].model.parameters()):
+            compare_grad(f"aux-streaming vs stats-mode step d/d {name}", pk.grad, ps.grad)
     if bayes:
         # KL_z's gradient is as ill-conditioned in float32 as its value (its
         # terms grow as 1/std^2): on these windows it alone moves the encoder's
@@ -739,24 +816,25 @@ def train_times(model, x, z0, step_inputs):
     fa_w = torch.tensor(1.0, device=x.device)
     dts = torch.ones(WEEKS - 1, device=x.device)
     tm = torch.tensor(TMASKS[0], device=x.device)
-    traj = fused_train.train_forward_cuda(head0, tail0, w, fa_w, dts, tm)[0]
+    traj = fused_train.train_forward_cuda(head0, tail0, w, fa_w, dts, tm, stats_mode=True)[0]
     g_traj = torch.ones_like(traj)
     gstats = torch.full((5,), 1e-3, device=x.device)
     wg = pack_field(model.ode, detach=False)
     hg, tg = head0.clone().requires_grad_(True), tail0.clone().requires_grad_(True)
-    outs = fused_train.train_trajectory_plain(hg, tg, wg, fa_w=fa_w, dts=dts, tmask=tm)
+    outs = fused_train.train_trajectory_plain(hg, tg, wg, fa_w=fa_w, dts=dts, tmask=tm,
+                                              stats_mode=True)
     inputs = [hg, tg] + list(model.ode.parameters())
     grads_out = [g_traj] + [gstats[:2], gstats[2:4], gstats[4]]
     out.append(in_turns(
         lambda n: cuda_ms(lambda: fused_train.train_trajectory_plain(
-            hg, tg, wg, fa_w=fa_w, dts=dts, tmask=tm), n),
+            hg, tg, wg, fa_w=fa_w, dts=dts, tmask=tm, stats_mode=True), n),
         lambda n: cuda_ms(lambda: fused_train.train_forward_cuda(
-            head0, tail0, w, fa_w, dts, tm), n), 3, 10))
+            head0, tail0, w, fa_w, dts, tm, stats_mode=True), n), 3, 10))
     out.append(in_turns(
         lambda n: cuda_ms(lambda: torch.autograd.grad(outs, inputs, grads_out,
                                                       retain_graph=True), n),
         lambda n: cuda_ms(lambda: fused_train.train_backward_cuda(
-            traj, g_traj, tail0, w, fa_w, dts, tm, gstats), n), 3, 10))
+            traj, g_traj, tail0, w, fa_w, dts, tm, gstats, stats_mode=True), n), 3, 10))
 
     out.append(step_times(step_inputs))
 
@@ -1007,7 +1085,7 @@ def bayes_train_kernel_checks(dev, model, z_train, rng):
     B = z_train.shape[0]
     head, tail = z_train[..., :3].reshape(B, -1), z_train[..., 3:].reshape(B, -1)
     kw = dict(fa_w=1.0, dts=torch.ones(WEEKS - 1, device=dev),
-              tmask=torch.tensor(TMASKS[0], device=dev))
+              tmask=torch.tensor(TMASKS[0], device=dev), stats_mode=True)
     outs_b = fused_bayes_train.bayes_train_trajectory(
         head, tail, fused_bayes.pack_bayes_field(zero.ode, detach=False), seed=SEED, **kw)
     outs_d = fused_train.train_trajectory(head, tail, pack_field(plain.ode, detach=False), **kw)
@@ -1077,26 +1155,28 @@ def bayes_times(dev, model, z0, z_train, forecaster, served, request, grid, step
     dts, tm = torch.ones(WEEKS - 1, device=dev), torch.tensor(TMASKS[0], device=dev)
     weff, wteff, z = fused_bayes.bayes_draw_cuda(mean_flat, std_flat, like, E_w, seed=SEED,
                                                  transposed=True, keep_noise=True)
-    traj = fused_bayes_train.bayes_train_forward_cuda(head0, tail0, like, weff, fa_w, dts, tm)[0]
+    traj = fused_bayes_train.bayes_train_forward_cuda(head0, tail0, like, weff, fa_w, dts, tm,
+                                                      stats_mode=True)[0]
     g_traj = torch.ones_like(traj)
     gstats = torch.full((5,), 1e-3, device=dev)
     bwg = fused_bayes.pack_bayes_field(model.ode, detach=False)
     hg, tg = head0.clone().requires_grad_(True), tail0.clone().requires_grad_(True)
     noise = fused_bayes.noise_arrays(z, like)
     twin = lambda: fused_bayes_train.bayes_train_trajectory_plain(          # noqa: E731
-        hg, tg, bwg, fa_w=fa_w, dts=dts, tmask=tm, noise=noise)
+        hg, tg, bwg, fa_w=fa_w, dts=dts, tmask=tm, stats_mode=True, noise=noise)
     outs = twin()
     inputs = [hg, tg] + list(model.ode.parameters())
     grads_out = [g_traj, gstats[:2], gstats[2:4], gstats[4]]
     out["K8"] = in_turns(
         lambda n: cuda_ms(twin, n),
         lambda n: cuda_ms(lambda: fused_bayes_train.bayes_train_forward_cuda(
-            head0, tail0, like, weff, fa_w, dts, tm), n), 2, 10)
+            head0, tail0, like, weff, fa_w, dts, tm, stats_mode=True), n), 2, 10)
     out["K9"] = in_turns(
         lambda n: cuda_ms(lambda: torch.autograd.grad(outs, inputs, grads_out,
                                                       retain_graph=True), n),
         lambda n: cuda_ms(lambda: fused_bayes_train.bayes_train_backward_cuda(
-            traj, g_traj, tail0, like, weff, wteff, z, fa_w, dts, tm, gstats), n), 2, 10)
+            traj, g_traj, tail0, like, weff, wteff, z, fa_w, dts, tm, gstats, stats_mode=True),
+            n), 2, 10)
     out["K8_bound"] = bound_ms(2 * Bt * E_w * hot, nbytes(head0, tail0, traj, weff))
     out["K9_bound"] = bound_ms(2 * Bt * E_w * 3 * hot + 2 * E_w * P,
                                nbytes(traj, g_traj, tail0, weff, z, head0, tail0) + 8 * P)
@@ -1110,19 +1190,497 @@ def bayes_times(dev, model, z0, z_train, forecaster, served, request, grid, step
     weff, wteff, z = fused_bayes.bayes_draw_cuda(mean_flat, std_flat, like, E_d, seed=SEED,
                                                  transposed=True, keep_noise=True)
     traj = fused_bayes_train.bayes_train_forward_cuda(head0, tail0, like, weff, fa_w, dts_d,
-                                                      tm_d)[0]
+                                                      tm_d, stats_mode=True)[0]
     g_traj = torch.ones_like(traj)
     out["daily"] = (
         cuda_ms(lambda: fused_bayes.bayes_draw_cuda(mean_flat, std_flat, like, E_d, seed=SEED,
                                                     transposed=True, keep_noise=True), 3),
         cuda_ms(lambda: fused_bayes_train.bayes_train_forward_cuda(
-            head0, tail0, like, weff, fa_w, dts_d, tm_d), 3),
+            head0, tail0, like, weff, fa_w, dts_d, tm_d, stats_mode=True), 3),
         cuda_ms(lambda: fused_bayes_train.bayes_train_backward_cuda(
-            traj, g_traj, tail0, like, weff, wteff, z, fa_w, dts_d, tm_d, gstats), 3))
+            traj, g_traj, tail0, like, weff, wteff, z, fa_w, dts_d, tm_d, gstats,
+            stats_mode=True), 3))
     if not (torch.isfinite(traj).all() and np.isfinite(out["daily"]).all()):
         raise RuntimeError("the daily-shape pass is not finite")
     return out
 
+
+
+def stream_vs_twin(model, z0, rng, tag):
+    """K5 + K6 in aux-streaming mode against autograd of the twin on the rows
+    held from the freeze bounds, under random cotangents on the trajectory,
+    the rates and Fa, and again with the Fa cotangent absent (a loss that
+    never read it): (value err, max gradient err)."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.ops import fused_train
+    from fiude_tpu_torch.ops.fused_ude import pack_field
+    dev = z0.device
+    with torch.no_grad():
+        rows = held_rows(model.rhs_fn(1.0), z0, np.arange(WEEKS, dtype=np.float64))
+    z = z0[rows]
+    B, R, _ = z.shape
+    E = 4 * (WEEKS - 1)
+    log(f"  {tag}: {B} of {z0.shape[0]} rows held ({z0.shape[0] - B} dropped)")
+    if 2 * B < z0.shape[0]:
+        raise RuntimeError(f"{tag}: most rows pass near a freeze bound")
+    dts = torch.ones(WEEKS - 1, device=dev)
+    g = [torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+         for shape in ((WEEKS, B, 3 * R), (E, B, 2 * R), (E, B, 3 * R))]
+    params = list(model.ode.parameters())
+    err = grad_err = 0.0
+    for use_fa in (True, False):
+        outs = {}
+        for path in ("kernel", "plain"):
+            zz = z.clone().requires_grad_(True)
+            fa_w = torch.tensor(1.0, device=dev, requires_grad=True)
+            head, tail = zz[..., :3].reshape(B, -1), zz[..., 3:].reshape(B, -1)
+            fn = fused_train.train_trajectory if path == "kernel" else \
+                fused_train.train_trajectory_plain
+            values = fn(head, tail, pack_field(model.ode, detach=False), fa_w=fa_w, dts=dts)
+            loss = sum((v * gv).sum() for k, (v, gv) in enumerate(zip(values, g))
+                       if v is not None and (use_fa or k < 2))
+            outs[path] = (values, torch.autograd.grad(loss, [zz, fa_w] + params,
+                                                      allow_unused=True))
+        e, ge = report_pair(model, "K5", "K6", tag if use_fa else f"{tag}, Fa cotangent absent",
+                            outs["kernel"], outs["plain"], names=("rates", "Fa"))
+        err, grad_err = max(err, e), max(grad_err, ge)
+    return err, grad_err
+
+
+def stream_kernel_checks(dev, model, bayes, z_train, rng):
+    """Phase 13: returns {kernel: max err} for K5, K6, K8, K9 in aux-streaming
+    mode."""
+    import torch
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.ops import fused_train
+    from fiude_tpu_torch.ops.fused_ude import pack_field
+    errs = dict(zip(("K5", "K6"), stream_vs_twin(model, z_train, rng, "UONN aux-streaming")))
+    for name in ("CONN", "SONN"):
+        m = UDEForecaster.build(ode_name=name, generator=torch.Generator().manual_seed(SEED + 1),
+                                **STATE)
+        stream_vs_twin(m, z_train[:SMALL_B], rng, f"{name} aux-streaming B={SMALL_B}")
+    errs["K8"], errs["K9"] = bayes_trajectory_vs_twin(
+        bayes, z_train, None, rng, "UONNb aux-streaming, seed mode", stream=True)
+
+    # two checks that need no twin, on every row: the trajectory is the stats
+    # mode's bit for bit, and the five sums formed in float64 from the streamed
+    # aux are K5's own (float32 sums of 2.8 million terms: 1e-5 of sum|term|)
+    B = z_train.shape[0]
+    head, tail = z_train[..., :3].reshape(B, -1), z_train[..., 3:].reshape(B, -1)
+    dts = torch.ones(WEEKS - 1, device=dev)
+    tm = torch.tensor(TMASKS[0], device=dev)
+    w = pack_field(model.ode)
+    with torch.no_grad():
+        traj, rates, fa = fused_train.train_trajectory(head, tail, w, fa_w=1.0, dts=dts)
+        traj_s, r1, r2, f2 = fused_train.train_trajectory(head, tail, w, fa_w=1.0, dts=dts,
+                                                          tmask=tm, stats_mode=True)
+    if not torch.equal(traj, traj_s):
+        raise RuntimeError("the aux-streaming trajectory is not the stats mode's bit for bit")
+    m = tm.repeat_interleave(4).reshape(-1, 1, 1).double()
+    shift = torch.tensor(fused_train.RATE_SHIFT, device=dev, dtype=torch.float64)
+    d = (rates.double().reshape(rates.shape[0], B, -1, 2) - shift) * m.unsqueeze(-1)
+    fa2 = fa.double() ** 2 * m
+    for name, got, ref, scale in (
+            ("r1", r1, d.sum(dim=(0, 1, 2)), d.abs().sum(dim=(0, 1, 2))),
+            ("r2", r2, (d * d).sum(dim=(0, 1, 2)), (d * d).sum(dim=(0, 1, 2))),
+            ("f2", f2, fa2.sum(), fa2.sum())):
+        err = ((got.double() - ref).abs() / scale).max().item()
+        log(f"  K5's {name} vs the float64 sum over the streamed aux: {err:.3g} of sum|term|")
+        if err > 1e-5:
+            raise RuntimeError(f"K5's {name} is not the sum of the streamed aux")
+    log("  the aux-streaming trajectory equals the stats mode's bit for bit; "
+        f"streams: rates {tuple(rates.shape)}, Fa {tuple(fa.shape)}")
+    return errs
+
+
+def stream_times(dev, model, bayes, z_train):
+    """(plain ms, kernel ms) of K5, K6, K8, K9 in aux-streaming mode (CUDA
+    events, in turns) and their bounds: the stats mode's operations, and the
+    streams' bytes beside its bytes."""
+    import torch
+    from fiude_tpu_torch.ops import fused_bayes, fused_bayes_train, fused_train
+    from fiude_tpu_torch.ops.fused_ude import pack_field
+    out = {}
+    B = z_train.shape[0]
+    head0 = z_train[..., :3].reshape(B, -1).contiguous()
+    tail0 = z_train[..., 3:].reshape(B, -1).contiguous()
+    fa_w = torch.tensor(1.0, device=dev)
+    dts = torch.ones(WEEKS - 1, device=dev)
+    T = WEEKS
+
+    w = pack_field(model.ode)
+    traj, rates, fa = fused_train.train_forward_cuda(head0, tail0, w, fa_w, dts)
+    g = [torch.ones_like(t) for t in (traj, rates, fa)]
+    wg = pack_field(model.ode, detach=False)
+    hg, tg = head0.clone().requires_grad_(True), tail0.clone().requires_grad_(True)
+    twin = lambda: fused_train.train_trajectory_plain(hg, tg, wg, fa_w=fa_w, dts=dts)  # noqa: E731
+    outs = twin()
+    inputs = [hg, tg] + list(model.ode.parameters())
+    out["K5"] = in_turns(lambda n: cuda_ms(twin, n), lambda n: cuda_ms(
+        lambda: fused_train.train_forward_cuda(head0, tail0, w, fa_w, dts), n), 3, 10)
+    out["K6"] = in_turns(
+        lambda n: cuda_ms(lambda: torch.autograd.grad(outs, inputs, g, retain_graph=True), n),
+        lambda n: cuda_ms(lambda: fused_train.train_backward_cuda(
+            traj, g[0], tail0, w, fa_w, dts, g_rates=g[1], g_fa=g[2]), n), 3, 10)
+    hot, tail_macs = field_macs(w, False), w.w0_tail.numel()
+    out["K5_bound"] = bound_ms(2 * B * (4 * (T - 1) * hot + tail_macs),
+                               nbytes(head0, tail0, traj, rates, fa) + field_bytes(w))
+    out["K6_bound"] = bound_ms(2 * B * 3 * (4 * (T - 1) * hot + tail_macs),
+                               nbytes(traj, *g, tail0, head0, tail0) + 2 * field_bytes(w))
+    del outs
+
+    bw = fused_bayes.pack_bayes_field(bayes.ode)
+    like = bw.mean
+    mean_flat, std_flat = fused_bayes.flatten_field(bw.mean), fused_bayes.flatten_field(bw.std)
+    E = 4 * (T - 1)
+    P = mean_flat.numel()
+    weff, wteff, z = fused_bayes.bayes_draw_cuda(mean_flat, std_flat, like, E, seed=SEED,
+                                                 transposed=True, keep_noise=True)
+    traj, rates, fa = fused_bayes_train.bayes_train_forward_cuda(head0, tail0, like, weff, fa_w,
+                                                                 dts)
+    bwg = fused_bayes.pack_bayes_field(bayes.ode, detach=False)
+    noise = fused_bayes.noise_arrays(z, like)
+    twin = lambda: fused_bayes_train.bayes_train_trajectory_plain(          # noqa: E731
+        hg, tg, bwg, fa_w=fa_w, dts=dts, noise=noise)
+    outs = twin()
+    inputs = [hg, tg] + list(bayes.ode.parameters())
+    out["K8"] = in_turns(lambda n: cuda_ms(twin, n), lambda n: cuda_ms(
+        lambda: fused_bayes_train.bayes_train_forward_cuda(head0, tail0, like, weff, fa_w, dts),
+        n), 2, 10)
+    out["K9"] = in_turns(
+        lambda n: cuda_ms(lambda: torch.autograd.grad(outs, inputs, g, retain_graph=True), n),
+        lambda n: cuda_ms(lambda: fused_bayes_train.bayes_train_backward_cuda(
+            traj, g[0], tail0, like, weff, wteff, z, fa_w, dts, g_rates=g[1], g_fa=g[2]), n),
+        2, 10)
+    hot = field_macs(like, True)
+    out["K8_bound"] = bound_ms(2 * B * E * hot, nbytes(head0, tail0, traj, rates, fa, weff))
+    out["K9_bound"] = bound_ms(2 * B * E * 3 * hot + 2 * E * P,
+                               nbytes(traj, *g, tail0, weff, z, head0, tail0) + 8 * P)
+    return out
+
+
+BF16_PEAK_FLOPS = 989e12     # dense bfloat16 on the tensor cores, H100 SXM data sheet
+BF16_SHORT_T = 8             # the short horizon: 7 steps
+# What the bfloat16 kernels are held to against their bfloat16 twins, in units of
+# (rtol 2e-4, atol 2e-5), K2 then K7.  Both sides round the same operands, so
+# they differ only where two float32 sums that differ in their last bits fall
+# on either side of a bfloat16 rounding boundary; that operand then moves by a
+# whole bfloat16 step (up to 2^-7 of its value), the trajectory carries the
+# difference on and, with fresh weight noise, amplifies it (PERF.md, Findings).
+# So: one step from any state of the request's trajectory is held tightly,
+# 7 steps with a bound on the tail, and the 85-point request by its bulk.
+BF16_STEP_LIMIT = {"K2": 10.0, "K7": 100.0}     # one step: every entry of the rows held ...
+# ... this far from the freeze bounds over that step: the two sides' states differ
+# within a step by up to ~1e-4 (K2) and ~1e-3 (K7), and nearer a bound rounding decides
+# the stage at which a state freezes; late in a request most rows have such a state
+BF16_MARGIN = {"K2": 2e-4, "K7": 2e-3}
+BF16_STEP_ROWS = 0.25        # the least share of rows a step check must hold
+BF16_SHORT_LIMIT = {"K2": 10.0, "K7": 200.0}    # 7 steps: every entry ...
+BF16_SHORT_SHARE = {"K2": 0.0, "K7": 0.02}      # ... and the share allowed past 10 x
+BF16_BULK = {"K2": 0.01, "K7": 2.0}   # 85 points: median err over the mode's median deviation
+BF16_MEDIAN_DEV = 5e-3       # a bfloat16 request's median deviation from the float32 one
+
+
+def compare_bf16(name, got, ref, limit, share=None, rows=None, min_share=0.5):
+    """Hold a bfloat16 kernel to its bfloat16 twin (on ``rows``): every entry
+    within ``limit`` times (rtol 2e-4, atol 2e-5), and all but ``share`` of
+    the entries within 10 times it.  Returns max abs err."""
+    err = compare(name, got, ref, rows, limit=limit, min_share=min_share)
+    if share is not None:
+        beyond = ((got - ref).abs() > 10 * (ATOL + RTOL * ref.abs())).float().mean().item()
+        log(f"    entries beyond 10 x the bound: {beyond:.3%} (allowed {share:.3%})")
+        if beyond > share:
+            raise RuntimeError(f"{name}: too many entries beyond 10 x the float32 bound")
+    return err
+
+
+def bf16_serving(dev, model, bayes, z0, grid, rng, smi):
+    """Phase 15: K2 and K7 in the bfloat16 compute mode against their bfloat16
+    twins, the two forecasters serving, and the times: a dict."""
+    import torch
+    from fiude_tpu_torch.ops import fused_bayes, fused_gru, fused_ude, philox
+    from fiude_tpu_torch.ops.integrate import odeint_grid, rk4_38_step
+    out = {}
+    B = z0.shape[0]
+    w = fused_ude.pack_ude(model.ode, model.decoder)
+    rounded = fused_ude.bf16_matrices(w)
+    wb = fused_bayes.pack_bayes(bayes.ode, bayes.decoder)
+    like = wb.field.mean
+    seed = SEED + 41
+    E_d = 4 * (T_OUT - 1)
+    bf = {"compute_dtype": "bfloat16"}
+
+    def k2(z, T, **kw):
+        return fused_ude.trajectory_decode_cuda(z, w, T=T, dt=DT, fa_w=1.0, **kw)
+
+    def k2_twin(z, T, **kw):
+        return fused_ude.trajectory_decode_plain(z, w, T=T, dt=DT, fa_w=1.0, **kw)
+
+    def k7(z, T, **kw):
+        return fused_bayes.bayes_trajectory_decode_cuda(z, wb, T=T, dt=DT, fa_w=1.0, **kw)
+
+    def k7_twin(z, T, **kw):
+        return fused_bayes.bayes_trajectory_decode_plain(z, wb, T=T, dt=DT, fa_w=1.0, **kw)
+
+    with torch.no_grad():
+        # 7 steps, every row
+        T = BF16_SHORT_T
+        for name, kernel, twin, kw in (("K2", k2, k2_twin, {}), ("K7", k7, k7_twin,
+                                                                  {"seed": seed})):
+            y_k, y_p, y_f = kernel(z0, T, **bf, **kw), twin(z0, T, **bf, **kw), kernel(z0, T, **kw)
+            out[f"{name}_err"] = compare_bf16(
+                f"{name} bfloat16 B={B} T={T} vs its bfloat16 twin", y_k, y_p,
+                BF16_SHORT_LIMIT[name], BF16_SHORT_SHARE[name])
+            compare("  the bfloat16 kernel vs the float32 kernel (the mode's own deviation, "
+                    "not held)", y_k, y_f, limit=None)
+            if name == "K2" and not torch.equal(y_k[0], y_f[0]):
+                raise RuntimeError("the decode of z0 differs between the compute modes: the "
+                                   "decode product must stay float32")
+
+        # one step from the states the 85-point request visits, every 7th step,
+        # each Bayes step under the weights of its own four evaluations
+        sizes = [a.numel() for a in fused_bayes.field_arrays(like)]
+        matrix = philox.packed_normal(seed, torch.arange(E_d, device=dev).reshape(E_d, 1), sizes,
+                                      device=dev)
+        noise = fused_bayes.noise_arrays(matrix, like)
+        states = {"K2": odeint_grid(model.rhs_fn(1.0), z0, grid)[0],
+                  "K7": odeint_grid(bayes.rhs_fn(1.0), z0, grid, noise_seed=seed)[0]}
+        worst = {"K2": 0.0, "K7": 0.0}
+        for i in range(0, T_OUT - 1, 7):
+            for name, kernel, twin, rhs, noise_seed in (
+                    ("K2", k2, k2_twin, model.rhs_fn(1.0), None),
+                    ("K7", k7, k7_twin, bayes.rhs_fn(1.0), seed)):
+                kw = {"noise": [n[4 * i:4 * i + 4] for n in noise]} if name == "K7" else {}
+                z_i = states[name][i].contiguous()
+                out_of_range = (z_i[..., :3] > 2.0) | (z_i[..., :3] < -1.0)
+                frozen = int(out_of_range.sum())
+                # an entry frozen at the start stays where it is on both sides
+                watched, least = watch_margin(rhs, B, dev, ignore=out_of_range)
+                rk4_38_step(watched, 0.0, DT, z_i, noise_seed=noise_seed, e0=4 * i)
+                err = compare_bf16(f"{name} bfloat16, one step from the state at point {i} "
+                                   f"({frozen} frozen entries)", kernel(z_i, 2, **bf, **kw),
+                                   twin(z_i, 2, **bf, **kw), BF16_STEP_LIMIT[name],
+                                   rows=least() >= BF16_MARGIN[name],
+                                   min_share=BF16_STEP_ROWS)
+                worst[name] = max(worst[name], err)
+        log(f"  one step along the request: worst max abs err K2 {worst['K2']:.3g}, "
+            f"K7 {worst['K7']:.3g}")
+        del matrix, noise, states
+
+        # the 85-point request: the bulk agrees, the tail is as far from the twin
+        # as the mode is from float32 (flipped roundings carried on, freeze events)
+        T = T_OUT
+        for name, kernel, twin, kw in (("K2", k2, k2_twin, {}), ("K7", k7, k7_twin,
+                                                                  {"seed": seed})):
+            y_k, y_p, y_f = kernel(z0, T, **bf, **kw), twin(z0, T, **bf, **kw), kernel(z0, T, **kw)
+            e, m = (y_k - y_p).abs(), (y_k - y_f).abs()
+            ratio = e / (ATOL + RTOL * y_p.abs())
+            log(f"  {name} bfloat16 B={B} T={T} vs its bfloat16 twin: median abs err "
+                f"{e.median().item():.3g}, max {e.max().item():.3g}, entries within the float32 "
+                f"bound {(ratio <= 1).float().mean().item():.1%}, within 10 x "
+                f"{(ratio <= 10).float().mean().item():.1%}; the mode's own deviation (bfloat16 "
+                f"vs float32 kernel): median {m.median().item():.3g}, max {m.max().item():.3g}")
+            if not torch.isfinite(y_k).all() or e.max() > 2 * m.max() \
+                    or e.median() > BF16_BULK[name] * m.median():
+                raise RuntimeError(f"{name} bfloat16 at T={T}: the median err exceeds "
+                                   f"{BF16_BULK[name]:g} x the mode's median deviation from "
+                                   f"float32, or the max twice its max")
+            out[f"{name}_err_request"] = e.max().item()
+
+        # the bfloat16 draw is the float32 draw, rounded once
+        bw = wb.field
+        mean_flat, std_flat = fused_bayes.flatten_field(bw.mean), fused_bayes.flatten_field(bw.std)
+        w32, _, _ = fused_bayes.bayes_draw_cuda(mean_flat, std_flat, like, 8, seed=seed)
+        drawn, _, _ = fused_bayes.bayes_draw_cuda(mean_flat, std_flat, like, 8, seed=seed,
+                                                  bf16=True)
+        if not torch.equal(drawn.w, w32.to(torch.bfloat16)):
+            raise RuntimeError("the bfloat16 draw is not the float32 draw rounded")
+
+        # serving: both forecasters answer REQUESTS requests in bfloat16
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        requests = [(torch.tensor(rng.uniform(0, 1, (BATCH, T_IN, model.encoder.input_size)),
+                                  dtype=torch.float32, device=dev),
+                     model.sample_eps(BATCH, SAMPLES, generator=gen)) for _ in range(REQUESTS)]
+        f16 = fused_ude.FusedForecaster(model, fa_w=1.0, compute_dtype="bfloat16")
+        f32 = fused_ude.FusedForecaster(model, fa_w=1.0)
+        b16 = fused_bayes.FusedBayesForecaster(bayes, fa_w=1.0, compute_dtype="bfloat16")
+        b32 = fused_bayes.FusedBayesForecaster(bayes, fa_w=1.0)
+        counters = {"K1": (fused_gru.backgru_encode, "launches"),
+                    "K2 bfloat16": (fused_ude.trajectory_decode, "bf16_launches"),
+                    "draw": (fused_bayes.bayes_draw_cuda, "launches"),
+                    "K7 bfloat16": (fused_bayes.bayes_trajectory_cuda, "bf16_launches")}
+        torch.cuda.synchronize()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        answers = [(f16(xr, grid, er), b16(xr, grid, er, seed=seed + i))
+                   for i, (xr, er) in enumerate(requests)]
+        torch.cuda.synchronize()
+        out["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        log(f"  launches during the {REQUESTS} + {REQUESTS} bfloat16 requests: {out['launches']}")
+        for k, n in out["launches"].items():
+            if n < (2 * REQUESTS if k == "K1" else REQUESTS):
+                raise RuntimeError(f"{k} launched {n} times for {REQUESTS} requests")
+        for i, ((xr, er), (y, yb)) in enumerate(zip(requests, answers)):
+            for name, got, ref in (("request", y, f32(xr, grid, er)),
+                                   ("Bayes request", yb, b32(xr, grid, er, seed=seed + i))):
+                if tuple(got.shape) != (BATCH, SAMPLES, T_OUT, model.n_regions) \
+                        or not torch.isfinite(got).all():
+                    raise RuntimeError(f"bfloat16 {name} {i}: shape or values")
+                dev_abs = (got - ref).abs()
+                log(f"  bfloat16 {name} {i} vs the float32 one: median abs dev "
+                    f"{dev_abs.median().item():.3g}, 99.9th percentile "
+                    f"{dev_abs.flatten()[::7].quantile(0.999).item():.3g}, max "
+                    f"{dev_abs.max().item():.3g}")
+                if dev_abs.median().item() > BF16_MEDIAN_DEV or dev_abs.max().item() == 0.0:
+                    raise RuntimeError(f"bfloat16 {name} {i}: the answer is the float32 one, or "
+                                       f"far from it")
+
+        # times: each kernel in bfloat16 against its bfloat16 twin, and the requests
+        kw = dict(T=T_OUT, dt=DT, fa_w=1.0)
+        out["K2"] = in_turns(
+            lambda n: cuda_ms(lambda: fused_ude.trajectory_decode_plain(
+                z0, w, compute_dtype="bfloat16", **kw), n),
+            lambda n: cuda_ms(lambda: fused_ude.trajectory_decode_cuda(
+                z0, w, compute_dtype="bfloat16", rounded=rounded, **kw), n), 2, 10)
+        drawn, _, z = fused_bayes.bayes_draw_cuda(mean_flat, std_flat, like, E_d, seed=SEED,
+                                                  keep_noise=True, bf16=True)
+        noise = fused_bayes.noise_arrays(z, like)
+        out["K7"] = in_turns(
+            lambda n: cuda_ms(lambda: fused_bayes.bayes_trajectory_decode_plain(
+                z0, wb, noise=noise, compute_dtype="bfloat16", **kw), n),
+            lambda n: cuda_ms(lambda: fused_bayes.bayes_trajectory_cuda(z0, wb, drawn, **kw), n),
+            2, 5)
+        del noise, z
+        out["draw_request"] = cuda_ms(lambda: fused_bayes.bayes_draw_cuda(
+            mean_flat, std_flat, like, E_d, seed=SEED, bf16=True), 10)
+        xr, er = requests[0]
+        out["request"] = (host_ms(lambda: f32(xr, grid, er), 10),
+                          host_ms(lambda: f16(xr, grid, er), 10))
+        out["bayes_request"] = (host_ms(lambda: b32(xr, grid, er, seed=seed), 5),
+                                host_ms(lambda: b16(xr, grid, er, seed=seed), 5))
+    # bounds: the field's products at the tensor cores' dense bfloat16 rate, the
+    # decode at the float32 rate; the weights as bfloat16, read once
+    E = 4 * (T_OUT - 1)
+    dec = 2 * B * T_OUT * w.dec_w.numel() / PEAK_FLOPS
+    out_bytes = 4 * T_OUT * B * w.dec_w.shape[1]
+
+    def bound(products, nbytes_):
+        t_ops = (products / BF16_PEAK_FLOPS + dec) * 1e3
+        t_bytes = nbytes_ / PEAK_BYTES * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+    matrices = sum(t.numel() for t in (rounded[0], rounded[1], *rounded[2], *rounded[3]))
+    out["K2_bound"] = bound(
+        2 * B * (E * field_macs(w, False) + w.w0_tail.numel()),
+        nbytes(z0, w.dec_w, w.dec_b, w.b0, *(b for _, b in w.fp + w.aug)) + 2 * matrices
+        + out_bytes)
+    out["K7_bound"] = bound(2 * B * E * field_macs(like, True),
+                            nbytes(z0, wb.dec_w, wb.dec_b, drawn.w, drawn.bias) + out_bytes)
+    return out
+
+
+def experiment_runs(dev, smi):
+    """Phase 16: ``run_experiment`` for a `state` CONN and UONN config and the
+    CONN -> UONN ``run_transfer``, through the kernels, to the results table.
+    Returns the launch counters of the UONN config's run."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.ops import fused_gru_train, fused_train
+    from fiude_tpu_torch.train import experiment
+    from fiude_tpu_torch.train.checkpoint import flat_from_module, load_flat
+    from fiude_tpu_torch.train.trainer import Trainer
+    from fiude_tpu_torch.utils.config import ExperimentConfig
+    from fiude_tpu_torch.utils.results import read_table
+    counters = {"K3": fused_gru_train.encoder_forward_cuda,
+                "K4": fused_gru_train.encoder_backward_cuda,
+                "K5": fused_train.train_forward_cuda, "K6": fused_train.train_backward_cuda}
+
+    def counted(run):
+        """``run()`` with the counters read around it: (result, launches, seconds)."""
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        return result, {k: c.launches for k, c in counters.items()}, time.perf_counter() - t0
+
+    def hold_launches(tag, launches, steps, forwards):
+        """K4 and K6 once a step; K3 and K5 also once for each forward without a
+        backward (the test forecast runs the model's own forward)."""
+        want = {"K3": steps + forwards, "K4": steps, "K5": steps + forwards, "K6": steps}
+        if launches != want:
+            raise RuntimeError(f"{tag}: launches {launches} for {steps} steps, expected {want}")
+
+    cfgs = {name: ExperimentConfig(region="state", ode_name=name, epochs=4, window_size=28,
+                                   gamma=28) for name in ("CONN", "UONN")}
+    out_launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        table = f"{tmp}/results_table"
+        kw = dict(synthetic=True, padded_curriculum=True, fused_train=True, weights_root=tmp,
+                  results_file=table)
+        for name, cfg in list(cfgs.items()) + [("CONN", cfgs["CONN"])]:
+            out, launches, seconds = counted(lambda: experiment.run_experiment(cfg, **kw))
+            trainer = out["trainer"]
+            if next(trainer.model.parameters()).device != dev:
+                raise RuntimeError("run_experiment() without a device did not run on the card")
+            steps = sum(len(epoch) for epoch in trainer.history.batch_history)
+            losses = [h["loss"] for h in out["history"]]
+            log(f"  run_experiment({cfg.key}): {len(losses)} epochs, {steps} steps and the test "
+                f"forecast (128 samples) in {seconds:.2f} s [{smi}]; epoch losses "
+                f"{', '.join(f'{v:.4g}' for v in losses)}; launches {launches}")
+            if len(losses) != cfg.epochs or not np.isfinite(losses).all():
+                raise RuntimeError("run_experiment: the history is not finite")
+            hold_launches(cfg.key, launches, steps, forwards=1)
+            if not np.isfinite(list(out["metrics"].values())).all():
+                raise RuntimeError(f"run_experiment: metrics {out['metrics']}")
+            if name == "UONN":
+                out_launches = launches
+        columns, index, rows = read_table(table + ".csv")
+        want = ([f"2016 {g}" for g in (34, 41, 48, 55)]
+                + [f"skill 2016 {w}" for w in (7, 14, 21, 28)])
+        log(f"  results table: rows {index}, columns {columns}")
+        if len(rows) != 2 or [r["ode_name"] for r in rows] != ["CONN", "UONN"]:
+            raise RuntimeError("the results table must hold one row a config (a second run of "
+                               "a config updates its row)")
+        for row in rows:
+            if any(c not in row or not np.isfinite(row[c]) for c in want):
+                raise RuntimeError(f"a results row lacks one of the reference's columns: {row}")
+
+        # CONN -> UONN transfer, with the state before the first step recorded
+        prefix = f"{tmp}/weights/{cfgs['CONN'].key}"
+        seen = {"fa_w": []}
+        train = Trainer.train
+
+        def recording_train(self, *args, **kwargs):
+            if not seen["fa_w"]:
+                seen["ode"] = flat_from_module(self.model, "ode")
+            seen["fa_w"].append(self.fa_w)
+            return train(self, *args, **kwargs)
+
+        Trainer.train = recording_train
+        try:
+            trainer, launches, seconds = counted(lambda: experiment.run_transfer(
+                cfgs["UONN"], load_prefix=prefix, synthetic=True, fused_train=True,
+                weights_root=tmp, warm_epochs=1, ramp_epochs_each=1, final_epochs=1))
+        finally:
+            Trainer.train = train
+        steps = sum(len(epoch) for epoch in trainer.history.batch_history)
+        saved = load_flat(prefix)
+        copied = [k for k in saved if k.startswith(".fp_net")]
+        log(f"  run_transfer: {len(seen['fa_w'])} train() calls, {steps} steps in {seconds:.2f} s "
+            f"[{smi}]; fa_w by call {seen['fa_w']}; Fp_net arrays taken from the CONN "
+            f"checkpoint: {len(copied)}; launches {launches}")
+        if not copied or any(not np.array_equal(seen["ode"][k], saved[k]) for k in copied):
+            raise RuntimeError("the transfer did not start from the CONN checkpoint's Fp_net")
+        if trainer.fa_w != 1.0 or seen["fa_w"] != [0.0] + [round(0.1 * k, 10)
+                                                           for k in range(1, 11)] + [1.0]:
+            raise RuntimeError(f"the fa_w ramp went {seen['fa_w']}")
+        if not np.isfinite([h["loss"] for h in trainer.history.epoch_history]).all():
+            raise RuntimeError("run_transfer: the history is not finite")
+        hold_launches("run_transfer", launches, steps, forwards=0)
+    return out_launches
 
 def main() -> int:
     import torch
@@ -1344,6 +1902,50 @@ def main() -> int:
         f"systems): draw {bt['daily'][0]:.4f} ms, K8 {bt['daily'][1]:.4f} ms, K9 "
         f"{bt['daily'][2]:.4f} ms [{smi}]")
 
+    # -- 13. the aux-streaming mode of K5/K6 and K8/K9 vs the twins ------------------
+    log("phase 13: K5/K6 and K8/K9 in aux-streaming mode vs autograd of their twins at the "
+        f"training shape ({z_train.shape[0]} systems, {WEEKS} weekly points)")
+    s_err = stream_kernel_checks(dev, model, bayes, z_train, rng)
+
+    # -- 14. training steps in aux-streaming mode ---------------------------------------
+    log("phase 14: training with fused_train alone (aux-streaming), UONN then UONNb, "
+        f"train_curriculum_padded over {WEEKS} weekly points, one batch an epoch")
+    with tempfile.TemporaryDirectory() as tmp:
+        s_launches, s_step_inputs = train_end_to_end(dev, rng, tmp, stats=False, windows=BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        sb_launches, sb_step_inputs = train_end_to_end(dev, rng, tmp, ode_name="UONNb",
+                                                       stats=False, windows=BATCH)
+    st = stream_times(dev, model, bayes, z_train)
+    for key, name in (("K5", "K5 trajectory forward"), ("K6", "K6 trajectory backward"),
+                      ("K8", "K8 Bayes trajectory forward"),
+                      ("K9", "K9 Bayes trajectory backward")):
+        log(f"  {name}, aux-streaming: kernel {st[key][1]:.4f} ms, plain {st[key][0]:.4f} ms, "
+            f"bound {st[key + '_bound'][0]:.4f} ms by {st[key + '_bound'][1]} [{smi}]")
+    for tag, inputs in (("", s_step_inputs), ("Bayes ", sb_step_inputs)):
+        plain, ms = step_times(inputs)
+        log(f"  {tag}training step, aux-streaming ({BATCH} windows x {SAMPLES} samples, {WEEKS} "
+            f"weekly points): kernels {ms:.4f} ms, plain {plain:.4f} ms [{smi}]")
+    trace_steps(s_step_inputs, smi, tag="aux-streaming ")
+
+    # -- 15. serving in the bfloat16 compute mode ----------------------------------------
+    log(f"phase 15: K2 and K7 with compute_dtype=\"bfloat16\" vs their bfloat16 twins at the "
+        f"serving shape ({z0.shape[0]} systems), T={BF16_SHORT_T} and T={T_OUT}")
+    bf = bf16_serving(dev, model, bayes, z0, grid, rng, smi)
+    for key, name in (("K2", "K2 trajectory, bfloat16"), ("K7", "K7 Bayes trajectory, bfloat16")):
+        log(f"  {name}: kernel {bf[key][1]:.4f} ms, plain {bf[key][0]:.4f} ms, bound "
+            f"{bf[key + '_bound'][0]:.4f} ms by {bf[key + '_bound'][1]} [{smi}]")
+    log(f"  draw for a bfloat16 request (336 evaluations, bfloat16 w and float32 biases): "
+        f"{bf['draw_request']:.4f} ms [{smi}]")
+    log(f"  request: float32 {bf['request'][0]:.4f} ms, bfloat16 {bf['request'][1]:.4f} ms; "
+        f"Bayes request: float32 {bf['bayes_request'][0]:.4f} ms, bfloat16 "
+        f"{bf['bayes_request'][1]:.4f} ms [{smi}]")
+
+    # -- 16. the experiment recipes -----------------------------------------------------
+    log("phase 16: run_experiment (state CONN, UONN; 4 epochs, window 28, gamma 28, padded "
+        "curriculum, fused_train) and run_transfer CONN -> UONN, to the results table")
+    x_launches = experiment_runs(dev, smi)
+    log(f"  run_experiment's UONN run launched {x_launches}")
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"fiude_tpu_torch/csrc/{source}",
                 "replaces": f"fiude_tpu/ops/{replaces}", "launches": launches,
@@ -1374,6 +1976,26 @@ def main() -> int:
         entry("bayes_weight_draw", "fused_bayes.cu", "pallas_bayes_train.py:95",
               b_launches["draw"] + bt_launches["draw"], draw_err, bt["draw"][1], bt["draw"][0],
               bt["draw_bound"]),
+        # the kernels' other modes: aux-streaming (launches of phase 14's training) and
+        # the bfloat16 compute mode (launches of phase 15's requests)
+        entry("fused_train_trajectory_forward[aux-streaming]", "fused_train.cu",
+              "pallas_train.py:654", s_launches["K5"], s_err["K5"], st["K5"][1], st["K5"][0],
+              st["K5_bound"]),
+        entry("fused_train_trajectory_backward[aux-streaming]", "fused_train.cu",
+              "pallas_train.py:728", s_launches["K6"], s_err["K6"], st["K6"][1], st["K6"][0],
+              st["K6_bound"]),
+        entry("fused_bayes_train_trajectory_forward[aux-streaming]", "fused_train.cu",
+              "pallas_bayes_train.py:627", sb_launches["K8"], s_err["K8"], st["K8"][1],
+              st["K8"][0], st["K8_bound"]),
+        entry("fused_bayes_train_trajectory_backward[aux-streaming]", "fused_train.cu",
+              "pallas_bayes_train.py:712", sb_launches["K9"], s_err["K9"], st["K9"][1],
+              st["K9"][0], st["K9_bound"]),
+        entry("fused_trajectory_decode[bfloat16]", "fused_ude.cu", "pallas_ude.py:306",
+              bf["launches"]["K2 bfloat16"], bf["K2_err"], bf["K2"][1], bf["K2"][0],
+              bf["K2_bound"]),
+        entry("fused_bayes_trajectory_decode[bfloat16]", "fused_bayes.cu", "pallas_bayes.py:237",
+              bf["launches"]["K7 bfloat16"], bf["K7_err"], bf["K7"][1], bf["K7"][0],
+              bf["K7_bound"]),
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

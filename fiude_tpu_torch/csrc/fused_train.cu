@@ -1,6 +1,6 @@
-// RK4(3/8) training trajectory of the UDE field in stats mode, forward and
-// hand-written backward, for Hopper (sm_90a): kernels K5 and K6 of the
-// training path.
+// RK4(3/8) training trajectory of the UDE field, forward and hand-written
+// backward, for Hopper (sm_90a): kernels K5 and K6 of the training path, in
+// stats mode and in aux-streaming mode.
 //
 // Replaces: fiude_tpu/ops/pallas_train.py::_get_train_traj.fwd_impl (K5,
 // kernel body _make_fwd_kernel, pallas_train.py:174-325) and
@@ -46,11 +46,24 @@
 //    reduced once per block, in a fixed order.
 // All arithmetic is float32.  The kernels allocate nothing.
 //
+// Aux-streaming mode (stats_mode=False in the JAX package, its default;
+// pallas_train.py:228-252,298-323,396-415,425-477) is the same two kernels
+// under the run-time switch Args::stream_aux: instead of the five sums, the
+// forward writes every evaluation's |rates| (E, B, 2R) and Fa (E, B, 3R),
+// E = 4(T-1), evaluation e = 4 * step + stage, to global memory (the rates
+// before the freeze mask and for frozen rows too), and the backward reads
+// their cotangents, a tile an evaluation, where stats mode rebuilds them from
+// the sums' cotangents; tmask is the loss's.  The aux lives in shared memory
+// feature-major ([feature][16 rows]) and a tile's 16 rows are one contiguous
+// run of global memory, so the stores and loads are coalesced in global memory
+// and strided by 16 floats in shared memory (bank conflicts, as the
+// trajectory's own stores).
+//
 // K8 and K9, the Bayes families' training trajectory, are the same kernels
 // under the compile-time switch kBayes.  They replace
 // fiude_tpu/ops/pallas_bayes_train.py::_get_bayes_train_traj.fwd_impl (K8,
 // _make_fwd_kernel, pallas_bayes_train.py:113-274) and ::bwd_impl (K9,
-// _make_bwd_kernel, :281-598) in stats mode: K5/K6's math on effective
+// _make_bwd_kernel, :281-598) in both modes: K5/K6's math on effective
 // weights w(e) = mean + z(e) * |std| that differ on every RHS evaluation e.
 // The weights are not drawn here: fused_bayes_draw (csrc/fused_bayes.cu)
 // writes w(e), its transposes and z(e) for every evaluation to global memory
@@ -109,6 +122,14 @@ struct Args {
   const float* tmask;  // (T-1)
   const float* fa_w;   // scalar
   size_t g_w0h, g_w0t, g_b0, g_faw, n_grad;   // slice layout
+  // aux-streaming mode (stream_aux): no statistics and no tmask; the forward
+  // writes every evaluation's aux, the backward reads its cotangents (either
+  // may be absent: a family without that net, or a loss that never read it)
+  int stream_aux;
+  float* rates_out;      // (E, B, 2R) |rates| of evaluation e = 4 * step + stage
+  float* fa_out;         // (E, B, 3R)
+  const float* g_rates;  // (E, B, 2R)
+  const float* g_fa;     // (E, B, 3R)
 };
 
 // Per-net activation buffers: pre[d] for every layer after the first,
@@ -254,14 +275,19 @@ __device__ void net_forward(const Net& net, size_t woff, const float4* in, int K
   }
 }
 
+__device__ void store_tile(const float4* src, int B, int W, int row0, float* __restrict__ dst,
+                           bool aux = false, bool absval = false);
+
 // One RHS evaluation at zs, keeping every activation in `st`.  With `field`,
 // also writes the field; with `stats`, adds this evaluation's statistics
 // (weight m, tile rows < valid) to the thread's accumulators.  `e` is the
 // evaluation's index: with kBayes its weights, and the tail's first-layer
-// term recomputed from them.
+// term recomputed from them.  Where the aux streams are given (the forward
+// in aux-streaming mode) the evaluation's |rates| and Fa go to their rows
+// row0.. of slot e: the rates before the freeze mask, for frozen rows too.
 template <bool kBayes>
 __device__ void rhs_eval(const Args& a, const Stash& st, const float4* zs, float4* field,
-                         float fa_w, float m, int valid, float* stats, int e) {
+                         float fa_w, float m, int valid, float* stats, int e, int row0) {
   const bool mech = a.n0_fp > 0, has_aug = a.aug.n > 0;
   const size_t woff = kBayes ? a.P * (size_t)e : 0;
   if (kBayes)
@@ -271,6 +297,12 @@ __device__ void rhs_eval(const Args& a, const Stash& st, const float4* zs, float
         a.fp.n >= 2, a.aug.n >= 2);
   if (mech) net_forward(a.fp, woff, st.h0post, a.n0_fp, st.fp);
   if (has_aug) net_forward(a.aug, woff, st.h0post + a.n0_fp * kG, a.N0 - a.n0_fp, st.aug);
+  if (mech && a.rates_out != nullptr)
+    store_tile(st.fp.pre[a.fp.n - 1], a.B, 2 * a.R, row0,
+               a.rates_out + (size_t)e * a.B * 2 * a.R, true, true);
+  if (has_aug && a.fa_out != nullptr)
+    store_tile(st.aug.pre[a.aug.n - 1], a.B, 3 * a.R, row0,
+               a.fa_out + (size_t)e * a.B * 3 * a.R, true);
   if (field == nullptr && stats == nullptr) return;
 
   const float* z = reinterpret_cast<const float*>(zs);
@@ -356,11 +388,23 @@ __device__ void load_tile(const float* __restrict__ src, int B, int W, int row0,
   }
 }
 
-__device__ void store_tile(const float4* src, int B, int W, int row0, float* __restrict__ dst) {
+// Store a [W][kTile] buffer (its absolute values with absval) into rows row0..
+// of a (B, W) matrix, none past B.  The aux streams (aux) are written once and
+// read by no block: they take the evict-first store, so that their 56 MB a
+// trajectory do not push the evaluations' weights out of the 50 MB L2 (with
+// plain stores the Bayes forward, whose blocks re-read 8 MB of drawn weights
+// from L2, measured 1.5x its stats-mode time).
+__device__ void store_tile(const float4* src, int B, int W, int row0, float* __restrict__ dst,
+                           bool aux, bool absval) {
   const float* s = reinterpret_cast<const float*>(src);
   for (int idx = threadIdx.x; idx < kTile * W; idx += blockDim.x) {
     const int row = idx / W, c = idx % W;
-    if (row0 + row < B) dst[(size_t)(row0 + row) * W + c] = s[c * kTile + row];
+    float v = s[c * kTile + row];
+    if (absval) v = fabsf(v);
+    if (row0 + row >= B) continue;
+    float* out = dst + (size_t)(row0 + row) * W + c;
+    if (aux) __stcs(out, v);
+    else *out = v;
   }
 }
 
@@ -411,6 +455,7 @@ train_forward_kernel(const float* __restrict__ zh0, const float* __restrict__ zt
   store_tile(zh, B, W3, row0, traj);
 
   float acc[kStats] = {};
+  float* stats = a.stream_aux ? nullptr : acc;
   const int n = W3 * kTile;
   float* zhf = reinterpret_cast<float*>(zh);
   float* zsf = reinterpret_cast<float*>(zs);
@@ -420,23 +465,26 @@ train_forward_kernel(const float* __restrict__ zh0, const float* __restrict__ zt
   const float* k4 = reinterpret_cast<const float*>(k[3]);
   const float third = 1.f / 3.f;
   for (int i = 0; i + 1 < a.T; ++i) {
-    const float dt = a.dts[i], m = a.tmask[i];
-    rhs_eval<kBayes>(a, st, zh, k[0], fa_w, m, valid, acc, 4 * i + 0);
+    const float dt = a.dts[i], m = a.stream_aux ? 1.f : a.tmask[i];
+    rhs_eval<kBayes>(a, st, zh, k[0], fa_w, m, valid, stats, 4 * i + 0, row0);
     for (int e = threadIdx.x; e < n; e += blockDim.x) zsf[e] = zhf[e] + dt * k1[e] * third;
     __syncthreads();
-    rhs_eval<kBayes>(a, st, zs, k[1], fa_w, m, valid, acc, 4 * i + 1);
-    for (int e = threadIdx.x; e < n; e += blockDim.x) zsf[e] = zhf[e] + dt * (k2[e] - k1[e] * third);
+    rhs_eval<kBayes>(a, st, zs, k[1], fa_w, m, valid, stats, 4 * i + 1, row0);
+    for (int e = threadIdx.x; e < n; e += blockDim.x)
+      zsf[e] = zhf[e] + dt * (k2[e] - k1[e] * third);
     __syncthreads();
-    rhs_eval<kBayes>(a, st, zs, k[2], fa_w, m, valid, acc, 4 * i + 2);
-    for (int e = threadIdx.x; e < n; e += blockDim.x) zsf[e] = zhf[e] + dt * (k1[e] - k2[e] + k3[e]);
+    rhs_eval<kBayes>(a, st, zs, k[2], fa_w, m, valid, stats, 4 * i + 2, row0);
+    for (int e = threadIdx.x; e < n; e += blockDim.x)
+      zsf[e] = zhf[e] + dt * (k1[e] - k2[e] + k3[e]);
     __syncthreads();
-    rhs_eval<kBayes>(a, st, zs, k[3], fa_w, m, valid, acc, 4 * i + 3);
+    rhs_eval<kBayes>(a, st, zs, k[3], fa_w, m, valid, stats, 4 * i + 3, row0);
     for (int e = threadIdx.x; e < n; e += blockDim.x)
       zhf[e] = zhf[e] + dt * (k1[e] + 3.f * (k2[e] + k3[e]) + k4[e]) * 0.125f;
     __syncthreads();
     store_tile(zh, B, W3, row0, traj + (size_t)(i + 1) * B * W3);
   }
-  block_sum(acc, 5, reinterpret_cast<float*>(stages), stats_out + (size_t)blockIdx.x * kStats);
+  if (!a.stream_aux)
+    block_sum(acc, 5, reinterpret_cast<float*>(stages), stats_out + (size_t)blockIdx.x * kStats);
 }
 
 // ---------------------------------------------------------------------------
@@ -477,8 +525,12 @@ __device__ void net_backward(const Args& a, const Net& net, const Acts& acts,
 // VJP of one RHS evaluation at u: g.gu = d(field)/du^T g.gout, with every
 // weight cotangent added to this block's slice.  In stats mode the aux
 // cotangents are m * (g1 + 2 (rate - shift) g2) for the rates and
-// m * 2 g_f2 Fa for the Fa field (pallas_train.py:435-445).  The freeze mask
-// zeroes the field's cotangent, not the state's.  With kBayes the weights
+// m * 2 g_f2 Fa for the Fa field (pallas_train.py:435-445); in aux-streaming
+// mode they are evaluation e's tiles of g_rates and g_fa, staged in g.da and
+// g.dc (free until the loop below writes the nets' cotangents there), zero
+// where a stream is absent.  The freeze mask zeroes the field's cotangent,
+// not the state's, and not the aux cotangent: a frozen row's rates and Fa
+// still reach the nets.  With kBayes the weights
 // (and the noise of the std cotangents) are evaluation e's, and the tail's
 // terms are contracted here, into g_ztail's rows row0...
 template <bool kBayes>
@@ -488,7 +540,11 @@ __device__ void rhs_vjp(const Args& a, const Stash& st, const Grad& g, const flo
   const bool mech = a.n0_fp > 0, has_aug = a.aug.n > 0;
   const size_t woff = kBayes ? a.P * (size_t)e : 0;
   const float* zn = kBayes ? a.z + woff : nullptr;
-  rhs_eval<kBayes>(a, st, u, nullptr, fa_w, m, valid, nullptr, e);
+  const bool aux_rates = a.stream_aux && mech && a.g_rates != nullptr;
+  const bool aux_fa = a.stream_aux && has_aug && a.g_fa != nullptr;
+  if (aux_rates) load_tile(a.g_rates + (size_t)e * a.B * 2 * a.R, a.B, 2 * a.R, row0, g.da);
+  if (aux_fa) load_tile(a.g_fa + (size_t)e * a.B * 3 * a.R, a.B, 3 * a.R, row0, g.dc);
+  rhs_eval<kBayes>(a, st, u, nullptr, fa_w, m, valid, nullptr, e, row0);   // ends in a barrier
 
   const float* z = reinterpret_cast<const float*>(u);
   const float* go = reinterpret_cast<const float*>(g.gout);
@@ -514,26 +570,29 @@ __device__ void rhs_vjp(const Args& a, const Stash& st, const Grad& g, const flo
       float ggam = g_minus * I;
       uS = g_plus * beta * I;
       uI = g_plus * beta * S + g_minus * gamma;
-      if (live) {
+      if (aux_rates) {
+        gbeta += d_rates[(2 * r) * kTile + row];
+        ggam += d_rates[(2 * r + 1) * kTile + row];
+      } else if (live && !a.stream_aux) {
         gbeta += m * (gs[0] + 2.f * (beta - kShiftBeta) * gs[2]);
         ggam += m * (gs[1] + 2.f * (gamma - kShiftGamma) * gs[3]);
       }
       d_rates[(2 * r) * kTile + row] = sgn(pb) * gbeta;
       d_rates[(2 * r + 1) * kTile + row] = sgn(pg) * ggam;
-      if (has_aug) {
-        faw_acc += gS * fa[iS] + gI * fa[iI] + gR * fa[iR];
-        d_fa[iS] = fa_w * gS;
-        d_fa[iI] = fa_w * gI;
-        d_fa[iR] = fa_w * gR;
-      }
-    } else {
-      d_fa[iS] = gS; d_fa[iI] = gI; d_fa[iR] = gR;
     }
-    if (has_aug && live) {
-      const float c = m * (2.f * gs[4]);
-      d_fa[iS] += c * fa[iS];
-      d_fa[iI] += c * fa[iI];
-      d_fa[iR] += c * fa[iR];
+    if (has_aug) {
+      float aS = 0.f, aI = 0.f, aR = 0.f;       // the Fa field's aux cotangent
+      if (aux_fa) {
+        aS = d_fa[iS]; aI = d_fa[iI]; aR = d_fa[iR];
+      } else if (live && !a.stream_aux) {
+        const float c = m * (2.f * gs[4]);
+        aS = c * fa[iS]; aI = c * fa[iI]; aR = c * fa[iR];
+      }
+      const float s = mech ? fa_w : 1.f;
+      if (mech) faw_acc += gS * fa[iS] + gI * fa[iI] + gR * fa[iR];
+      d_fa[iS] = s * gS + aS;
+      d_fa[iI] = s * gI + aI;
+      d_fa[iR] = s * gR + aR;
     }
     gu[iS] = uS;
     gu[iI] = uI;
@@ -604,7 +663,7 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
   st.tail = tail;
   const float fa_w = *a.fa_w;
   float gs[5];
-  for (int q = 0; q < 5; ++q) gs[q] = gstats[q];
+  for (int q = 0; q < 5; ++q) gs[q] = a.stream_aux ? 0.f : gstats[q];
 
   for (size_t e = tid; e < a.n_grad; e += blockDim.x) slice[e] = 0.f;
   if (kBayes) {
@@ -633,17 +692,17 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
   const float third = 1.f / 3.f;
   float faw_acc = 0.f;
   for (int i = a.T - 2; i >= 0; --i) {
-    const float dt = a.dts[i], m = a.tmask[i];
+    const float dt = a.dts[i], m = a.stream_aux ? 1.f : a.tmask[i];
     load_tile(traj + (size_t)i * B * W3, B, W3, row0, g.zh);
     __syncthreads();
     // the stages, recomputed from the stored state (k1..k3 in gk1..gk3)
-    rhs_eval<kBayes>(a, st, g.zh, g.gk1, fa_w, m, valid, nullptr, 4 * i);
+    rhs_eval<kBayes>(a, st, g.zh, g.gk1, fa_w, m, valid, nullptr, 4 * i, row0);
     for (int e = tid; e < n; e += blockDim.x) u2[e] = zh[e] + dt * gk1[e] * third;
     __syncthreads();
-    rhs_eval<kBayes>(a, st, g.u2, g.gk2, fa_w, m, valid, nullptr, 4 * i + 1);
+    rhs_eval<kBayes>(a, st, g.u2, g.gk2, fa_w, m, valid, nullptr, 4 * i + 1, row0);
     for (int e = tid; e < n; e += blockDim.x) u3[e] = zh[e] + dt * (gk2[e] - gk1[e] * third);
     __syncthreads();
-    rhs_eval<kBayes>(a, st, g.u3, g.gk3, fa_w, m, valid, nullptr, 4 * i + 2);
+    rhs_eval<kBayes>(a, st, g.u3, g.gk3, fa_w, m, valid, nullptr, 4 * i + 2, row0);
     for (int e = tid; e < n; e += blockDim.x) {
       u4[e] = zh[e] + dt * (gk1[e] - gk2[e] + gk3[e]);
       const float c = gz[e];
@@ -782,6 +841,15 @@ void point_at(Args& a, const float* w, const float* wt) {
     }
 }
 
+// Switch to aux-streaming mode: the forward's outputs or the backward's
+// cotangent inputs, any of them null when absent.
+void stream_aux(Args& a, float* rates_out, float* fa_out, const float* g_rates,
+                const float* g_fa) {
+  a.stream_aux = 1;
+  a.rates_out = rates_out; a.fa_out = fa_out;
+  a.g_rates = g_rates; a.g_fa = g_fa;
+}
+
 template <bool kBayes>
 int launch_forward(const float* zh0, const float* ztail, const Args& a, float* traj,
                    float* stats, void* stream) {
@@ -835,7 +903,10 @@ int fused_train_blocks(int B) { return (B + kTile - 1) / kTile; }
 // K5.  zh0 (B, 3R) region-major head; ztail (B, DT); dts, tmask (T-1) and
 // fa_w (scalar) on the device; weights (in, out).  Writes traj (T, B, 3R) and
 // stats (blocks, 8): per block sum(beta - 0.8), sum(gamma - 0.55), the two
-// sums of squares, sum(Fa^2).  Launches on `stream`; returns
+// sums of squares, sum(Fa^2).  With aux_mode != 0 (aux-streaming) tmask and
+// stats are not read or written (null), and every evaluation's |rates| go to
+// rates (4(T-1), B, 2R) and its Fa to fa (4(T-1), B, 3R), each null for a
+// family without that net.  Launches on `stream`; returns
 // cudaGetLastError().
 int fused_train_forward(const float* zh0, const float* ztail, int B, int T,
                         const float* dts, const float* tmask, const float* fa_w, int R,
@@ -844,11 +915,12 @@ int fused_train_forward(const float* zh0, const float* ztail, int B, int T,
                         const void* const* fp_w, const void* const* fp_b, int n_aug,
                         const int* aug_out, const void* const* aug_w,
                         const void* const* aug_b, float* traj, float* stats,
-                        void* stream) {
+                        int aux_mode, float* rates, float* fa, void* stream) {
   Args a;
   int err = fill_args(a, B, T, dts, tmask, fa_w, R, DT, N0, n0_fp, w0h, w0t, b0, n_fp,
                       fp_out, fp_w, nullptr, fp_b, n_aug, aug_out, aug_w, nullptr, aug_b);
   if (err != cudaSuccess) return err;
+  if (aux_mode) stream_aux(a, rates, fa, nullptr, nullptr);
   return launch_forward<false>(zh0, ztail, a, traj, stats, stream);
 }
 
@@ -856,7 +928,10 @@ int fused_train_forward(const float* zh0, const float* ztail, int B, int T,
 // the cotangents of the five statistics; weights (in, out) and their
 // transposes (out, in), w0ht (N0, 3R), w0tt (N0, DT).  Writes g_zhead
 // (B, 3R), g_ztail (B, DT) and partials (blocks, fused_train_grad_floats):
-// each block's share of every weight cotangent, summed by the caller.
+// each block's share of every weight cotangent, summed by the caller.  With
+// aux_mode != 0 tmask and gstats are not read (null) and the aux cotangents
+// are g_rates (4(T-1), B, 2R) and g_fa (4(T-1), B, 3R), either null when the
+// loss never read that stream.
 int fused_train_backward(const float* traj, const float* gtraj, const float* ztail,
                          int B, int T, const float* dts, const float* tmask,
                          const float* fa_w, const float* gstats, int R, int DT, int N0,
@@ -866,13 +941,15 @@ int fused_train_backward(const float* traj, const float* gtraj, const float* zta
                          const void* const* fp_b, int n_aug, const int* aug_out,
                          const void* const* aug_w, const void* const* aug_wt,
                          const void* const* aug_b, float* g_zhead, float* g_ztail,
-                         float* partials, void* stream) {
+                         float* partials, int aux_mode, const float* g_rates,
+                         const float* g_fa, void* stream) {
   Args a;
   int err = fill_args(a, B, T, dts, tmask, fa_w, R, DT, N0, n0_fp, w0h, w0t, b0, n_fp,
                       fp_out, fp_w, fp_wt, fp_b, n_aug, aug_out, aug_w, aug_wt, aug_b);
   if (err != cudaSuccess) return err;
   a.w0ht = static_cast<const float*>(w0ht);
   a.w0tt = static_cast<const float*>(w0tt);
+  if (aux_mode) stream_aux(a, nullptr, nullptr, g_rates, g_fa);
   return launch_backward<false>(traj, gtraj, ztail, gstats, a, g_zhead, g_ztail, partials,
                                 stream);
 }
@@ -880,12 +957,14 @@ int fused_train_backward(const float* traj, const float* gtraj, const float* zta
 // K8.  As fused_train_forward, with the weights of evaluation e = 4 * step +
 // stage read from weff (4(T-1), P), fused_bayes_draw's output: each
 // evaluation's packed arrays (w0_head, w0_tail, b0, then each later (w, b) of
-// the rates net, then of the Fa net; (in, out) weights).
+// the rates net, then of the Fa net; (in, out) weights).  aux_mode, rates and
+// fa as in fused_train_forward.
 int fused_bayes_train_forward(const float* zh0, const float* ztail, int B, int T,
                               const float* dts, const float* tmask, const float* fa_w, int R,
                               int DT, int N0, int n0_fp, const float* weff, long long P,
                               int n_fp, const int* fp_out, int n_aug, const int* aug_out,
-                              float* traj, float* stats, void* stream) {
+                              float* traj, float* stats, int aux_mode, float* rates,
+                              float* fa, void* stream) {
   Args a;
   int err = fill_args(a, B, T, dts, tmask, fa_w, R, DT, N0, n0_fp, nullptr, nullptr, nullptr,
                       n_fp, fp_out, nullptr, nullptr, nullptr, n_aug, aug_out, nullptr, nullptr,
@@ -893,6 +972,7 @@ int fused_bayes_train_forward(const float* zh0, const float* ztail, int B, int T
   if (err != cudaSuccess) return err;
   if ((long long)a.P != P) return cudaErrorInvalidValue;
   point_at(a, weff, nullptr);
+  if (aux_mode) stream_aux(a, rates, fa, nullptr, nullptr);
   return launch_forward<true>(zh0, ztail, a, traj, stats, stream);
 }
 
@@ -900,13 +980,15 @@ int fused_bayes_train_forward(const float* zh0, const float* ztail, int B, int T
 // its slot) and z (4(T-1), P) from fused_bayes_draw.  partials (blocks,
 // 2 P + 8): each block's share of the cotangents of the packed means, then of
 // the packed |std|s (g_w * z summed over the evaluations), then of fa_w.
+// aux_mode, g_rates and g_fa as in fused_train_backward.
 int fused_bayes_train_backward(const float* traj, const float* gtraj, const float* ztail,
                                int B, int T, const float* dts, const float* tmask,
                                const float* fa_w, const float* gstats, int R, int DT, int N0,
                                int n0_fp, const float* weff, const float* wteff,
                                const float* z, long long P, int n_fp, const int* fp_out,
                                int n_aug, const int* aug_out, float* g_zhead, float* g_ztail,
-                               float* partials, void* stream) {
+                               float* partials, int aux_mode, const float* g_rates,
+                               const float* g_fa, void* stream) {
   Args a;
   int err = fill_args(a, B, T, dts, tmask, fa_w, R, DT, N0, n0_fp, nullptr, nullptr, nullptr,
                       n_fp, fp_out, nullptr, nullptr, nullptr, n_aug, aug_out, nullptr, nullptr,
@@ -915,6 +997,7 @@ int fused_bayes_train_backward(const float* traj, const float* gtraj, const floa
   if ((long long)a.P != P) return cudaErrorInvalidValue;
   point_at(a, weff, wteff);
   a.z = z;
+  if (aux_mode) stream_aux(a, nullptr, nullptr, g_rates, g_fa);
   return launch_backward<true>(traj, gtraj, ztail, gstats, a, g_zhead, g_ztail, partials,
                                stream);
 }

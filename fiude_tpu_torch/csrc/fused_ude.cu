@@ -36,8 +36,13 @@
 //    and tail (by the caller);
 //  * fa_w and dt are runtime arguments, so a fa_w ramp or a new grid step
 //    needs no rebuild.
-// All arithmetic is float32.  The kernel allocates nothing.  The device code
-// is in fused_ude.cuh, which K7 (fused_bayes.cu) instantiates with kBayes.
+// All arithmetic is float32 unless the caller asks for the bfloat16 compute
+// mode (compute_dtype="bfloat16" of the TPU kernel, pallas_ude.py:185-192,
+// 321-327): then the field's products take both operands rounded to bfloat16,
+// the weights from bfloat16 copies the caller rounded once, and sum in
+// float32 (fused_ude.cuh, kBf16); the decode stays float32.  The kernel
+// allocates nothing.  The device code is in fused_ude.cuh, which K7
+// (fused_bayes.cu) instantiates with kBayes.
 
 #include "fused_ude.cuh"
 
@@ -47,7 +52,7 @@ void fill_net(Net& net, int n, const int* outs, const void* const* w, const void
   net.n = n;
   for (int d = 0; d < n; ++d) {
     net.out[d] = outs[d];
-    net.w[d] = static_cast<const float*>(w[d]);
+    net.w[d] = w[d];
     net.b[d] = static_cast<const float*>(b[d]);
   }
 }
@@ -57,7 +62,10 @@ void fill_net(Net& net, int n, const int* outs, const void* const* w, const void
 extern "C" {
 
 // zh0 (B, 3R) region-major head; ztail (B, DT); weights (in, out) float32;
-// out (T, B, R_out).  Launches on `stream`; returns cudaGetLastError().
+// out (T, B, R_out).  With bf16 != 0 the field's matrices (w0h, w0t, fp_w,
+// aug_w) are bfloat16 arrays and the field's products run in the bfloat16
+// compute mode; biases and the decoder stay float32.  Launches on `stream`;
+// returns cudaGetLastError().
 int fused_ude_trajectory(const float* zh0, const float* ztail, int B, int T,
                          float dt, float fa_w, int R, int DT, int N0, int n0_fp,
                          int R_out, const void* w0h, const void* w0t, const void* b0,
@@ -65,21 +73,22 @@ int fused_ude_trajectory(const float* zh0, const float* ztail, int B, int T,
                          const void* const* fp_b, int n_aug, const int* aug_out,
                          const void* const* aug_w, const void* const* aug_b,
                          const void* dec_w, const void* dec_b, float* out,
-                         void* stream) {
+                         int bf16, void* stream) {
   if (B < 1 || T < 1 || R < 1 || DT < 0 || N0 < 1 || R_out < 1 || n_fp < 0 || n_fp > kMaxDeep ||
       n_aug < 0 || n_aug > kMaxDeep || (n_fp > 0) != (n0_fp > 0) || (n_aug > 0) != (N0 > n0_fp))
     return cudaErrorInvalidValue;
   UdeArgs a = {};
   a.R = R; a.DT = DT; a.N0 = N0; a.n0_fp = n0_fp; a.R_out = R_out;
-  a.w0h = static_cast<const float*>(w0h);
-  a.w0t = static_cast<const float*>(w0t);
+  a.w0h = w0h;
+  a.w0t = w0t;
   a.b0 = static_cast<const float*>(b0);
   a.dec_w = static_cast<const float*>(dec_w);
   a.dec_b = static_cast<const float*>(dec_b);
   fill_net(a.fp, n_fp, fp_out, fp_w, fp_b);
   fill_net(a.aug, n_aug, aug_out, aug_w, aug_b);
   const int wmax = pingpong_width(R_out, n_fp, fp_out, n_aug, aug_out);
-  return launch_trajectory<false>(zh0, ztail, B, T, dt, fa_w, a, wmax, out, stream);
+  if (bf16) return launch_trajectory<false, true>(zh0, ztail, B, T, dt, fa_w, a, wmax, out, stream);
+  return launch_trajectory<false, false>(zh0, ztail, B, T, dt, fa_w, a, wmax, out, stream);
 }
 
 }  // extern "C"

@@ -12,11 +12,12 @@ Counterpart of ``fiude_tpu/models/vae.py`` (``reparam`` :37-51,
 
 :meth:`UDEForecaster.forward` is the plain twin of the whole serving path
 that ``fiude_tpu_torch.ops.fused_ude.FusedForecaster`` runs through the two
-CUDA kernels.  With ``fused_train`` (and ``fused_stats``, which the
-production sweeps always set with it) the same forward is the training
-path: the encoder runs through K3/K4 (``ops.fused_gru_train``) and the
-trajectory through K5/K6 (``ops.fused_train``), which reduce the loss's aux
-to five masked sums on the card.
+CUDA kernels.  With ``fused_train`` the same forward is the training path:
+the encoder runs through K3/K4 (``ops.fused_gru_train``) and the trajectory
+through K5/K6 (``ops.fused_train``), which stream every evaluation's rates
+and Fa as the aux or, with ``fused_stats`` (which
+``train.experiment.build_trainer`` sets with ``fused_train``, as the
+production sweeps do), reduce the loss's aux to five masked sums on the card.
 
 The Bayes families (CONNb, SONNb, UONNb; ``models.bayes``) draw fresh weight
 noise on every RHS evaluation from ``(noise_seed, e)``; their serving twin is
@@ -114,11 +115,6 @@ class UDEForecaster(nn.Module):
                  method: str = "rk4", substeps: int = 1, ic_jitter: float = 1e-5,
                  fused_train: bool = False, fused_stats: bool = False):
         super().__init__()
-        if fused_train and not fused_stats:
-            raise NotImplementedError(
-                "fused_train without fused_stats (the aux-streaming mode of K5/K6 and, "
-                "for the Bayes families, of K8/K9) is not ported yet (ROADMAP.md, "
-                "queue B, 'K5/K6 aux-streaming mode')")
         if fused_train and (method not in ("rk4", "rk4_38") or substeps != 1):
             raise NotImplementedError(
                 "fused_train integrates with one Kutta 3/8 step an interval; other "
@@ -210,11 +206,14 @@ class UDEForecaster(nn.Module):
         return self.encoder(x)
 
     def _fused_trajectory(self, z: torch.Tensor, t, fa_w, time_mask, noise_seed):
-        """K5/K6 in stats mode, K8/K9 for a Bayes family: the latent
-        trajectory and the stats aux (``fiude_tpu/models/vae.py:292-357``)."""
+        """K5/K6, K8/K9 for a Bayes family: the latent trajectory and the aux,
+        streamed in the ``odeint_grid`` layout or, with ``fused_stats``, as the
+        masked statistics (``fiude_tpu/models/vae.py:292-360``)."""
         from fiude_tpu_torch.ops.fused_bayes import pack_bayes_field
         from fiude_tpu_torch.ops.fused_bayes_train import bayes_train_trajectory
-        from fiude_tpu_torch.ops.fused_train import train_trajectory, traj_to_model_layout
+        from fiude_tpu_torch.ops.fused_train import (
+            aux_to_model_layout, train_trajectory, traj_to_model_layout,
+        )
         from fiude_tpu_torch.ops.fused_ude import pack_field
         batch, n_regions, latent_dim = z.shape
         grid = torch.as_tensor(t).detach().to("cpu", torch.float64)
@@ -225,16 +224,18 @@ class UDEForecaster(nn.Module):
             tmask = torch.as_tensor(time_mask).to(z.device, z.dtype)
         tail = z[..., 3:].reshape(batch, -1)
         head = z[..., :3].reshape(batch, -1)
+        kw = dict(fa_w=fa_w, dts=dts, tmask=tmask, stats_mode=self.fused_stats)
         if self.is_bayes:
             bw = pack_bayes_field(self.ode, detach=False)
             w = bw.mean
-            traj, r1, r2, f2 = bayes_train_trajectory(head, tail, bw, fa_w=fa_w, dts=dts,
-                                                      tmask=tmask, seed=noise_seed)
+            traj, *rest = bayes_train_trajectory(head, tail, bw, seed=noise_seed, **kw)
         else:
             w = pack_field(self.ode, detach=False)
-            traj, r1, r2, f2 = train_trajectory(head, tail, w, fa_w=fa_w, dts=dts,
-                                                tmask=tmask)
+            traj, *rest = train_trajectory(head, tail, w, **kw)
         latent = traj_to_model_layout(traj, tail, n_regions, latent_dim)
+        if not self.fused_stats:     # the mask is then the loss's
+            return latent, aux_to_model_layout(*rest, grid.shape[0], n_regions)
+        r1, r2, f2 = rest
         aux = {}
         if w.n0_fp:
             aux["rate_stats"] = (r1, r2, 4.0 * batch * n_regions * tmask.sum())

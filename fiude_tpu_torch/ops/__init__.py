@@ -28,6 +28,7 @@ from fiude_tpu_torch.ops.fused_bayes import (
 )
 from fiude_tpu_torch.ops.fused_train import (
     RATE_SHIFT,
+    aux_to_model_layout,
     train_trajectory,
     train_trajectory_plain,
     traj_to_model_layout,

@@ -109,11 +109,16 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
 
 
-def check_weights(tensors, device) -> None:
+def check_weights(tensors, device, dtype: torch.dtype = torch.float32) -> None:
     for t in tensors:
-        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("kernel weights must be contiguous float32 tensors on "
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"kernel weights must be contiguous {dtype} tensors on "
                              f"{device}; got {t.dtype} on {t.device}")
+
+
+def ptr(tensor):
+    """A tensor's device address, or a null pointer for an absent (None) one."""
+    return None if tensor is None else tensor.data_ptr()
 
 
 def c_ptrs(tensors):

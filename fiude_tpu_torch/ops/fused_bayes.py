@@ -21,19 +21,26 @@ flat index.  Two modes, as in JAX:
 * ``noise=``: one ``(4(T-1),) + shape`` tensor per packed array, read from
   memory (tests and ``chip_smoke.py``).
 
+``compute_dtype="bfloat16"`` (``pallas_bayes.py:105-113,254,315``) is K2's
+serving-precision option (:mod:`fiude_tpu_torch.ops.fused_ude`): the effective
+weight ``mean + z * |std|`` is formed in float32, then rounded; the draw
+kernel writes the rounded weights once, as bfloat16, and the biases in
+float32 beside them.
+
 On the card :func:`bayes_draw_cuda` writes every evaluation's effective
 weights once for all blocks, then K7 (``csrc/fused_ude.cuh`` with kBayes)
 integrates.  :func:`bayes_trajectory_decode` dispatches strictly on the
 state's device: CPU tensors take :func:`bayes_trajectory_decode_plain`, CUDA
 tensors launch the kernels or raise.  ``bayes_draw_cuda.launches`` and
-``bayes_trajectory_cuda.launches`` count the launches.
+``bayes_trajectory_cuda.launches`` count the launches of both compute modes,
+``.bf16_launches`` those in bfloat16.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -42,7 +49,7 @@ from fiude_tpu_torch.models.rhs import out_of_range_mask, sir_field
 from fiude_tpu_torch.ops import _build, philox
 from fiude_tpu_torch.ops.fused_gru import FusedBackGRUEncoder
 from fiude_tpu_torch.ops.fused_ude import (
-    FieldWeights, _check_net, _later_layers, pack_layers, uniform_step,
+    FieldWeights, _check_net, _later_layers, is_bf16, matmul, pack_layers, uniform_step,
 )
 from fiude_tpu_torch.ops.integrate import rk4_38_step
 
@@ -51,6 +58,12 @@ class BayesField(NamedTuple):
     """A variational field in the kernels' layout."""
     mean: FieldWeights
     std: FieldWeights      # |std|
+
+
+class DrawnBf16(NamedTuple):
+    """The draw's output in the bfloat16 compute mode."""
+    w: torch.Tensor        # (n_evals, P) bfloat16: every effective weight, rounded
+    bias: torch.Tensor     # (n_evals, PB) float32: the biases (b0, then each later layer's)
 
 
 class BayesWeights(NamedTuple):
@@ -110,6 +123,11 @@ def unflatten_field(flat: torch.Tensor, like: FieldWeights) -> FieldWeights:
                         pairs[:len(like.fp)], pairs[len(like.fp):])
 
 
+def bias_floats(w: FieldWeights) -> int:
+    """The total length of the packed bias arrays (b0 and each later layer's)."""
+    return sum(a.numel() for a in field_arrays(w) if a.dim() == 1)
+
+
 def noise_matrix(noise: Sequence[torch.Tensor], like: FieldWeights, n_evals: int) -> torch.Tensor:
     """Injected noise, one ``(n_evals,) + shape`` tensor per packed array, as
     (n_evals, P)."""
@@ -151,16 +169,18 @@ def effective_weights(bw: BayesField, mean_flat, std_flat, z: torch.Tensor) -> F
     return unflatten_field(mean_flat + z * std_flat, bw.mean)
 
 
-def field_eval(zs: torch.Tensor, z_tail: torch.Tensor, w: FieldWeights, fa_w):
+def field_eval(zs: torch.Tensor, z_tail: torch.Tensor, w: FieldWeights, fa_w,
+               bf16: bool = False):
     """One evaluation of the field on the head ``zs`` (B, 3R) with the tail's
     first-layer term computed from ``w``: ``(field, rates or None, fa or
-    None)``, the field frozen out of range."""
+    None)``, the field frozen out of range; with ``bf16`` both operands of
+    every product rounded to bfloat16."""
     B, R = zs.shape[0], zs.shape[1] // 3
-    h0 = zs @ w.w0_head + (z_tail @ w.w0_tail + w.b0)
-    fa = _later_layers(h0[:, w.n0_fp:], w.aug) if w.aug else None
+    h0 = matmul(zs, w.w0_head, bf16) + (matmul(z_tail, w.w0_tail, bf16) + w.b0)
+    fa = _later_layers(h0[:, w.n0_fp:], w.aug, bf16) if w.aug else None
     rates = None
     if w.n0_fp:
-        rates = _later_layers(h0[:, : w.n0_fp], w.fp).abs().reshape(B, R, 2)
+        rates = _later_layers(h0[:, : w.n0_fp], w.fp, bf16).abs().reshape(B, R, 2)
         f = sir_field(rates, zs.reshape(B, R, 3))
         if fa is not None:
             f = f + fa_w * fa.reshape(B, R, 3)
@@ -172,11 +192,12 @@ def field_eval(zs: torch.Tensor, z_tail: torch.Tensor, w: FieldWeights, fa_w):
 
 def bayes_trajectory_decode_plain(z0: torch.Tensor, w: BayesWeights, *, T: int, dt: float,
                                   fa_w: float = 1.0, seed: Optional[int] = None,
-                                  noise: Optional[Sequence[torch.Tensor]] = None
-                                  ) -> torch.Tensor:
+                                  noise: Optional[Sequence[torch.Tensor]] = None,
+                                  compute_dtype: str = "float32") -> torch.Tensor:
     """Plain-torch twin of the draw + K7: z0 (B, R, L) -> decoded trajectory
     (T, B, R_out)."""
     B = z0.shape[0]
+    bf16 = is_bf16(compute_dtype)
     bw = w.field
     draw = _Noise(bw.mean, 4 * (T - 1), seed, noise)
     mean_flat, std_flat = flatten_field(bw.mean), flatten_field(bw.std)
@@ -184,12 +205,12 @@ def bayes_trajectory_decode_plain(z0: torch.Tensor, w: BayesWeights, *, T: int, 
 
     def field(t, zs, *, seed, e):
         return field_eval(zs, z_tail, effective_weights(bw, mean_flat, std_flat, draw(e)),
-                          fa_w)[0]
+                          fa_w, bf16)[0]
 
     zs = [z0[..., :3].reshape(B, -1)]          # the S, I, R head, r*3 + c
     for i in range(T - 1):
         zs.append(rk4_38_step(field, 0.0, dt, zs[-1], noise_seed=0, e0=4 * i)[0])
-    return torch.stack(zs) @ w.dec_w + w.dec_b
+    return torch.stack(zs) @ w.dec_w + w.dec_b      # float32 in both compute modes
 
 
 @functools.cache
@@ -197,10 +218,10 @@ def _launchers():
     lib = _build.library()
     ptr, ints, i, f = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float
     lib.fused_bayes_draw.argtypes = [ptr, ptr, ptr, ctypes.c_ulonglong, i, i, i, ints, ints,
-                                     ptr, ptr, ptr, ptr]
+                                     ptr, ptr, ptr, ptr, ptr, ptr]
     lib.fused_bayes_draw.restype = ctypes.c_int
     lib.fused_bayes_trajectory.argtypes = [ptr, ptr, i, i, f, f, i, i, i, i, i, ptr, i,
-                                           i, ints, i, ints, ptr, ptr, ptr, ptr]
+                                           i, ints, i, ints, ptr, ptr, ptr, ptr, ptr]
     lib.fused_bayes_trajectory.restype = ctypes.c_int
     return lib
 
@@ -208,12 +229,14 @@ def _launchers():
 def bayes_draw_cuda(mean_flat: torch.Tensor, std_flat: torch.Tensor, like: FieldWeights,
                     n_evals: int, *, seed: Optional[int] = None,
                     noise: Optional[torch.Tensor] = None, transposed: bool = False,
-                    keep_noise: bool = False):
+                    keep_noise: bool = False, bf16: bool = False):
     """Launch the draw: the effective weights of ``n_evals`` evaluations,
     ``w (n_evals, P)``, from the packed means and |stds| (P,) and either
     ``seed`` (Philox in the kernel) or ``noise`` (n_evals, P).  Returns
     ``(w, wt, z)``: ``wt`` each matrix transposed in its slot when
-    ``transposed``, ``z`` the noise when ``keep_noise``, else None."""
+    ``transposed``, ``z`` the noise when ``keep_noise``, else None.  With
+    ``bf16`` (the bfloat16 compute mode) ``w`` is a :class:`DrawnBf16`: the
+    same weights rounded once to bfloat16, and the biases in float32."""
     if (seed is None) == (noise is None):
         raise ValueError("pass exactly one of seed= and noise=")
     dev = mean_flat.device
@@ -226,23 +249,27 @@ def bayes_draw_cuda(mean_flat: torch.Tensor, std_flat: torch.Tensor, like: Field
         raise ValueError("means, |stds| and noise must be (P,), (P,) and (n_evals, P)")
     rows = [a.shape[0] if a.dim() == 2 else 1 for a in arrays]
     cols = [a.shape[-1] for a in arrays]
-    w = torch.empty(n_evals, P, device=dev, dtype=torch.float32)
-    wt = torch.empty_like(w) if transposed else None
-    z = torch.empty_like(w) if keep_noise else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    new = lambda: torch.empty(n_evals, P, device=dev, dtype=torch.float32)   # noqa: E731
+    w = wb = bias = None
+    if bf16:
+        wb = torch.empty(n_evals, P, device=dev, dtype=torch.bfloat16)
+        bias = torch.empty(n_evals, bias_floats(like), device=dev, dtype=torch.float32)
+    else:
+        w = new()
+    wt = new() if transposed else None
+    z = new() if keep_noise else None
 
     lib = _launchers()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.fused_bayes_draw(
-            mean_flat.data_ptr(), std_flat.data_ptr(), ptr(noise),
+            mean_flat.data_ptr(), std_flat.data_ptr(), _build.ptr(noise),
             0 if seed is None else int(seed) & (2 ** 64 - 1), n_evals, P, len(arrays),
-            _build.c_ints(rows), _build.c_ints(cols), w.data_ptr(), ptr(wt), ptr(z), stream)
+            _build.c_ints(rows), _build.c_ints(cols), _build.ptr(w), _build.ptr(wt),
+            _build.ptr(z), _build.ptr(wb), _build.ptr(bias), stream)
     _build.check(code, "fused_bayes_draw")
     bayes_draw_cuda.launches += 1
-    return w, wt, z
+    return (DrawnBf16(wb, bias) if bf16 else w), wt, z
 
 
 bayes_draw_cuda.launches = 0
@@ -264,10 +291,12 @@ def check_bayes_field(bw: BayesField, R: int, DT: int) -> int:
     return N0
 
 
-def bayes_trajectory_cuda(z0: torch.Tensor, w: BayesWeights, weff: torch.Tensor, *, T: int,
+def bayes_trajectory_cuda(z0: torch.Tensor, w: BayesWeights,
+                          weff: Union[torch.Tensor, DrawnBf16], *, T: int,
                           dt: float, fa_w: float = 1.0) -> torch.Tensor:
     """Launch K7 on the drawn weights ``weff`` (4(T-1), P): z0 (B, R, L) ->
-    (T, B, R_out)."""
+    (T, B, R_out); in the bfloat16 compute mode when ``weff`` is a
+    :class:`DrawnBf16`."""
     if z0.dim() != 3 or z0.dtype != torch.float32:
         raise ValueError(f"z0 must be a float32 (B, R, L) tensor, got {z0.dtype} "
                          f"{tuple(z0.shape)}")
@@ -280,10 +309,21 @@ def bayes_trajectory_cuda(z0: torch.Tensor, w: BayesWeights, weff: torch.Tensor,
     P = sum(a.numel() for a in field_arrays(m))
     if w.dec_w.shape[0] != 3 * R or w.dec_b.shape != (R_out,):
         raise ValueError("the decoder does not match the state")
+    bf16 = isinstance(weff, DrawnBf16)
+    bias = None
+    if bf16:
+        weff, bias = weff
+        if tuple(bias.shape) != (4 * (T - 1), bias_floats(m)):
+            raise ValueError(f"the drawn biases must be {(4 * (T - 1), bias_floats(m))}, got "
+                             f"{tuple(bias.shape)}")
+        _build.check_weights([weff], z0.device, dtype=torch.bfloat16)
+        _build.check_weights([bias], z0.device)
+    else:
+        _build.check_weights([weff], z0.device)
     if tuple(weff.shape) != (4 * (T - 1), P):
         raise ValueError(f"the drawn weights must be (4(T-1), P) = {(4 * (T - 1), P)}, got "
                          f"{tuple(weff.shape)}")
-    _build.check_weights([w.dec_w, w.dec_b, weff], z0.device)
+    _build.check_weights([w.dec_w, w.dec_b], z0.device)
     out = torch.empty(T, B, R_out, device=z0.device, dtype=torch.float32)
     head = z0[..., :3].reshape(B, 3 * R).contiguous()
     tail = z0[..., 3:].reshape(B, R * (L - 3)).contiguous()
@@ -295,42 +335,51 @@ def bayes_trajectory_cuda(z0: torch.Tensor, w: BayesWeights, weff: torch.Tensor,
             N0, m.n0_fp, R_out, weff.data_ptr(), P,
             len(m.fp), _build.c_ints([wl.shape[1] for wl, _ in m.fp]),
             len(m.aug), _build.c_ints([wl.shape[1] for wl, _ in m.aug]),
-            w.dec_w.data_ptr(), w.dec_b.data_ptr(), out.data_ptr(), stream)
+            w.dec_w.data_ptr(), w.dec_b.data_ptr(), out.data_ptr(),
+            _build.ptr(bias), stream)
     _build.check(code, "fused_bayes_trajectory")
     bayes_trajectory_cuda.launches += 1
+    bayes_trajectory_cuda.bf16_launches += int(bf16)
     return out
 
 
 bayes_trajectory_cuda.launches = 0
+bayes_trajectory_cuda.bf16_launches = 0
 
 
 def bayes_trajectory_decode_cuda(z0: torch.Tensor, w: BayesWeights, *, T: int, dt: float,
                                  fa_w: float = 1.0, seed: Optional[int] = None,
-                                 noise: Optional[Sequence[torch.Tensor]] = None
-                                 ) -> torch.Tensor:
+                                 noise: Optional[Sequence[torch.Tensor]] = None,
+                                 compute_dtype: str = "float32") -> torch.Tensor:
     """Launch the draw, then K7, on ``z0``'s device and current stream."""
     bw = w.field
+    bf16 = is_bf16(compute_dtype)
     n_evals = 4 * (T - 1)
     if n_evals < 1:
         weff = torch.empty(0, sum(a.numel() for a in field_arrays(bw.mean)), device=z0.device)
+        if bf16:
+            weff = DrawnBf16(weff.to(torch.bfloat16),
+                             torch.empty(0, bias_floats(bw.mean), device=z0.device))
     else:
         if noise is not None:
             noise = noise_matrix(noise, bw.mean, n_evals).contiguous()
         weff, _, _ = bayes_draw_cuda(flatten_field(bw.mean), flatten_field(bw.std), bw.mean,
-                                     n_evals, seed=seed, noise=noise)
+                                     n_evals, seed=seed, noise=noise, bf16=bf16)
     return bayes_trajectory_cuda(z0, w, weff, T=T, dt=dt, fa_w=fa_w)
 
 
 def bayes_trajectory_decode(z0: torch.Tensor, w: BayesWeights, *, T: int, dt: float,
                             fa_w: float = 1.0, seed: Optional[int] = None,
-                            noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                            noise: Optional[Sequence[torch.Tensor]] = None,
+                            compute_dtype: str = "float32") -> torch.Tensor:
     """Decoded Bayes RK4(3/8) trajectory: z0 (B, R, L) -> (T, B, R_out), the
-    weight noise from ``seed`` or injected as ``noise``.
+    weight noise from ``seed`` or injected as ``noise``, the field's products
+    in ``compute_dtype`` ("float32" or "bfloat16").
 
-    CPU tensors take the plain twin; CUDA tensors launch the draw and K7 (no
-    fallback).
+    CPU tensors take the plain twin; CUDA tensors launch the draw and K7 in
+    that compute mode (no fallback).
     """
-    kw = dict(T=T, dt=dt, fa_w=fa_w, seed=seed, noise=noise)
+    kw = dict(T=T, dt=dt, fa_w=fa_w, seed=seed, noise=noise, compute_dtype=compute_dtype)
     if z0.device.type == "cpu":
         return bayes_trajectory_decode_plain(z0, w, **kw)
     if z0.device.type == "cuda":
@@ -349,12 +398,14 @@ class FusedBayesForecaster:
     is on its device and rebuild it after the weights change.
     """
 
-    def __init__(self, model, *, fa_w: float = 1.0):
+    def __init__(self, model, *, fa_w: float = 1.0, compute_dtype: str = "float32"):
         if not model.uncertainty:
             raise ValueError("the fused path samples the encoder's distribution: "
                              "it needs a model with uncertainty=True")
+        is_bf16(compute_dtype)       # any other string raises
         self.model = model
         self.fa_w = float(fa_w)
+        self.compute_dtype = compute_dtype
         self.encoder = FusedBackGRUEncoder(model.encoder)
         self.weights = pack_bayes(model.ode, model.decoder)
 
@@ -369,7 +420,8 @@ class FusedBayesForecaster:
         n_samples, batch = eps.shape[0], eps.shape[1]
         mean, std = self.encoder(x)
         z = reparam(eps, std, mean) + self.model.ic_jitter
-        y = bayes_trajectory_decode(z, self.weights, T=T, dt=dt, fa_w=self.fa_w, seed=seed)
+        y = bayes_trajectory_decode(z, self.weights, T=T, dt=dt, fa_w=self.fa_w, seed=seed,
+                                    compute_dtype=self.compute_dtype)
         y = y.reshape(T, n_samples, batch, self.model.n_regions)
         return y.permute(2, 1, 0, 3)
 

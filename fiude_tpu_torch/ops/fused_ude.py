@@ -13,9 +13,18 @@ carried over.  :func:`pack_ude` only transposes the weights to (in, out),
 joins the two nets' first layers column-wise and splits their rows into the
 head (latent dims 0-2, region-major r*3 + c) and the tail (dims >= 3).
 
+``compute_dtype="bfloat16"`` (``pallas_ude.py:185-192,321-327``) is the
+serving-precision option: in every product of the field, and in the frozen
+tail's first-layer product, both operands are rounded to bfloat16 (nearest
+even) and the products are summed in float32; biases, ELU, ``|.|``, the SIR
+field, the stage combination, the state and the decode product stay float32.
+The weights are rounded once, by :func:`bf16_matrices`; the kernel rounds
+activations where it stores them and sums with float32 FMAs.
+
 :func:`trajectory_decode` dispatches strictly on the state's device: a CPU
 tensor takes :func:`trajectory_decode_plain`, a CUDA tensor launches the
-kernel or raises.  ``trajectory_decode.launches`` counts kernel launches.
+kernel or raises.  ``trajectory_decode.launches`` counts kernel launches of
+both compute modes, ``trajectory_decode.bf16_launches`` those in bfloat16.
 """
 
 from __future__ import annotations
@@ -114,26 +123,47 @@ def pack_ude(ode, decoder) -> UDEWeights:
                       dec_b=dec.bias.detach().contiguous())
 
 
-def _later_layers(h: torch.Tensor, layers) -> torch.Tensor:
+def is_bf16(compute_dtype: str) -> bool:
+    """Whether ``compute_dtype`` (the JAX package's names) is the bfloat16
+    compute mode; any string but "float32" and "bfloat16" raises."""
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {compute_dtype!r}")
+    return compute_dtype == "bfloat16"
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (nearest even), in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """``x @ w``; with ``bf16`` both operands rounded to bfloat16 first and
+    the products summed in the operands' own dtype."""
+    return round_bf16(x) @ round_bf16(w) if bf16 else x @ w
+
+
+def _later_layers(h: torch.Tensor, layers, bf16: bool = False) -> torch.Tensor:
     """A net's layers after the first: ELU feeds all but the last."""
     for i, (w, b) in enumerate(layers):
         if i < len(layers) - 1:
             h = torch.nn.functional.elu(h)
-        h = h @ w + b
+        h = matmul(h, w, bf16) + b
     return h
 
 
 def trajectory_decode_plain(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: float,
-                            fa_w: float = 1.0) -> torch.Tensor:
+                            fa_w: float = 1.0, compute_dtype: str = "float32"
+                            ) -> torch.Tensor:
     """Plain-torch twin of K2: z0 (B, R, L) -> decoded trajectory (T, B, R_out)."""
     B, R, _ = z0.shape
-    ct = z0[..., 3:].reshape(B, -1) @ w.w0_tail + w.b0   # frozen tail, once
+    bf16 = is_bf16(compute_dtype)
+    ct = matmul(z0[..., 3:].reshape(B, -1), w.w0_tail, bf16) + w.b0   # frozen tail, once
 
     def field(t, zs):
-        h0 = zs @ w.w0_head + ct
-        fa = _later_layers(h0[:, w.n0_fp:], w.aug) if w.aug else None
+        h0 = matmul(zs, w.w0_head, bf16) + ct
+        fa = _later_layers(h0[:, w.n0_fp:], w.aug, bf16) if w.aug else None
         if w.n0_fp:
-            rates = _later_layers(h0[:, : w.n0_fp], w.fp).abs().reshape(B, R, 2)
+            rates = _later_layers(h0[:, : w.n0_fp], w.fp, bf16).abs().reshape(B, R, 2)
             f = sir_field(rates, zs.reshape(B, R, 3))
             if fa is not None:
                 f = f + fa_w * fa.reshape(B, R, 3)
@@ -145,7 +175,16 @@ def trajectory_decode_plain(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: floa
     zs = [z0[..., :3].reshape(B, 3 * R)]       # the S, I, R head, r*3 + c
     for _ in range(T - 1):
         zs.append(rk4_38_step(field, 0.0, dt, zs[-1])[0])
-    return torch.stack(zs) @ w.dec_w + w.dec_b
+    return torch.stack(zs) @ w.dec_w + w.dec_b      # float32 in both compute modes
+
+
+def bf16_matrices(w):
+    """The field's matrices rounded once to bfloat16, in the order the
+    launcher takes them: ``(w0_head, w0_tail, [each later layer's w of the
+    rates net], [of the Fa net])``."""
+    to = lambda t: t.detach().to(torch.bfloat16).contiguous()       # noqa: E731
+    return (to(w.w0_head), to(w.w0_tail), [to(wl) for wl, _ in w.fp],
+            [to(wl) for wl, _ in w.aug])
 
 
 @functools.cache
@@ -154,7 +193,7 @@ def _launcher():
     ptr, ptrs, ints, i, f = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
                              ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float)
     fn.argtypes = [ptr, ptr, i, i, f, f, i, i, i, i, i, ptr, ptr, ptr,
-                   i, ints, ptrs, ptrs, i, ints, ptrs, ptrs, ptr, ptr, ptr, ptr]
+                   i, ints, ptrs, ptrs, i, ints, ptrs, ptrs, ptr, ptr, ptr, i, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -172,8 +211,12 @@ def _check_net(layers, width: int, out: int, name: str) -> None:
 
 
 def trajectory_decode_cuda(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: float,
-                           fa_w: float = 1.0) -> torch.Tensor:
-    """Launch K2 on ``z0``'s device and current stream."""
+                           fa_w: float = 1.0, compute_dtype: str = "float32",
+                           rounded=None) -> torch.Tensor:
+    """Launch K2 on ``z0``'s device and current stream; in the bfloat16
+    compute mode on ``rounded`` (:func:`bf16_matrices` of ``w``, made here
+    when None)."""
+    bf16 = is_bf16(compute_dtype)
     if z0.dim() != 3 or z0.dtype != torch.float32:
         raise ValueError(f"z0 must be a float32 (B, R, L) tensor, got {z0.dtype} "
                          f"{tuple(z0.shape)}")
@@ -197,36 +240,52 @@ def trajectory_decode_cuda(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: float
     tail = z0[..., 3:].reshape(B, R * (L - 3)).contiguous()
     out = torch.empty(T, B, R_out, device=z0.device, dtype=torch.float32)
 
-    def net_args(net):
+    if bf16:
+        if rounded is None:
+            rounded = bf16_matrices(w)
+        w0_head, w0_tail, fp_w, aug_w = rounded
+        _build.check_weights([w0_head, w0_tail, *fp_w, *aug_w], z0.device,
+                             dtype=torch.bfloat16)
+    else:
+        w0_head, w0_tail = w.w0_head, w.w0_tail
+        fp_w, aug_w = [wl for wl, _ in w.fp], [wl for wl, _ in w.aug]
+
+    def net_args(net, matrices):
         return (len(net), _build.c_ints([wl.shape[1] for wl, _ in net]),
-                _build.c_ptrs([wl for wl, _ in net]), _build.c_ptrs([bl for _, bl in net]))
+                _build.c_ptrs(matrices), _build.c_ptrs([bl for _, bl in net]))
 
     with torch.cuda.device(z0.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = launch(head.data_ptr(), tail.data_ptr(), B, T, float(dt), float(fa_w),
                       R, R * (L - 3), N0, w.n0_fp, R_out,
-                      w.w0_head.data_ptr(), w.w0_tail.data_ptr(), w.b0.data_ptr(),
-                      *net_args(w.fp), *net_args(w.aug),
-                      w.dec_w.data_ptr(), w.dec_b.data_ptr(), out.data_ptr(), stream)
+                      w0_head.data_ptr(), w0_tail.data_ptr(), w.b0.data_ptr(),
+                      *net_args(w.fp, fp_w), *net_args(w.aug, aug_w),
+                      w.dec_w.data_ptr(), w.dec_b.data_ptr(), out.data_ptr(), int(bf16), stream)
     _build.check(code, "fused_ude_trajectory")
     trajectory_decode.launches += 1
+    trajectory_decode.bf16_launches += int(bf16)
     return out
 
 
 def trajectory_decode(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: float,
-                      fa_w: float = 1.0) -> torch.Tensor:
-    """Decoded RK4(3/8) trajectory: z0 (B, R, L) -> (T, B, R_out).
+                      fa_w: float = 1.0, compute_dtype: str = "float32",
+                      rounded=None) -> torch.Tensor:
+    """Decoded RK4(3/8) trajectory: z0 (B, R, L) -> (T, B, R_out), the
+    field's products in ``compute_dtype`` ("float32" or "bfloat16").
 
-    CPU tensors take the plain twin; CUDA tensors launch K2 (no fallback).
+    CPU tensors take the plain twin; CUDA tensors launch K2 in that compute
+    mode (no fallback).
     """
+    kw = dict(T=T, dt=dt, fa_w=fa_w, compute_dtype=compute_dtype)
     if z0.device.type == "cpu":
-        return trajectory_decode_plain(z0, w, T=T, dt=dt, fa_w=fa_w)
+        return trajectory_decode_plain(z0, w, **kw)
     if z0.device.type == "cuda":
-        return trajectory_decode_cuda(z0, w, T=T, dt=dt, fa_w=fa_w)
+        return trajectory_decode_cuda(z0, w, rounded=rounded, **kw)
     raise ValueError(f"no trajectory kernel for device {z0.device}")
 
 
 trajectory_decode.launches = 0
+trajectory_decode.bf16_launches = 0
 
 
 def uniform_step(t) -> float:
@@ -245,18 +304,22 @@ class FusedForecaster:
 
     ``FusedForecaster(model, fa_w=...)(x, t, eps)`` gives the (B, S, T, R)
     Monte-Carlo forecast of ``UDEForecaster.forward`` (up to float
-    reassociation).  Weights are laid out once at construction, so build it
-    after the model is on its device and rebuild it after the weights change.
+    reassociation; with ``compute_dtype="bfloat16"`` up to the rounding of
+    the field's products, the encoder staying float32).  Weights are laid out
+    (and, for bfloat16, rounded) once at construction, so build it after the
+    model is on its device and rebuild it after the weights change.
     """
 
-    def __init__(self, model, *, fa_w: float = 1.0):
+    def __init__(self, model, *, fa_w: float = 1.0, compute_dtype: str = "float32"):
         if not model.uncertainty:
             raise ValueError("the fused path samples the encoder's distribution: "
                              "it needs a model with uncertainty=True")
         self.model = model
         self.fa_w = float(fa_w)
+        self.compute_dtype = compute_dtype
         self.encoder = FusedBackGRUEncoder(model.encoder)
         self.weights = pack_ude(model.ode, model.decoder)
+        self.rounded = bf16_matrices(self.weights) if is_bf16(compute_dtype) else None
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor, t, eps: torch.Tensor) -> torch.Tensor:
@@ -268,6 +331,7 @@ class FusedForecaster:
         n_samples, batch = eps.shape[0], eps.shape[1]
         mean, std = self.encoder(x)
         z = reparam(eps, std, mean) + self.model.ic_jitter
-        y = trajectory_decode(z, self.weights, T=T, dt=dt, fa_w=self.fa_w)
+        y = trajectory_decode(z, self.weights, T=T, dt=dt, fa_w=self.fa_w,
+                              compute_dtype=self.compute_dtype, rounded=self.rounded)
         y = y.reshape(T, n_samples, batch, self.model.n_regions)
         return y.permute(2, 1, 0, 3)

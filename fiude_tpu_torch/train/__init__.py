@@ -1,5 +1,6 @@
 from fiude_tpu_torch.train.checkpoint import (
     flat_from_module,
+    load_flat,
     load_params,
     load_state_from_flat,
     save_flat,
@@ -13,3 +14,9 @@ from fiude_tpu_torch.train.losses import (
     kl_annealing,
 )
 from fiude_tpu_torch.train.trainer import Trainer, TrainState, warm_up_lr
+from fiude_tpu_torch.train.experiment import (
+    adaptive_curriculum_train,
+    build_trainer,
+    run_experiment,
+    run_transfer,
+)

@@ -20,7 +20,7 @@ in the JAX package.
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -78,15 +78,15 @@ def flat_from_module(model: nn.Module, part: str) -> Dict[str, np.ndarray]:
 
 
 @torch.no_grad()
-def load_state_from_flat(model: nn.Module, flat: Dict[str, np.ndarray], *,
-                         strict: bool = False) -> int:
+def copy_from_flat(model: nn.Module, flat: Dict[str, np.ndarray], *,
+                   strict: bool = False) -> List[str]:
     """Copy JAX parameters (numpy, keyed by ``keystr`` path, any of the three
     parts) into ``model``, transposing (in, out) weights to torch's (out, in).
 
-    Returns the number of parameters copied.  With ``strict=True`` every
-    parameter of the model must be present with a matching shape.
+    Returns the keys copied.  With ``strict=True`` every parameter of the
+    model must be present with a matching shape.
     """
-    copied = 0
+    copied = []
     for part in PARTS:
         for key, p, transposed in param_map(model, part):
             value = flat.get(key)
@@ -96,11 +96,17 @@ def load_state_from_flat(model: nn.Module, flat: Dict[str, np.ndarray], *,
                     value = value.T
                 if tuple(value.shape) == tuple(p.shape):
                     p.copy_(value)
-                    copied += 1
+                    copied.append(key)
                     continue
             if strict:
                 raise KeyError(f"missing or mismatched checkpoint entry {key!r}")
     return copied
+
+
+def load_state_from_flat(model: nn.Module, flat: Dict[str, np.ndarray], *,
+                         strict: bool = False) -> int:
+    """:func:`copy_from_flat`; returns the number of parameters copied."""
+    return len(copy_from_flat(model, flat, strict=strict))
 
 
 def save_flat(prefix: str, parts: Dict[str, Dict[str, np.ndarray]]) -> None:
@@ -118,11 +124,16 @@ def save_params(prefix: str, model: nn.Module) -> None:
     save_flat(prefix, {part: flat_from_module(model, part) for part in PARTS})
 
 
-def load_params(model: nn.Module, prefix: str, *, strict: bool = False) -> nn.Module:
-    """Load a three-part checkpoint into ``model`` in place; returns it."""
+def load_flat(prefix: str) -> Dict[str, np.ndarray]:
+    """The arrays of ``{prefix}{enc,ode,dec}.npz``, by key."""
     flat = {}
     for part in PARTS:
         with np.load(f"{prefix}{part}.npz") as data:
             flat.update({k: data[k] for k in data.files})
-    load_state_from_flat(model, flat, strict=strict)
+    return flat
+
+
+def load_params(model: nn.Module, prefix: str, *, strict: bool = False) -> nn.Module:
+    """Load a three-part checkpoint into ``model`` in place; returns it."""
+    load_state_from_flat(model, load_flat(prefix), strict=strict)
     return model

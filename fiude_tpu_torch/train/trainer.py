@@ -359,9 +359,12 @@ class Trainer:
     def save(self, file_prefix: Optional[str] = None):
         ckpt.save_params(file_prefix or self.file_prefix, self.model)
 
-    def load(self, checkpoint: bool = False, file_prefix: Optional[str] = None):
+    def load(self, checkpoint: bool = False, file_prefix: Optional[str] = None) -> list:
+        """Merge a three-part checkpoint into the model by key and shape;
+        returns the keys of the parameters copied (a CONN checkpoint gives a
+        UONN its encoder, ``Fp_net`` and decoder, and leaves ``aug_net``)."""
         if checkpoint:
             prefix = f"{self.chkpt_prefix or self.file_prefix}chkpt_"
         else:
             prefix = file_prefix or self.file_prefix
-        ckpt.load_params(self.model, prefix, strict=False)
+        return ckpt.copy_from_flat(self.model, ckpt.load_flat(prefix), strict=False)

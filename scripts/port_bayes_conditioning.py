@@ -61,11 +61,14 @@ def weekly_trajectory(model, x, eps) -> None:
         bw = fused_bayes.pack_bayes_field(model.ode)
         bw64 = fused_bayes.pack_bayes_field(copy.deepcopy(model).double().ode)
         kw = dict(fa_w=1.0, seed=NOISE_SEED)
-        k8 = fused_bayes_train.bayes_train_trajectory(head, tail, bw, dts=dts, tmask=tm, **kw)[0]
+        k8 = fused_bayes_train.bayes_train_trajectory(head, tail, bw, dts=dts, tmask=tm,
+                                                      stats_mode=True, **kw)[0]
         twin = fused_bayes_train.bayes_train_trajectory_plain(head, tail, bw, dts=dts, tmask=tm,
+                                                              stats_mode=True,
                                                               **kw)[0]
         twin64 = fused_bayes_train.bayes_train_trajectory_plain(
-            head.double(), tail.double(), bw64, dts=dts.double(), tmask=tm.double(), **kw)[0]
+            head.double(), tail.double(), bw64, dts=dts.double(), tmask=tm.double(),
+            stats_mode=True, **kw)[0]
     print(f"weekly trajectory, {int(rows.sum())} of {B} rows held; largest |state| "
           f"{twin64[:, rows].abs().max().item():.3g}")
     for name, a, b in (("K8 vs float32 twin", k8, twin), ("K8 vs float64 twin", k8, twin64),

@@ -191,7 +191,7 @@ def test_training_twin_values_and_cotangents_match_pallas(ode_name):
     tail = z_t[..., 3:].reshape(B, -1)
     traj, r1, r2, f2 = fused_bayes_train.bayes_train_trajectory(
         z_t[..., :3].reshape(B, -1), tail, bw, fa_w=fa_t, dts=torch.from_numpy(dts),
-        tmask=torch.from_numpy(TMASK), noise=noise)
+        tmask=torch.from_numpy(TMASK), stats_mode=True, noise=noise)
     lat = fused_train.traj_to_model_layout(traj, tail, R, L)
     np.testing.assert_allclose(lat.detach().numpy(), np.asarray(lat_j), rtol=2e-4, atol=2e-5)
     for got, want in ((r1, r1_j), (r2, r2_j), (f2, f2_j)):
@@ -245,7 +245,8 @@ def test_zero_std_twins_are_the_deterministic_twins(ode_name):
                                        dt=0.25, fa_w=FA_W)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
     head, tail = z[..., :3].reshape(B, -1), z[..., 3:].reshape(B, -1)
-    kw = dict(fa_w=FA_W, dts=torch.tensor([0.5, 0.25]), tmask=torch.from_numpy(TMASK))
+    kw = dict(fa_w=FA_W, dts=torch.tensor([0.5, 0.25]), tmask=torch.from_numpy(TMASK),
+              stats_mode=True)
     outs_b = fused_bayes_train.bayes_train_trajectory(
         head, tail, fused_bayes.pack_bayes_field(bayes.ode), seed=8, **kw)
     outs_d = fused_train.train_trajectory(head, tail, fused_ude.pack_field(plain.ode), **kw)
@@ -267,7 +268,7 @@ class TestDispatch:
         traj, *_ = fused_bayes_train.bayes_train_trajectory(
             z[..., :3].reshape(2, -1), z[..., 3:].reshape(2, -1),
             fused_bayes.pack_bayes_field(port.ode, detach=False), fa_w=1.0,
-            dts=torch.ones(2), tmask=torch.ones(2), seed=1)
+            dts=torch.ones(2), tmask=torch.ones(2), stats_mode=True, seed=1)
         traj.sum().backward()
         assert counts() == before
         assert all(p.grad is not None for p in port.ode.parameters())
@@ -281,7 +282,7 @@ class TestDispatch:
         with pytest.raises(ValueError, match="device"):
             fused_bayes_train.bayes_train_trajectory(
                 torch.zeros(2, 3 * R, device="meta"), torch.zeros(2, R * (L - 3), device="meta"),
-                w.field, fa_w=1.0, dts=torch.ones(2), tmask=torch.ones(2), seed=1)
+                w.field, fa_w=1.0, dts=torch.ones(2), tmask=torch.ones(2), stats_mode=True, seed=1)
         with pytest.raises(ValueError, match="exactly one"):
             fused_bayes.bayes_trajectory_decode(torch.zeros(2, R, L), w, T=3, dt=0.1)
         with pytest.raises(ValueError, match="noise"):

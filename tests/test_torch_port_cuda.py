@@ -13,6 +13,16 @@ The Bayes kernels K7 (``csrc/fused_bayes.cu``) and K8/K9
 (``csrc/fused_train.cu`` with kBayes) are held to the same bounds against
 their twins in both noise modes (injected, and Philox from a seed on both
 sides), and the draw kernel's normals against ``ops/philox.py``.
+The kernels' other modes are held likewise: the aux-streaming mode of K5/K6
+and K8/K9 (trajectory, rates, Fa and every cotangent under cotangents on all
+three outputs, and with an aux cotangent absent; its trajectory equal to the
+stats mode's bit for bit), and the bfloat16 compute mode of K2 and K7 against
+their bfloat16 twins at 5 steps.  A float32 sum that differs in its last bit
+can flip a bfloat16 rounding, which moves one operand of the next product by
+a whole bfloat16 step (up to 2^-7 of its value): every entry is held at rtol
+2e-2, atol 2e-3, and 98% of the entries at rtol 2e-3, atol 2e-4 (on the card
+the `state`-width UONNb case had 0.3% of its entries past the tighter bound,
+the worst 6.8e-4 off; every other case was inside it everywhere).
 Every test skips without a CUDA device.  The file imports no JAX, so it runs
 on a machine that has only torch::
 
@@ -193,7 +203,7 @@ def test_training_trajectory_kernels_match_the_twin(dev, ode_name, B, tmask):
         fa_w = torch.tensor(0.7, device=dev, requires_grad=True)
         w = pack_field(model.ode, detach=False)
         traj, r1, r2, f2 = fn(zz[..., :3].reshape(B, -1), zz[..., 3:].reshape(B, -1), w,
-                              fa_w=fa_w, dts=dts, tmask=tm)
+                              fa_w=fa_w, dts=dts, tmask=tm, stats_mode=True)
         loss = (traj * g_traj).sum() + 0.3 * r1.sum() + 0.1 * r2.sum() + 0.05 * f2
         outs[fn] = ((traj, r1, r2, f2),
                     torch.autograd.grad(loss, [zz, fa_w] + params, allow_unused=True))
@@ -239,7 +249,7 @@ def test_cuda_training_inputs_never_take_the_plain_twins(dev, monkeypatch):
     traj, r1, r2, f2 = fused_train.train_trajectory(
         on(dev, np.full((2, 6), 0.1)), on(dev, np.zeros((2, 4))),
         pack_field(model.ode, detach=False), fa_w=1.0, dts=on(dev, [0.1, 0.1]),
-        tmask=on(dev, [1.0, 1.0]))
+        tmask=on(dev, [1.0, 1.0]), stats_mode=True)
     (mean.sum() + std.sum() + traj.sum() + r1.sum() + r2.sum() + f2).backward()
 
 
@@ -250,17 +260,18 @@ def test_training_wrappers_raise_on_inputs_the_kernels_cannot_take(dev):
     head, tail = torch.zeros(2, 6, device=dev), torch.zeros(2, 4, device=dev)
     one, dts = torch.tensor(1.0, device=dev), torch.ones(2, device=dev)
     with pytest.raises(ValueError):                     # float64 state
-        fused_train.train_forward_cuda(head.double(), tail, w, one, dts, dts)
+        fused_train.train_forward_cuda(head.double(), tail, w, one, dts, dts, stats_mode=True)
     with pytest.raises(ValueError):                     # tail of the wrong width
-        fused_train.train_forward_cuda(head, tail[:, :3], w, one, dts, dts)
+        fused_train.train_forward_cuda(head, tail[:, :3], w, one, dts, dts, stats_mode=True)
     with pytest.raises(ValueError):                     # tmask of the wrong length
-        fused_train.train_forward_cuda(head, tail, w, one, dts, dts[:1])
+        fused_train.train_forward_cuda(head, tail, w, one, dts, dts[:1], stats_mode=True)
     with pytest.raises(ValueError):                     # a single-layer rates net
         fused_train.train_forward_cuda(
             head, tail, FieldWeights(w.w0_head, w.w0_tail, w.b0, w.n0_fp, (), w.aug),
             one, dts, dts)
     with pytest.raises(ValueError):                     # weights left on the CPU
-        fused_train.train_forward_cuda(head, tail, pack_field(model.ode.cpu()), one, dts, dts)
+        fused_train.train_forward_cuda(head, tail, pack_field(model.ode.cpu()), one, dts, dts,
+                                       stats_mode=True)
     model = build(dev)
     params = fused_gru_train.encoder_params(model.encoder)
     w_enc = fused_gru_train.in_out_weights(params, 2, contiguous=True)
@@ -396,7 +407,8 @@ def test_bayes_train_kernels_match_autograd_of_twin(dev, ode_name, cfg, L, B, tm
             fused_bayes_train.bayes_train_trajectory_plain
         f0, b0 = (fused_bayes_train.bayes_train_forward_cuda.launches,
                   fused_bayes_train.bayes_train_backward_cuda.launches)
-        traj, r1, r2, f2 = fn(head, tail, bw, fa_w=fa_w, dts=dts, tmask=tm, **kw)
+        traj, r1, r2, f2 = fn(head, tail, bw, fa_w=fa_w, dts=dts, tmask=tm, stats_mode=True,
+                              **kw)
         loss = ((traj * g_traj).sum() + (r1 * c[:2]).sum() + (r2 * c[2:4]).sum()
                 + f2 * c[4])
         grads = torch.autograd.grad(loss, [zz, fa_w] + params, allow_unused=True)
@@ -423,7 +435,7 @@ def test_bayes_gradients_repeat_bit_for_bit(dev):
         bw = fused_bayes.pack_bayes_field(model.ode, detach=False)
         traj, r1, r2, f2 = fused_bayes_train.bayes_train_trajectory(
             z0[..., :3].reshape(50, -1), z0[..., 3:].reshape(50, -1), bw, fa_w=1.0, dts=dts,
-            tmask=tm, seed=3)
+            tmask=tm, stats_mode=True, seed=3)
         loss = traj.square().sum() + r1.sum() + r2.sum() + f2
         return torch.autograd.grad(loss, list(model.ode.parameters()))
 
@@ -453,3 +465,226 @@ def test_bayes_trainer_steps_through_the_kernels(dev):
     assert [c.launches for c in counters] == [n + 2 for n in before]
     assert np.isfinite(metrics["loss"]) and metrics["ode_kl"] > 0
     assert not torch.equal(std0, model.ode.Fp_net.layers[0].w_std)
+
+
+# -- the aux-streaming mode of K5/K6 and K8/K9 ------------------------------------------
+
+def stream_pair(dev, model, B, L, bayes_kw=None, use=("traj", "rates", "fa"), seed=4):
+    """((traj, rates, fa), gradients) from the kernels and from the twin, under
+    random cotangents on the outputs in ``use``."""
+    from fiude_tpu_torch.ops.fused_ude import pack_field
+    R = model.n_regions
+    rng = np.random.default_rng(seed)
+    z = on(dev, rng.uniform(0.0, 0.6, (B, R, L)))
+    z[0, 0, 0] = 2.5                       # frozen: its rates are still reported
+    dts = on(dev, [0.5, 0.25, 0.5])
+    g = {"traj": on(dev, rng.standard_normal((4, B, 3 * R))),
+         "rates": on(dev, rng.standard_normal((12, B, 2 * R))),
+         "fa": on(dev, rng.standard_normal((12, B, 3 * R)))}
+    params = list(model.ode.parameters())
+    outs = []
+    for kernel in (True, False):
+        zz = z.clone().requires_grad_(True)
+        fa_w = torch.tensor(0.7, device=dev, requires_grad=True)
+        head, tail = zz[..., :3].reshape(B, -1), zz[..., 3:].reshape(B, -1)
+        if bayes_kw is None:
+            fn = fused_train.train_trajectory if kernel else fused_train.train_trajectory_plain
+            values = fn(head, tail, pack_field(model.ode, detach=False), fa_w=fa_w, dts=dts)
+        else:
+            fn = fused_bayes_train.bayes_train_trajectory if kernel else \
+                fused_bayes_train.bayes_train_trajectory_plain
+            values = fn(head, tail, fused_bayes.pack_bayes_field(model.ode, detach=False),
+                        fa_w=fa_w, dts=dts, **bayes_kw)
+        loss = sum((v * g[k]).sum() for k, v in zip(("traj", "rates", "fa"), values)
+                   if v is not None and k in use)
+        outs.append((values, torch.autograd.grad(loss, [zz, fa_w] + params, allow_unused=True)))
+    return outs
+
+
+def assert_stream_pair_close(kernel, plain):
+    (vk, gk), (vp, gp) = kernel, plain
+    for a, b in zip(vk, vp):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    for a, b in zip(gk, gp):
+        if b is None:
+            assert a is None or not a.abs().any()
+        else:
+            assert_grad_close(a, b)
+
+
+@pytest.mark.parametrize("ode_name,B,use", [
+    ("FaFp", 37, ("traj", "rates", "fa")),     # ragged last tile
+    ("FaFp", 32, ("traj", "rates")),           # the Fa cotangent absent
+    ("FaFp", 16, ("traj",)),                   # both aux cotangents absent
+    ("CONN", 21, ("traj", "rates", "fa")),
+    ("SONN", 13, ("traj", "rates", "fa")),
+])
+def test_streaming_trajectory_kernels_match_the_twin(dev, ode_name, B, use):
+    model = build(dev, ode_name, R=3, L=6, net=(16, 16, 8), aug=(16, 16))
+    counters = (fused_train.train_forward_cuda, fused_train.train_backward_cuda)
+    before = [(c.launches, c.stream_launches) for c in counters]
+    kernel, plain = stream_pair(dev, model, B, 6, use=use)
+    assert [(c.launches, c.stream_launches) for c in counters] == \
+        [(a + 1, b + 1) for a, b in before]
+    assert_stream_pair_close(kernel, plain)
+
+
+@pytest.mark.parametrize("ode_name,cfg,L,B,mode", [
+    ("UONNb", dict(R=3, net=(16, 16, 8), aug=(16, 16)), 6, 37, "noise"),
+    ("UONNb", dict(R=3, net=(16, 16, 8), aug=(16, 16)), 6, 20, "seed"),
+    ("CONNb", dict(R=3, net=(16, 16, 8)), 5, 13, "seed"),
+    ("SONNb", dict(R=3, aug=(16, 16)), 5, 20, "noise"),
+])
+def test_bayes_streaming_kernels_match_the_twin(dev, ode_name, cfg, L, B, mode):
+    model = build(dev, ode_name, L=L, **cfg)
+    like = fused_bayes.pack_bayes_field(model.ode).mean
+    kw = {"seed": 13} if mode == "seed" else {"noise": injected_noise(dev, like, 12)}
+    counters = (fused_bayes_train.bayes_train_forward_cuda,
+                fused_bayes_train.bayes_train_backward_cuda)
+    before = [(c.launches, c.stream_launches) for c in counters]
+    kernel, plain = stream_pair(dev, model, B, L, bayes_kw=kw)
+    assert [(c.launches, c.stream_launches) for c in counters] == \
+        [(a + 1, b + 1) for a, b in before]
+    assert_stream_pair_close(kernel, plain)
+
+
+def test_streaming_trajectory_is_the_stats_trajectory_bit_for_bit(dev):
+    from fiude_tpu_torch.ops.fused_ude import pack_field
+    model = build(dev, "FaFp", R=3, L=6, net=(16, 16, 8), aug=(16, 16))
+    z = on(dev, np.random.default_rng(8).uniform(0.0, 0.6, (37, 3, 6)))
+    head, tail = z[..., :3].reshape(37, -1), z[..., 3:].reshape(37, -1)
+    dts, tm = on(dev, [0.5, 0.25, 0.5]), on(dev, [1.0, 0.5, 0.0])
+    w = pack_field(model.ode)
+    with torch.no_grad():
+        traj, rates, fa = fused_train.train_trajectory(head, tail, w, fa_w=0.7, dts=dts)
+        traj_s, r1, r2, f2 = fused_train.train_trajectory(head, tail, w, fa_w=0.7, dts=dts,
+                                                          tmask=tm, stats_mode=True)
+    assert torch.equal(traj, traj_s)
+    m = tm.repeat_interleave(4).reshape(-1, 1, 1, 1).double()
+    d = rates.reshape(12, 37, 3, 2).double() - torch.tensor(fused_train.RATE_SHIFT, device=dev)
+    torch.testing.assert_close(r1.double(), (m * d).sum(dim=(0, 1, 2)), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(r2.double(), (m * d * d).sum(dim=(0, 1, 2)), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(f2.double(), (m[..., 0] * fa.double() ** 2).sum(), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_streaming_trainer_step_matches_the_plain_step(dev):
+    rng = np.random.default_rng(5)
+    x = on(dev, rng.uniform(0, 1, (4, 9, 10)))
+    y = on(dev, rng.uniform(0, 1, (4, 4, 2)))
+    eps = on(dev, 0.3 * rng.standard_normal((3, 4, 2, 4)))
+    metrics = {}
+    counters = (fused_train.train_forward_cuda, fused_train.train_backward_cuda)
+    before = [c.stream_launches for c in counters]
+    for fused in (True, False):
+        model = UDEForecaster.build(
+            n_regions=2, latent_dim=5, n_qs=4, ode_name="UONN", fused_train=fused,
+            enc_params={"q_sizes": (24, 16), "ff_sizes": (12,)},
+            ode_params={"net_sizes": (16, 16), "aug_net_sizes": (16, 16)},
+            generator=torch.Generator().manual_seed(0), device=dev)
+        trainer = Trainer(model, loss_cfg=TRAINING_INFO["UONN"], len_tr=10)
+        trainer.setup_training(lr=1e-3)
+        metrics[fused] = trainer.train_step(
+            x, y, np.arange(4) / 7.0, eps, epoch=1, grad_lim=5000.0,
+            time_mask=on(dev, [1.0, 1.0, 0.0]), eval_mask=on(dev, [1.0, 1.0, 1.0, 0.0]))
+    assert [c.stream_launches for c in counters] == [n + 1 for n in before]
+    for k in metrics[False]:
+        assert metrics[True][k] == pytest.approx(metrics[False][k], rel=2e-4), k
+
+
+def test_streaming_gradients_repeat_bit_for_bit(dev):
+    model = build(dev, "UONNb", R=3, L=6, net=(16, 16, 8))
+    for a, b in zip(*(stream_pair(dev, model, 50, 6, bayes_kw={"seed": 3})[0][1]
+                      for _ in range(2))):
+        assert torch.equal(a, b)
+
+
+# -- the bfloat16 compute mode of K2 and K7 --------------------------------------------
+
+BF16_RTOL, BF16_ATOL = 2e-3, 2e-4
+
+
+def assert_bf16_close(got, want):
+    """Every entry within ten times (rtol 2e-3, atol 2e-4), 98% within it."""
+    err, ref = (got - want).abs(), want.abs()
+    assert torch.isfinite(got).all()
+    assert (err <= 10 * (BF16_ATOL + BF16_RTOL * ref)).all()
+    assert (err <= BF16_ATOL + BF16_RTOL * ref).float().mean().item() >= 0.98
+
+
+@pytest.mark.parametrize("ode_name,L,B,fa_w", [
+    ("FaFp", 6, 37, 1.0), ("Fp", 5, 13, 1.0), ("Fa", 5, 20, 1.0), ("FaFp", 3, 5, 0.5),
+    ("FaFp", 8, 40, 1.0),
+])
+def test_bf16_trajectory_kernel_matches_its_twin(dev, ode_name, L, B, fa_w):
+    cfg = STATE_ODE if L == 8 else dict(R=3, net=(16, 16, 8), aug=(16, 16))
+    model = build(dev, ode_name, L=L, **cfg)
+    w = fused_ude.pack_ude(model.ode, model.decoder)
+    z0 = on(dev, np.random.default_rng(1).uniform(0.0, 0.8, (B, cfg["R"], L)))
+    z0[0, 0, 0] = 2.5
+    kw = dict(T=6, dt=1 / 7, fa_w=fa_w)
+    before = (fused_ude.trajectory_decode.launches, fused_ude.trajectory_decode.bf16_launches)
+    got = fused_ude.trajectory_decode(z0, w, compute_dtype="bfloat16", **kw)
+    assert (fused_ude.trajectory_decode.launches,
+            fused_ude.trajectory_decode.bf16_launches) == (before[0] + 1, before[1] + 1)
+    want = fused_ude.trajectory_decode_plain(z0, w, compute_dtype="bfloat16", **kw)
+    assert_bf16_close(got, want)
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)    # the float32 decode
+    full = fused_ude.trajectory_decode(z0, w, **kw)
+    assert not torch.equal(got, full)
+
+
+@pytest.mark.parametrize("ode_name,cfg,L,B,mode", [
+    ("UONNb", dict(R=3, net=(16, 16, 8), aug=(16, 16)), 6, 37, "noise"),
+    ("UONNb", dict(R=3, net=(16, 16, 8), aug=(16, 16)), 6, 20, "seed"),
+    ("CONNb", dict(R=3, net=(16, 16, 8)), 5, 13, "seed"),
+    ("SONNb", dict(R=3, aug=(16, 16)), 5, 20, "noise"),
+    ("UONNb", STATE_ODE, 8, 40, "seed"),
+])
+def test_bf16_bayes_trajectory_kernel_matches_its_twin(dev, ode_name, cfg, L, B, mode):
+    model = build(dev, ode_name, L=L, **cfg)
+    w = fused_bayes.pack_bayes(model.ode, model.decoder)
+    like = w.field.mean
+    T = 6
+    kw = {"seed": 13} if mode == "seed" else {"noise": injected_noise(dev, like, 4 * (T - 1))}
+    z0 = on(dev, np.random.default_rng(1).uniform(0.0, 0.6, (B, cfg["R"], L)))
+    before = fused_bayes.bayes_trajectory_cuda.bf16_launches
+    got = fused_bayes.bayes_trajectory_decode(z0, w, T=T, dt=1 / 7, fa_w=0.8,
+                                              compute_dtype="bfloat16", **kw)
+    assert fused_bayes.bayes_trajectory_cuda.bf16_launches == before + 1
+    want = fused_bayes.bayes_trajectory_decode_plain(z0, w, T=T, dt=1 / 7, fa_w=0.8,
+                                                     compute_dtype="bfloat16", **kw)
+    assert_bf16_close(got, want)
+
+
+def test_bf16_draw_rounds_the_float32_draw(dev):
+    model = build(dev, "UONNb", R=3, L=6, net=(16, 16, 8))
+    bw = fused_bayes.pack_bayes_field(model.ode)
+    mean, std = fused_bayes.flatten_field(bw.mean), fused_bayes.flatten_field(bw.std)
+    w32, _, _ = fused_bayes.bayes_draw_cuda(mean, std, bw.mean, 8, seed=5)
+    drawn, _, _ = fused_bayes.bayes_draw_cuda(mean, std, bw.mean, 8, seed=5, bf16=True)
+    assert drawn.w.dtype == torch.bfloat16 and torch.equal(drawn.w, w32.to(torch.bfloat16))
+    arrays = fused_bayes.field_arrays(bw.mean)
+    offs = np.cumsum([0] + [a.numel() for a in arrays])
+    biases = torch.cat([w32[:, offs[k]:offs[k + 1]] for k, a in enumerate(arrays)
+                        if a.dim() == 1], dim=1)
+    assert torch.equal(drawn.bias, biases)
+
+
+def test_bf16_forecasters_serve(dev):
+    model = build(dev, R=3, L=6, n_qs=3, net=(16, 16, 8))
+    rng = np.random.default_rng(2)
+    x = on(dev, rng.uniform(0, 1, (4, 10, model.encoder.input_size)))
+    eps = model.sample_eps(4, 5, generator=torch.Generator(device=dev).manual_seed(0))
+    t = np.arange(6) / 7
+    got = fused_ude.FusedForecaster(model, fa_w=0.7, compute_dtype="bfloat16")(x, t, eps)
+    want = fused_ude.FusedForecaster(model, fa_w=0.7)(x, t, eps)
+    assert got.shape == want.shape and 0 < (got - want).abs().max() < 0.05
+    bayes = build(dev, "UONNb", R=3, L=6, n_qs=3, net=(16, 16, 8))
+    got = fused_bayes.FusedBayesForecaster(bayes, compute_dtype="bfloat16")(x, t, eps, seed=2)
+    want = fused_bayes.FusedBayesForecaster(bayes)(x, t, eps, seed=2)
+    assert got.shape == want.shape and 0 < (got - want).abs().max() < 0.05
+    with pytest.raises(ValueError, match="compute_dtype"):
+        fused_ude.FusedForecaster(model, compute_dtype="float16")

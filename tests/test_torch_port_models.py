@@ -257,14 +257,35 @@ class TestForecaster:
         close(y_t, y_j)
 
     @pytest.mark.parametrize("kwargs", [
-        {"ode_name": "UONNb", "fused_train": True},     # Bayes aux-streaming (K8/K9)
-        {"ode_name": "Bayes_Fp", "fused_train": True},
-        {"encoder_name": "bigru"}, {"fused_train": True}])
+        {"ode_name": "UONNb", "fused_train": True, "method": "euler"},
+        {"ode_name": "Bayes_Fp", "fused_train": True, "substeps": 2},
+        {"encoder_name": "bigru"}, {"fused_train": True, "method": "dopri5"}])
     def test_unported_options_raise(self, kwargs):
         kw = dict(n_regions=2, latent_dim=5, n_qs=3, ode_name="FaFp")
         kw.update(kwargs)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             UDEForecaster.build(device="cpu", **kw)
+
+    @pytest.mark.parametrize("ode_name", ["UONN", "CONN", "SONN", "UONNb", "Bayes_Fp", "SONNb"])
+    def test_fused_train_alone_builds_for_every_family(self, ode_name):
+        """``fused_train`` without ``fused_stats`` is the aux-streaming mode of
+        the training trajectory: it builds and gives the plain forward."""
+        kw = dict(n_regions=2, latent_dim=5, n_qs=3, ode_name=ode_name, device="cpu",
+                  dtype=torch.float64)
+        fused = UDEForecaster.build(fused_train=True, **kw)
+        plain = UDEForecaster.build(**kw)
+        plain.load_state_dict(fused.state_dict())
+        rng = np.random.default_rng(3)
+        x = t64(rng.uniform(0, 1, (2, 6, fused.encoder.input_size)))
+        eps = t64(rng.standard_normal((3, 2, 2, 4)))
+        t = np.arange(4) / 7.0
+        with torch.no_grad():
+            y_f, ex_f = fused(x, t, eps, noise_seed=5)
+            y_p, ex_p = plain(x, t, eps, noise_seed=5)
+        torch.testing.assert_close(y_f, y_p, rtol=1e-10, atol=1e-12)
+        assert set(ex_f.aux) == set(ex_p.aux) and ex_f.aux
+        for k in ex_f.aux:
+            torch.testing.assert_close(ex_f.aux[k], ex_p.aux[k], rtol=1e-10, atol=1e-12)
 
     def test_same_seed_same_weights(self):
         def weights(seed):

@@ -192,17 +192,22 @@ def test_port_and_chip_smoke_import_no_jax_or_pandas():
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['pandas'] = None\n"
+        "sys.modules['filelock'] = None\n"
         "import fiude_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(fiude_tpu_torch.__path__,"
         " 'fiude_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "for new in ('utils.config', 'utils.results', 'utils.metrics', 'data.synthetic',"
+        " 'train.experiment'):\n"
+        "    assert 'fiude_tpu_torch.' + new in names, new\n"
         "import chip_smoke\n"
-        "assert not any(m == 'fiude_tpu' or m.startswith(('fiude_tpu.', 'jax'))"
+        "assert not any(m in ('fiude_tpu', 'pandas', 'filelock')"
+        " or m.startswith(('fiude_tpu.', 'jax'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 24      # every module was imported
+    assert int(out.stdout.split()[-1]) >= 29      # every module was imported

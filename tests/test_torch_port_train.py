@@ -215,13 +215,15 @@ def step_inputs(seed=9):
     return x, y, t, eps
 
 
-def trainer_pair(fused=True, key=5, **trainer_kw):
-    """A JAX Trainer and a port Trainer on the same weights."""
-    jm = JaxForecaster.build(fused_train=fused, fused_stats=fused, **CONFIG)
+def trainer_pair(fused=True, key=5, stats=None, **trainer_kw):
+    """A JAX Trainer and a port Trainer on the same weights; ``stats=False``
+    with ``fused`` is the aux-streaming mode."""
+    stats = fused if stats is None else stats
+    jm = JaxForecaster.build(fused_train=fused, fused_stats=stats, **CONFIG)
     jt = JaxTrainer(model=jm, loss_cfg=JAX_INFO["UONN"], seed=7, len_tr=10, **trainer_kw)
     jt.init_params(jax.random.PRNGKey(key))
     jt.setup_training(lr=1e-3)
-    port = UDEForecaster.build(device="cpu", fused_train=fused, fused_stats=fused, **CONFIG)
+    port = UDEForecaster.build(device="cpu", fused_train=fused, fused_stats=stats, **CONFIG)
     flat = {}
     for part in ("enc", "ode", "dec"):
         flat.update(tree_to_flat_dict(getattr(jt.params, part)))
@@ -267,6 +269,41 @@ class TestTrainStep:
         assert_params_match(jt.state.params, pt.model)
         assert (pt.state.tr_step, pt.state.skip_count) == (1, 0)
 
+    @pytest.mark.parametrize("padded", [False, True])
+    def test_fused_streaming_step_matches_jax(self, padded):
+        """``fused_train`` without ``fused_stats``: the loss reads the streamed
+        aux and applies the padded mask itself."""
+        jt, pt = trainer_pair(fused=True, stats=False)
+        x, y, t, eps = step_inputs()
+        tm = np.array([1.0, 1.0, 0.0], np.float32) if padded else None
+        em = np.array([1.0, 1.0, 1.0, 0.0], np.float32) if padded else None
+        m_j = jax_step(jt, x, y, t, eps, epoch=1, grad_lim=5000.0, tm=tm, em=em)
+        m_t = pt.train_step(torch.from_numpy(x), torch.from_numpy(y), t,
+                            torch.from_numpy(eps), epoch=1, grad_lim=5000.0,
+                            time_mask=None if tm is None else torch.from_numpy(tm),
+                            eval_mask=None if em is None else torch.from_numpy(em))
+        assert set(m_t) == set(m_j)
+        for k in m_j:
+            assert m_t[k] == pytest.approx(m_j[k], rel=2e-4, abs=1e-7), k
+        assert_params_match(jt.state.params, pt.model)
+
+    def test_streaming_step_matches_the_stats_step(self):
+        x, y, t, eps = step_inputs(seed=4)
+        tm = torch.tensor([1.0, 1.0, 0.0])
+        em = torch.tensor([1.0, 1.0, 1.0, 0.0])
+        runs = []
+        for stats in (True, False):
+            _, pt = trainer_pair(fused=True, stats=stats, key=2)
+            m = pt.train_step(torch.from_numpy(x), torch.from_numpy(y), t,
+                              torch.from_numpy(eps), epoch=1, grad_lim=5000.0,
+                              time_mask=tm, eval_mask=em)
+            runs.append((m, pt.model.state_dict()))
+        (m_s, p_s), (m_a, p_a) = runs
+        for k in m_s:
+            assert m_a[k] == pytest.approx(m_s[k], rel=2e-5, abs=1e-7), k
+        for k in p_s:
+            torch.testing.assert_close(p_a[k], p_s[k], rtol=1e-4, atol=1e-6)
+
     def test_plain_step_matches_the_fused_step(self):
         x, y, t, eps = step_inputs(seed=4)
         tm = torch.tensor([1.0, 1.0, 0.0])
@@ -308,13 +345,37 @@ class TestTrainStep:
 
 class TestFusedTrainOptions:
     @pytest.mark.parametrize("kwargs", [
-        {"fused_stats": False}, {"fused_stats": True, "method": "euler"},
-        {"fused_stats": True, "substeps": 2}, {"fused_stats": False, "ode_name": "UONNb"}])
+        {"fused_stats": True, "method": "euler"}, {"fused_stats": True, "substeps": 2}])
     def test_unported_fused_train_options_raise(self, kwargs):
         kw = dict(CONFIG, fused_train=True)
         kw.update(kwargs)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             UDEForecaster.build(device="cpu", **kw)
+
+    @pytest.mark.parametrize("kwargs", [
+        {"fused_stats": False}, {"fused_stats": False, "ode_name": "UONNb"},
+        {"ode_name": "CONN"}, {"ode_name": "SONNb"}])
+    def test_fused_train_alone_streams_the_aux(self, kwargs):
+        """``fused_train`` without ``fused_stats`` (the JAX package's default)
+        builds for every family and returns the ``odeint_grid`` aux."""
+        kw = dict(CONFIG, fused_train=True)
+        kw.update(kwargs)
+        model = UDEForecaster.build(device="cpu", **kw)
+        assert model.fused_train and not model.fused_stats
+        x, _, t, eps = step_inputs()
+        y, ex = model(torch.from_numpy(x), t, torch.from_numpy(eps),
+                      time_mask=torch.tensor([1.0, 0.0, 0.0]))
+        name = kw["ode_name"]
+        want = {"rates": (3, 4, 12, R, 2)} if name[:4] != "SONN" else {}
+        if name[:4] != "CONN":
+            want["fa"] = (3, 4, 12, R, 3)
+        assert {k: tuple(v.shape) for k, v in ex.aux.items()} == want
+        plain = UDEForecaster.build(device="cpu", **dict(kw, fused_train=False))
+        plain.load_state_dict(model.state_dict())
+        y_p, ex_p = plain(torch.from_numpy(x), t, torch.from_numpy(eps))
+        torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-5)
+        for k in want:
+            torch.testing.assert_close(ex.aux[k], ex_p.aux[k], rtol=1e-4, atol=1e-5)
 
     def test_fused_forward_aux_is_the_stats(self):
         model = UDEForecaster.build(device="cpu", fused_train=True, fused_stats=True, **CONFIG)

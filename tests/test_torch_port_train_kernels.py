@@ -163,7 +163,7 @@ class TestTrajectoryTwin:
         tail = z_t[..., 3:].reshape(B, -1)
         traj, r1, r2, f2 = fused_train.train_trajectory(
             z_t[..., :3].reshape(B, -1), tail, w, fa_w=fa_t,
-            dts=torch.from_numpy(dts), tmask=torch.from_numpy(TMASK))
+            dts=torch.from_numpy(dts), tmask=torch.from_numpy(TMASK), stats_mode=True)
         lat = fused_train.traj_to_model_layout(traj, tail, R, L)
         np.testing.assert_allclose(lat.detach().numpy(), np.asarray(lat_j),
                                    rtol=2e-5, atol=1e-6)
@@ -197,7 +197,8 @@ class TestTrajectoryTwinStructure:
             lat, aux = odeint_grid(port.rhs_fn(FA_W), z, t)
             traj, r1, r2, f2 = fused_train.train_trajectory(
                 z[..., :3].reshape(B, -1), z[..., 3:].reshape(B, -1),
-                pack_field(port.ode), fa_w=FA_W, dts=torch.from_numpy(np.diff(t)), tmask=ones)
+                pack_field(port.ode), fa_w=FA_W, dts=torch.from_numpy(np.diff(t)), tmask=ones,
+                stats_mode=True)
         torch.testing.assert_close(traj.reshape(4, B, R, 3), lat[..., :3], rtol=1e-12, atol=1e-12)
         d = aux["rates"] - torch.tensor(fused_train.RATE_SHIFT, dtype=torch.float64)
         torch.testing.assert_close(r1, d.sum(dim=(0, 1, 2, 3)), rtol=1e-10, atol=1e-12)
@@ -210,7 +211,8 @@ class TestTrajectoryTwinStructure:
         one_layer = FieldWeights(w.w0_head, w.w0_tail, w.b0, w.n0_fp, (), w.aug)
         with pytest.raises(NotImplementedError, match="single-layer"):
             fused_train.train_trajectory(torch.zeros(3, 6), torch.zeros(3, 2), one_layer,
-                                         fa_w=1.0, dts=torch.ones(2), tmask=torch.ones(2))
+                                         fa_w=1.0, dts=torch.ones(2), tmask=torch.ones(2),
+                                         stats_mode=True)
 
 
 class TestDispatch:
@@ -225,7 +227,7 @@ class TestDispatch:
                                                port.encoder)
         traj, *_ = fused_train.train_trajectory(
             torch.rand(2, 9), torch.rand(2, 9), pack_field(port.ode, detach=False),
-            fa_w=1.0, dts=torch.ones(2), tmask=torch.ones(2))
+            fa_w=1.0, dts=torch.ones(2), tmask=torch.ones(2), stats_mode=True)
         (mean.sum() + traj.sum()).backward()
         assert counts() == before
 
@@ -237,4 +239,4 @@ class TestDispatch:
             fused_train.train_trajectory(torch.zeros(2, 9, device="meta"),
                                          torch.zeros(2, 9, device="meta"),
                                          pack_field(port.ode), fa_w=1.0,
-                                         dts=torch.ones(2), tmask=torch.ones(2))
+                                         dts=torch.ones(2), tmask=torch.ones(2), stats_mode=True)
