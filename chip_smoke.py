@@ -18,7 +18,12 @@ no result, when there is no card.  Phases, each printing its lines:
    finiteness and agreement with the plain ``UDEForecaster.forward``, and
    the kernels' launch counters read around those 4 requests;
 4. times: each kernel and the whole request against the plain path, by CUDA
-   events (kernels) and host clock with a synchronize (requests);
+   events (kernels) and host clock with a synchronize (requests); K1's time
+   against the library's call with their ratio and the time a step, its
+   cluster plan (C, R, shared memory a CTA, resident weights or not, and
+   ``cudaOccupancyMaxActiveClusters``), a ``torch.profiler`` split of a call
+   into the projection, the T layer-steps and the head, and K1 under every
+   other plan that fits;
 5. the training kernels against their twins at the training shape of the
    ``state`` config (32 windows x 64 samples, 8 weekly points, dt = 1): K3
    and K4 (the encoder's forward and BPTT: value and every weight and bias
@@ -30,9 +35,10 @@ no result, when there is no card.  Phases, each printing its lines:
    batches = 14 steps) with the launch counters of K3-K6 read around it, a
    checkpoint round trip, and its first step (the seeded weights) held
    against the same step with ``fused_train=False``;
-7. times of K3-K6 against their twins (CUDA events), of a training step
-   against the plain step (host clock), and a ``torch.profiler`` trace of a
-   few steps with the device's idle share;
+7. times of K3-K6 against their twins (CUDA events), K3 against the library
+   with its plan and split as in phase 4, of a training step against the
+   plain step (host clock), and a ``torch.profiler`` trace of a few steps
+   with the device's idle share;
 8. the Bayes serving kernel K7 and the weight draw it shares with K8/K9
    (``state`` UONNb, 2048 systems, 85 daily points, 336 evaluations of 73,493
    fresh weights each) against the plain twin, with injected noise (the same
@@ -786,6 +792,94 @@ def library_encoder(model, x):
 
     params = [p for lib in grus for p in lib.parameters()] + list(enc.ff_layers.parameters())
     return forward, params
+
+
+def device_us_by_kernel(fn, n: int) -> dict:
+    """Device time (us) a call of ``fn`` by kernel name, from a torch.profiler
+    trace of ``n`` calls ({} when the profiler saw no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / n
+    return by_name
+
+
+def encoder_plan_report(x, w_enc, tag, smi, hseq=False):
+    """Print the cluster plan K1/K3 (``hseq``) takes for ``x``, with how many
+    such clusters the card holds at once; then a profiler split of one call
+    into the projection SGEMM and the cluster kernel, and of the cluster
+    kernel into T layer-steps and the rest (head, weight load) from the slope
+    between the full window and its first half.  Returns the plan."""
+    import torch
+    from fiude_tpu_torch.ops import fused_gru
+    hidden, k = fused_gru.check_backgru(x, w_enc)
+    B, T, I = x.shape
+    plan = fused_gru.recurrence_plan(B, hidden, I, fused_gru.head_widths(w_enc))
+    log(f"  {tag} plan at B={B}: cluster C={plan.cluster}, rows R={plan.rows}, units a CTA "
+        f"{plan.units}, {plan.clusters} clusters ({plan.clusters * plan.cluster} CTAs), "
+        f"{plan.smem_bytes} B of shared memory a CTA, weights "
+        f"{'resident' if plan.resident else 'through L2'}, cudaOccupancyMaxActiveClusters "
+        f"{fused_gru.max_active_clusters(plan)} [{smi}]")
+
+    def call(xx):
+        bb, tt = xx.shape[0], xx.shape[1]
+        seqs = None if not hseq else (
+            [torch.empty(bb, tt, h, device=xx.device) for h in hidden],
+            [torch.empty(bb, tt, 4 * h, device=xx.device) for h in hidden])
+        return lambda: fused_gru.launch_backgru(xx, w_enc, hidden, k,
+                                                *(seqs or (None, None)))
+
+    half = x[:, T - T // 2:].contiguous()    # the window's last T/2 times: the first steps
+    full, part = device_us_by_kernel(call(x), 10), device_us_by_kernel(call(half), 10)
+
+    def pick(d, key):
+        return sum(us for name, us in d.items() if key in name)
+
+    if not full:
+        log(f"  {tag} split: the profiler saw no device time (not measured)")
+        return plan
+    proj, rec = pick(full, "sgemm_bias"), pick(full, "backgru_cluster")
+    step = (rec - pick(part, "backgru_cluster")) / (T - T // 2)
+    log(f"  {tag} split of one call (torch.profiler, mean of 10) [{smi}]: projection SGEMM "
+        f"{proj / 1e3:.4f} ms, cluster kernel {rec / 1e3:.4f} ms = {T} steps x "
+        f"{step:.3f} us (a step: one barrier interval of the {len(hidden)}-layer wavefront) "
+        f"+ head, weight load and the wavefront's fill {(rec - T * step) / 1e3:.4f} ms")
+    return plan
+
+
+def encoder_plan_alternatives(x, w_enc, smi):
+    """K1's time (CUDA events) under every (C, R) that fits in shared memory,
+    with resident weights and through L2, beside the chosen plan's."""
+    from fiude_tpu_torch.ops import fused_gru
+    hidden, k = fused_gru.check_backgru(x, w_enc)
+    B, T, I = x.shape
+    heads = fused_gru.head_widths(w_enc)
+    chosen = fused_gru.recurrence_plan(B, hidden, I, heads)
+    for cluster in (8, 16):
+        for rows in (4, 8, 16, 32):
+            for resident in (True, False):
+                smem = fused_gru.plan_smem_bytes(hidden, heads, cluster, rows, resident)
+                if smem > fused_gru.SMEM_LIMIT:
+                    continue
+                plan = fused_gru.RecurrencePlan(cluster, rows,
+                                                tuple(-(-h // cluster) for h in hidden), smem,
+                                                resident, -(-B // rows))
+                ms = cuda_ms(lambda: fused_gru.launch_backgru(x, w_enc, hidden, k, plan=plan),
+                             20)
+                log(f"    K1 with C={cluster:2d} R={rows:2d} "
+                    f"{'resident' if resident else 'L2      '}: {ms:.4f} ms "
+                    f"({plan.clusters * cluster} CTAs, {smem} B, max active clusters "
+                    f"{fused_gru.max_active_clusters(plan)})"
+                    f"{'  <- the plan' if plan == chosen else ''} [{smi}]")
 
 
 def train_times(model, x, z0, step_inputs):
@@ -1692,7 +1786,7 @@ def main() -> int:
 
     from fiude_tpu_torch.models import UDEForecaster
     from fiude_tpu_torch.models.vae import reparam
-    from fiude_tpu_torch.ops import _build, fused_gru, fused_ude
+    from fiude_tpu_torch.ops import _build, fused_gru, fused_gru_train, fused_ude
     from fiude_tpu_torch.train import load_params, save_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1814,8 +1908,12 @@ def main() -> int:
                      + T_OUT * w.dec_w.numel()),
         nbytes(z0, w.dec_w, w.dec_b) + field_bytes(w) + 4 * T_OUT * n_sys * w.dec_w.shape[1])
     log(f"  K1 fused_backgru x {tuple(x.shape)}: kernel {k1_ms:.4f} ms, "
-        f"plain {k1_plain:.4f} ms, library (2 x nn.GRU + head) {k1_library:.4f} ms, bound "
-        f"{k1_bound[0]:.4f} ms by {k1_bound[1]} [{smi}]")
+        f"plain {k1_plain:.4f} ms, library (2 x nn.GRU + head) {k1_library:.4f} ms "
+        f"(kernel / library {k1_ms / k1_library:.3f}), {k1_ms * 1e3 / T_IN:.3f} us a step, "
+        f"bound {k1_bound[0]:.4f} ms by {k1_bound[1]} [{smi}]")
+    with torch.no_grad():
+        encoder_plan_report(x, w_enc, "K1", smi)
+        encoder_plan_alternatives(x, w_enc, smi)
     log(f"  K2 fused_ude z0 {tuple(z0.shape)}, T={T_OUT}: kernel {k2_ms:.4f} ms, "
         f"plain {k2_plain:.4f} ms, bound {k2_bound[0]:.4f} ms by {k2_bound[1]} [{smi}]")
     log(f"  request ({BATCH} windows x {SAMPLES} samples, T={T_OUT}): kernels "
@@ -1856,6 +1954,17 @@ def main() -> int:
         lib = "" if library is None else f", library (2 x nn.GRU + head) {library:.4f} ms"
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms{lib}, bound {bound[0]:.4f} ms "
             f"by {bound[1]} [{smi}]")
+    log(f"  K3 / library {k3_ms / k3_library:.3f}, {k3_ms * 1e3 / T_IN:.3f} us a step [{smi}]")
+    w_train = fused_gru_train.in_out_weights(fused_gru_train.encoder_params(model.encoder),
+                                             len(model.encoder.rnn_layers), contiguous=True)
+    encoder_plan_report(x, w_train, "K3", smi, hseq=True)
+    x149 = torch.rand(149, T_IN, x.shape[2], device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(SEED))
+    plan149 = encoder_plan_report(x149, w_train, "K3 at the test forecast's batch", smi,
+                                  hseq=True)
+    log(f"  K3 at B=149 ({plan149.clusters} clusters): "
+        f"{cuda_ms(lambda: fused_gru_train.encoder_forward_cuda(x149, w_train), 10):.4f} ms "
+        f"[{smi}]")
     log(f"  training step ({BATCH} windows x {SAMPLES} samples, {WEEKS} weekly points): "
         f"kernels {step_ms:.4f} ms, plain {step_plain:.4f} ms [{smi}]")
     trace_steps(step_inputs, smi)

@@ -8,6 +8,11 @@ stacked GRU recurrence over the time-reversed window and the ReLU head.  The
 lane padding of the TPU version is a Mosaic constraint and is not carried
 over: the weights are only transposed to (in, out).
 
+The recurrence runs on thread-block clusters: :func:`recurrence_plan` picks
+the cluster size C, the batch rows R a cluster takes, the hidden units a CTA
+owns and whether the CTAs' weight slices fit in shared memory, from the
+widths alone (so a row's result never depends on the batch it came in).
+
 :func:`backgru_encode` dispatches strictly on the input's device: a CPU tensor
 takes :func:`backgru_encode_plain`, a CUDA tensor launches the kernel or
 raises.  ``backgru_encode.launches`` counts kernel launches.
@@ -17,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -25,6 +30,96 @@ from fiude_tpu_torch.ops import _build
 from fiude_tpu_torch.ops.gru import gru_gates
 
 _MAX_LAYERS = 8   # kMaxLayers / kMaxFF in csrc/fused_gru.cu
+SMEM_LIMIT = 232_448   # dynamic shared memory a block can use (kSmemLimit)
+# (cluster CTAs C, batch rows a cluster R), in order of preference; C = 16 is
+# a non-portable cluster size, which Hopper allows.
+PLAN_CHOICES = ((16, 8), (8, 8), (16, 4), (8, 4))
+
+
+class RecurrencePlan(NamedTuple):
+    """How ``backgru_cluster_kernel`` (``csrc/fused_gru.cu``) is launched."""
+    cluster: int
+    """CTAs a cluster, C"""
+    rows: int
+    """batch rows a cluster, R (a multiple of 4)"""
+    units: Tuple[int, ...]
+    """hidden units a CTA owns, per layer: ceil(H / C)"""
+    smem_bytes: int
+    """dynamic shared memory a CTA"""
+    resident: bool
+    """loop weights held in shared memory (else read through L2 every step)"""
+    clusters: int
+    """clusters in the grid, ceil(B / R)"""
+
+
+_THREADS = 256   # kThreads: a CTA's threads, split between the layers by warps
+
+
+def _layer_threads(n_layers: int):
+    """Threads a layer of the cluster kernel runs on (``first_warp``)."""
+    first = [(l * (_THREADS // 32) + n_layers - 1) // n_layers for l in range(n_layers + 1)]
+    return [32 * (b - a) for a, b in zip(first, first[1:])]
+
+
+def _split_lanes(pairs: int, threads: int) -> int:
+    S = 4
+    while S < 32 and pairs * S * 2 <= threads:
+        S *= 2
+    return S
+
+
+def _stride(units: int, split: int, row_groups: int) -> int:
+    """Row stride of a resident weight slice (``slice_stride``)."""
+    nu = 1 if split * row_groups >= 32 else 32 // (split * row_groups)
+    m = -(-3 * units // nu)
+    return (m + 1 - m % 2) * nu
+
+
+def plan_smem_bytes(hidden: Sequence[int], head_widths: Sequence[int], cluster: int,
+                    rows: int, resident: bool) -> int:
+    """Dynamic shared memory a CTA of the cluster kernel takes (its ``Layout``):
+    two hidden-state buffers a layer and two head buffers, each for ``rows``
+    rows; with ``resident``, the CTA's gate columns of every ``w_hh`` and of
+    ``w_ih`` from layer 1 on, each row padded to a stride that keeps a warp's
+    loads off shared bank conflicts."""
+    units = [-(-h // cluster) for h in hidden]
+    ff_max = max([1, *head_widths[:-1]])
+    floats = (2 * sum(hidden) + 2 * ff_max) * rows
+    if resident:
+        fan_in = [0, *hidden[:-1]]
+        for h, k, u, threads in zip(hidden, fan_in, units, _layer_threads(len(hidden))):
+            split = _split_lanes(u * rows // 4, threads)
+            floats += (h + k) * _stride(u, split, rows // 4)
+    return 4 * floats
+
+
+def recurrence_plan(B: int, hidden: Sequence[int], in_width: int,
+                    head_widths: Sequence[int] = ()) -> RecurrencePlan:
+    """The cluster launch of K1/K3 for batch ``B``, hidden widths ``hidden``,
+    input width ``in_width`` (layer 0's projection runs ahead of the
+    recurrence and takes no shared memory) and the head's output widths.
+
+    The first (C, R) of :data:`PLAN_CHOICES` whose weight slices fit in shared
+    memory with the states gets resident weights; if none does, the first
+    whose states fit reads its slices through L2 (at R = 4 that takes the
+    shared memory of the earlier one-block-per-4-rows kernel, so every encoder
+    it took fits).  Nothing but the number of clusters depends on ``B``."""
+    if B < 1 or in_width < 1 or not hidden or min(hidden) < 1:
+        raise ValueError(f"no recurrence plan for B={B}, hidden={tuple(hidden)}, "
+                         f"in_width={in_width}")
+
+    def plan(cluster, rows, resident):
+        return RecurrencePlan(cluster, rows, tuple(-(-h // cluster) for h in hidden),
+                              plan_smem_bytes(hidden, head_widths, cluster, rows, resident),
+                              resident, -(-B // rows))
+
+    for resident in (True, False):
+        for cluster, rows in PLAN_CHOICES:
+            p = plan(cluster, rows, resident)
+            if p.smem_bytes <= SMEM_LIMIT:
+                return p
+    # too wide for any cluster: the launcher refuses it, as the earlier kernel did
+    return min((plan(c, r, False) for c, r in PLAN_CHOICES), key=lambda p: p.smem_bytes)
 
 
 class BackGRUWeights(NamedTuple):
@@ -76,9 +171,26 @@ def _launcher():
     ptr, ptrs, ints, i = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
                           ctypes.POINTER(ctypes.c_int), ctypes.c_int)
     fn.argtypes = [ptr, i, i, i, i, ints, ptrs, ptrs, ptrs, ptrs,
-                   i, ints, ptrs, ptrs, ptrs, ptrs, ptr, ptr, ptr]
+                   i, ints, ptrs, ptrs, ptrs, ptrs, i, i, ints, i, i, ptr, ptr, ptr]
     fn.restype = ctypes.c_int
     return fn
+
+
+def max_active_clusters(plan: RecurrencePlan) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for the plan's clusters on the
+    current card: how many can run at once."""
+    fn = _build.library().fused_backgru_max_active_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    active = ctypes.c_int(0)
+    _build.check(fn(plan.cluster, plan.smem_bytes, int(plan.resident), ctypes.byref(active)),
+                 "fused_backgru_max_active_clusters")
+    return active.value
+
+
+def head_widths(w: BackGRUWeights) -> Tuple[int, ...]:
+    """The head layers' output widths."""
+    return tuple(wf.shape[1] for wf, _ in w.ff)
 
 
 def check_backgru(x: torch.Tensor, w: BackGRUWeights):
@@ -109,10 +221,14 @@ def check_backgru(x: torch.Tensor, w: BackGRUWeights):
 
 
 def launch_backgru(x: torch.Tensor, w: BackGRUWeights, hidden, out_width: int,
-                   hseq=None, gates=None) -> torch.Tensor:
+                   hseq=None, gates=None, plan: RecurrencePlan | None = None) -> torch.Tensor:
     """Launch the forward kernel on checked inputs (:func:`check_backgru`);
-    ``hseq`` / ``gates`` (per layer (B, T, H) / (B, T, 4H)) make it K3."""
+    ``hseq`` / ``gates`` (per layer (B, T, H) / (B, T, 4H)) make it K3.
+    ``plan`` defaults to :func:`recurrence_plan`'s; the launcher refuses an
+    inconsistent one."""
     B, T, I = x.shape
+    if plan is None:
+        plan = recurrence_plan(B, hidden, I, head_widths(w))
     out = torch.empty(B, out_width, device=x.device, dtype=torch.float32)
     xproj = torch.empty(B * T, 3 * hidden[0], device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
@@ -124,7 +240,8 @@ def launch_backgru(x: torch.Tensor, w: BackGRUWeights, hidden, out_width: int,
             _build.c_ptrs([f[0] for f in w.ff]), _build.c_ptrs([f[1] for f in w.ff]),
             None if hseq is None else _build.c_ptrs(hseq),
             None if gates is None else _build.c_ptrs(gates),
-            xproj.data_ptr(), out.data_ptr(), stream)
+            plan.cluster, plan.rows, _build.c_ints(plan.units), plan.smem_bytes,
+            int(plan.resident), xproj.data_ptr(), out.data_ptr(), stream)
     _build.check(code, "fused_backgru_forward")
     return out
 

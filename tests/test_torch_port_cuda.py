@@ -70,10 +70,16 @@ def on(dev, a):
     return torch.tensor(a, dtype=torch.float32, device=dev)
 
 
+# The cluster kernel's ragged cases: widths the cluster size (16) does not
+# divide (20, 24, 40, 300), layers narrower than it (8, 16), batches below and
+# across the rows a cluster takes (1, 3, 5, 9, 37, 149).
 @pytest.mark.parametrize("B,T,q,ff", [
     (5, 7, (24, 16), (12,)),          # 2 GRU layers, 2 head layers
     (9, 4, (20,), (8, 8)),            # 1 GRU layer, 3 head layers (one ReLU)
     (3, 5, (300, 40, 8), (6, 6, 6)),  # a layer wider than the block
+    (1, 6, (40, 8), (12,)),
+    (37, 5, (24, 16), (6, 6)),
+    (149, 3, (20, 8), (6,)),
 ])
 def test_backgru_kernel_matches_plain(dev, B, T, q, ff):
     model = build(dev, q=q, ff=ff)
@@ -159,6 +165,9 @@ def test_wrappers_raise_on_inputs_the_kernels_cannot_take(dev):
 @pytest.mark.parametrize("B,T,q,ff", [
     (5, 7, (24, 16), (12,)),          # 2 GRU layers, a ragged row group
     (8, 6, (300, 20), (6, 6)),        # a layer wider than the block
+    (1, 5, (40, 8), (6,)),
+    (37, 4, (20, 16), (6, 6)),
+    (149, 3, (24,), (6,)),
 ])
 def test_encoder_training_kernels_match_the_twin(dev, B, T, q, ff):
     model = build(dev, q=q, ff=ff)
@@ -180,6 +189,64 @@ def test_encoder_training_kernels_match_the_twin(dev, B, T, q, ff):
     torch.testing.assert_close((mean, std), (m_ref, s_ref), rtol=RTOL, atol=ATOL)
     for a, b in zip(got, want):
         assert_grad_close(a, b)
+
+
+def test_backgru_row_does_not_depend_on_the_batch(dev):
+    model = build(dev, q=(40, 16), ff=(12,))
+    w = fused_gru.pack_backgru(model.encoder)
+    x = on(dev, np.random.default_rng(6).uniform(0, 1, (37, 6, model.encoder.input_size)))
+    whole = fused_gru.backgru_encode(x, w)
+    for row in (0, 13, 36):      # first cluster, a middle one, the ragged last one
+        alone = fused_gru.backgru_encode(x[row:row + 1].contiguous(), w)
+        assert torch.equal(alone[0], whole[row])
+
+
+def test_encoder_training_forward_repeats_bit_for_bit(dev):
+    model = build(dev, q=(256, 128), ff=(64, 64))
+    w = fused_gru_train.in_out_weights(fused_gru_train.encoder_params(model.encoder), 2,
+                                       contiguous=True)
+    x = on(dev, np.random.default_rng(7).uniform(0, 1, (37, 8, model.encoder.input_size)))
+    first = fused_gru_train.encoder_forward_cuda(x, w)
+    second = fused_gru_train.encoder_forward_cuda(x, w)
+    for a, b in zip([first[0], *first[1], *first[2]], [second[0], *second[1], *second[2]]):
+        assert torch.equal(a, b)
+
+
+def test_encoder_gradients_from_the_cluster_forward_at_state_widths(dev):
+    """K4 reads K3's hseq/gates at the `state` widths (resident weights, 16-CTA
+    clusters, a ragged last cluster): gradients inside the bound."""
+    model = build(dev, R=49, n_qs=8, q=(256, 128), ff=(64, 64))
+    hidden = [g.hidden_size for g in model.encoder.rnn_layers]
+    plan = fused_gru.recurrence_plan(37, hidden, model.encoder.input_size,
+                                     [lin.out_features for lin in model.encoder.ff_layers.linears])
+    assert plan.resident and plan.cluster == 16
+    params = fused_gru_train.encoder_params(model.encoder)
+    rng = np.random.default_rng(8)
+    x = on(dev, rng.uniform(0, 1, (37, 10, model.encoder.input_size)))
+    g = on(dev, rng.standard_normal((37, model.encoder.out_features)))
+    got = torch.autograd.grad((fused_gru_train._EncoderTrain.apply(x, 2, *params) * g).sum(),
+                              params)
+    ref = fused_gru_train.backgru_train_plain(x, params, 2)
+    want = torch.autograd.grad((ref * g).sum(), params)
+    for a, b in zip(got, want):
+        assert_grad_close(a, b)
+
+
+def test_backgru_through_l2_matches_plain_and_bad_plans_raise(dev):
+    model = build(dev, q=(40, 24), ff=(12,))
+    w = fused_gru.pack_backgru(model.encoder)
+    x = on(dev, np.random.default_rng(9).uniform(0, 1, (9, 5, model.encoder.input_size)))
+    hidden, k = fused_gru.check_backgru(x, w)
+    plan = fused_gru.recurrence_plan(9, hidden, x.shape[2], fused_gru.head_widths(w))
+    l2 = plan._replace(resident=False, smem_bytes=fused_gru.plan_smem_bytes(
+        hidden, fused_gru.head_widths(w), plan.cluster, plan.rows, False))
+    torch.testing.assert_close(fused_gru.launch_backgru(x, w, hidden, k, plan=l2),
+                               fused_gru.backgru_encode_plain(x, w), rtol=RTOL, atol=ATOL)
+    for bad in (plan._replace(units=(plan.units[0] + 1, plan.units[1])),
+                plan._replace(smem_bytes=plan.smem_bytes + 4),
+                plan._replace(rows=6)):
+        with pytest.raises(RuntimeError):
+            fused_gru.launch_backgru(x, w, hidden, k, plan=bad)
 
 
 @pytest.mark.parametrize("ode_name,B,tmask", [
