@@ -36,9 +36,14 @@ no result, when there is no card.  Phases, each printing its lines:
    checkpoint round trip, and its first step (the seeded weights) held
    against the same step with ``fused_train=False``;
 7. times of K3-K6 against their twins (CUDA events), K3 against the library
-   with its plan and split as in phase 4, of a training step against the
-   plain step (host clock), and a ``torch.profiler`` trace of a few steps
-   with the device's idle share;
+   with its plan and split as in phase 4; K4 against the library's autograd
+   backward, timed 7 times (min, median, max: cuDNN's time moves between
+   calls), K4's sweep plan (C, R, units a CTA, shared memory, resident, warps
+   by layer, ``cudaOccupancyMaxActiveClusters``) and a ``torch.profiler``
+   split of a K4 call into the head's launch, the cluster sweep and the
+   weight contractions; a training step against the plain step (host
+   clock), and a ``torch.profiler`` trace of a few steps with the device's
+   idle share;
 8. the Bayes serving kernel K7 and the weight draw it shares with K8/K9
    (``state`` UONNb, 2048 systems, 85 daily points, 336 evaluations of 73,493
    fresh weights each) against the plain twin, with injected noise (the same
@@ -856,6 +861,51 @@ def encoder_plan_report(x, w_enc, tag, smi, hseq=False):
     return plan
 
 
+def bptt_report(x, params, w_train, smi):
+    """Print the plan K4's reverse sweep takes for ``x`` (C, R, units a CTA,
+    shared memory, resident or through L2, how many such clusters the card
+    holds at once) and a profiler split of one K4 call into the head's
+    launch, the sweep (with its time a barrier interval) and the weight
+    contractions."""
+    import torch
+    from fiude_tpu_torch.ops import fused_gru_train
+    hidden = [g[1].shape[0] for g in w_train.grus]
+    B, T, _ = x.shape
+    plan = fused_gru_train.bptt_plan(B, hidden)
+    log(f"  K4 sweep plan at B={B}: cluster C={plan.cluster}, rows R={plan.rows}, units a CTA "
+        f"{plan.units}, {plan.clusters} clusters ({plan.clusters * plan.cluster} CTAs), "
+        f"{plan.smem_bytes} B of shared memory a CTA, weights "
+        f"{'resident' if plan.resident else 'through L2'}, warps by layer "
+        f"{fused_gru_train.bptt_layer_warps(hidden, plan.cluster, plan.rows)}, "
+        f"cudaOccupancyMaxActiveClusters {fused_gru_train.bptt_max_active_clusters(plan)} "
+        f"[{smi}]")
+    g = torch.ones(B, w_train.ff[-1][0].shape[1], device=x.device)
+
+    def profiled(xx):
+        _, hseq, gates = fused_gru_train.encoder_forward_cuda(xx, w_train)
+        return device_us_by_kernel(lambda: fused_gru_train.encoder_backward_cuda(
+            xx, params, w_train, hseq, gates, g), 10)
+
+    # the window's last T/2 times: the sweep's slope between the two is its time a step
+    by_name, part = profiled(x), profiled(x[:, T - T // 2:].contiguous())
+    if not by_name:
+        log("  K4 split: the profiler saw no device time (not measured)")
+        return plan
+
+    def pick(d, key):
+        return sum(us for name, us in d.items() if key in name)
+
+    head, sweep, gemm = (pick(by_name, k) for k in ("bptt_head", "bptt_cluster", "gemm_tn"))
+    step = (sweep - pick(part, "bptt_cluster")) / (T - T // 2)
+    log(f"  K4 split of one call (torch.profiler, mean of 10) [{smi}]: head {head / 1e3:.4f} ms, "
+        f"sweep {sweep / 1e3:.4f} ms = {T} steps x {step:.3f} us (a step: one barrier interval "
+        f"of the reverse wavefront) + weight load and the wavefront's fill "
+        f"{(sweep - T * step) / 1e3:.4f} ms, {4 * len(hidden) + 2 * len(w_train.ff)} "
+        f"contractions {gemm / 1e3:.4f} ms, other "
+        f"{(sum(by_name.values()) - head - sweep - gemm) / 1e3:.4f} ms")
+    return plan
+
+
 def encoder_plan_alternatives(x, w_enc, smi):
     """K1's time (CUDA events) under every (C, R) that fits in shared memory,
     with resident weights and through L2, beside the chosen plan's."""
@@ -936,9 +986,11 @@ def train_times(model, x, z0, step_inputs):
     lib_head = lib_forward()
     compare("library encoder (2 x nn.GRU + head) vs the plain encoder", lib_head.detach(),
             head_p.detach())
-    library = (cuda_ms(lib_forward, 10),
-               cuda_ms(lambda: torch.autograd.grad(lib_head, lib_params, g, retain_graph=True),
-                       10))
+    # cuDNN's backward moves between calls and runs: time it 7 times, keep the median
+    lib_backward = sorted(
+        cuda_ms(lambda: torch.autograd.grad(lib_head, lib_params, g, retain_graph=True), 10)
+        for _ in range(7))
+    library = (cuda_ms(lib_forward, 10), lib_backward[3], lib_backward)
     macs, from_x, w_bytes = encoder_work(model.encoder, x)
     T, W3 = traj.shape[0], traj.shape[2]
     hot, tail_macs = field_macs(w, False), w.w0_tail.numel()
@@ -1946,7 +1998,8 @@ def main() -> int:
     times = train_times(model, x, z_train, step_inputs)
     (k3_plain, k3_ms), (k4_plain, k4_ms), (k5_plain, k5_ms), (k6_plain, k6_ms) = times[:4]
     step_plain, step_ms = times[4]
-    (k3_library, k4_library), (k3_bound, k4_bound, k5_bound, k6_bound) = times[5:]
+    (k3_library, k4_library, k4_libraries), (k3_bound, k4_bound, k5_bound, k6_bound) = \
+        times[5:]
     for name, (plain, ms), library, bound in zip(
             ("K3 encoder forward", "K4 encoder BPTT", "K5 trajectory forward",
              "K6 trajectory backward"), times[:4], (k3_library, k4_library, None, None),
@@ -1955,9 +2008,14 @@ def main() -> int:
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms{lib}, bound {bound[0]:.4f} ms "
             f"by {bound[1]} [{smi}]")
     log(f"  K3 / library {k3_ms / k3_library:.3f}, {k3_ms * 1e3 / T_IN:.3f} us a step [{smi}]")
-    w_train = fused_gru_train.in_out_weights(fused_gru_train.encoder_params(model.encoder),
-                                             len(model.encoder.rnn_layers), contiguous=True)
+    log(f"  K4 library backward, 7 timings of 10 calls: min {k4_libraries[0]:.4f} ms, median "
+        f"{k4_library:.4f} ms, max {k4_libraries[-1]:.4f} ms; K4 / median "
+        f"{k4_ms / k4_library:.3f}, K4 / min {k4_ms / k4_libraries[0]:.3f} [{smi}]")
+    train_params = fused_gru_train.encoder_params(model.encoder)
+    w_train = fused_gru_train.in_out_weights(train_params, len(model.encoder.rnn_layers),
+                                             contiguous=True)
     encoder_plan_report(x, w_train, "K3", smi, hseq=True)
+    bptt_report(x, train_params, w_train, smi)
     x149 = torch.rand(149, T_IN, x.shape[2], device=dev,
                       generator=torch.Generator(device=dev).manual_seed(SEED))
     plan149 = encoder_plan_report(x149, w_train, "K3 at the test forecast's batch", smi,

@@ -72,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "gru_cluster.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -79,8 +81,6 @@ namespace {
 constexpr int kMaxLayers = 8;
 constexpr int kMaxFF = 8;
 constexpr int kThreads = 256;
-constexpr int kMaxCluster = 16;          // with cudaFuncAttributeNonPortableClusterSizeAllowed
-constexpr int kSmemLimit = 232448;       // dynamic shared memory a block can use
 
 struct GruArgs {
   int n_layers;
@@ -123,25 +123,6 @@ __host__ __device__ int first_warp(int l, int n_layers) {
   return (l * (kThreads / 32) + n_layers - 1) / n_layers;
 }
 
-// S: the largest power of two from 4 to 32 with which the layer's (unit,
-// row group) pairs fill its threads.
-int split_lanes(int pairs, int threads) {
-  int S = 4;
-  while (S < 32 && pairs * S * 2 <= threads) S *= 2;
-  return S;
-}
-
-// Row stride of a resident slice, at least its 3U gate columns.  One warp
-// load reads S consecutive k (the split-K lanes) of nu = 32 / (S * R/4)
-// consecutive units: a stride of nu times an odd number puts them in 32
-// different banks.
-int slice_stride(int U, int S, int RG) {
-  const int nu = S * RG >= 32 ? 1 : 32 / (S * RG);
-  int m = (3 * U + nu - 1) / nu;
-  if (m % 2 == 0) ++m;
-  return m * nu;
-}
-
 Layout make_layout(const int* H, int n_layers, int ff_max, const Plan& p) {
   Layout s = {};
   int at = 0;
@@ -154,7 +135,7 @@ Layout make_layout(const int* H, int n_layers, int ff_max, const Plan& p) {
   for (int l = 0; l < n_layers; ++l) {
     const int threads = 32 * (first_warp(l + 1, n_layers) - first_warp(l, n_layers));
     s.split[l] = split_lanes(p.units[l] * p.rows / 4, threads);
-    s.ld[l] = slice_stride(p.units[l], s.split[l], p.rows / 4);
+    s.ld[l] = slice_stride(3 * p.units[l], s.split[l], p.rows / 4);   // the 3U gate columns
     s.whh[l] = at;
     if (p.resident) at += H[l] * s.ld[l];
     s.wih[l] = at;
@@ -230,12 +211,6 @@ __device__ __forceinline__ float gru_update(float xr, float xz, float xn, float 
   return (1.f - z) * n + z * h;
 }
 
-__device__ __forceinline__ float4 splat(float v) { return make_float4(v, v, v, v); }
-
-__device__ __forceinline__ float lane(const float4& v, int r) {
-  return r == 0 ? v.x : r == 1 ? v.y : r == 2 ? v.z : v.w;
-}
-
 // Gate g of owned unit u at input row k of a layer's loop weights: the
 // resident slice [k][g*U + u], or the global (in, 3H) matrix through L2.
 template <bool kResident>
@@ -278,22 +253,11 @@ __device__ __forceinline__ void partial_gates(const SliceWeights<kResident>& W,
   }
 }
 
-// The three gate sums of row s & 3 of a row group, summed over the S lanes
-// of an aligned group (S >= 4): two halving steps leave each lane one row
-// (a reduce-scatter), the rest add across the lanes that hold the same row.
-// Every step adds the same two partial sums, in one order or the other, so a
-// row's sum has one tree whatever its slot, and the lanes that hold it agree
-// bit for bit.
+// The three gate sums of row s & 3 of a row group (row_sum, gru_cluster.cuh).
 __device__ __forceinline__ void row_sums(const float4 v[3], int s, int S, unsigned mask,
                                          float out[3]) {
-  const bool odd = s & 1, hi = s & 2;
 #pragma unroll
-  for (int g = 0; g < 3; ++g) {
-    const float lo2 = (odd ? v[g].y : v[g].x) + __shfl_xor_sync(mask, odd ? v[g].x : v[g].y, 1);
-    const float hi2 = (odd ? v[g].w : v[g].z) + __shfl_xor_sync(mask, odd ? v[g].z : v[g].w, 1);
-    out[g] = (hi ? hi2 : lo2) + __shfl_xor_sync(mask, hi ? lo2 : hi2, 2);
-    for (int m = 4; m < S; m <<= 1) out[g] += __shfl_xor_sync(mask, out[g], m);
-  }
+  for (int g = 0; g < 3; ++g) out[g] = row_sum(v[g], s, S, mask);
 }
 
 // One cluster of C CTAs runs R batch rows through the whole recurrence and
@@ -346,7 +310,7 @@ backgru_cluster_kernel(const float* __restrict__ xproj, int B, int T, GruArgs a,
   float* gates = a.gates[l];
   const int S = ly.split[l];
   const int s = ltid & (S - 1);
-  const unsigned mask = S == 32 ? 0xffffffffu : ((1u << S) - 1u) << ((tid & 31) & ~(S - 1));
+  const unsigned mask = group_mask(tid, S);
 
   // Wavefront: in interval i layer l takes step t = i - l, reading h_l(t-1)
   // and h_{l-1}(t), which the interval before wrote; one barrier an interval.
@@ -455,28 +419,6 @@ ClusterKernel cluster_kernel(bool resident) {
   return resident ? backgru_cluster_kernel<true> : backgru_cluster_kernel<false>;
 }
 
-// The cluster launch of `kernel` with `smem` bytes a CTA, attributes set.
-cudaError_t cluster_config(ClusterKernel kernel, int cluster, int n_clusters, int smem,
-                           cudaStream_t s, cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  *cfg = {};
-  cfg->gridDim = dim3(n_clusters * cluster);
-  cfg->blockDim = dim3(kThreads);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = s;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
@@ -492,7 +434,8 @@ int fused_backgru_max_active_clusters(int cluster, int smem_bytes, int resident,
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
   const ClusterKernel kernel = cluster_kernel(resident != 0);
-  cudaError_t err = cluster_config(kernel, cluster, 1, smem_bytes, nullptr, &attr, &cfg);
+  cudaError_t err = cluster_config(kernel, cluster, 1, kThreads, smem_bytes, nullptr, &attr,
+                                   &cfg);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
 }
@@ -555,7 +498,8 @@ int fused_backgru_forward(const float* x, int B, int T, int I, int n_layers,
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
   const ClusterKernel kernel = cluster_kernel(p.resident);
-  err = cluster_config(kernel, cluster, (B + rows - 1) / rows, smem_bytes, s, &attr, &cfg);
+  err = cluster_config(kernel, cluster, (B + rows - 1) / rows, kThreads, smem_bytes, s, &attr,
+                       &cfg);
   if (err != cudaSuccess) return err;
   int active = 0;
   err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);

@@ -37,7 +37,8 @@ PLAN_CHOICES = ((16, 8), (8, 8), (16, 4), (8, 4))
 
 
 class RecurrencePlan(NamedTuple):
-    """How ``backgru_cluster_kernel`` (``csrc/fused_gru.cu``) is launched."""
+    """How ``backgru_cluster_kernel`` (``csrc/fused_gru.cu``) or K4's sweep
+    ``bptt_cluster_kernel`` (``csrc/fused_gru_train.cu``) is launched."""
     cluster: int
     """CTAs a cluster, C"""
     rows: int
@@ -68,10 +69,11 @@ def _split_lanes(pairs: int, threads: int) -> int:
     return S
 
 
-def _stride(units: int, split: int, row_groups: int) -> int:
-    """Row stride of a resident weight slice (``slice_stride``)."""
+def _stride(columns: int, split: int, row_groups: int) -> int:
+    """Row stride of a resident weight slice of ``columns`` columns
+    (``slice_stride``, ``csrc/gru_cluster.cuh``)."""
     nu = 1 if split * row_groups >= 32 else 32 // (split * row_groups)
-    m = -(-3 * units // nu)
+    m = -(-columns // nu)
     return (m + 1 - m % 2) * nu
 
 
@@ -89,7 +91,7 @@ def plan_smem_bytes(hidden: Sequence[int], head_widths: Sequence[int], cluster: 
         fan_in = [0, *hidden[:-1]]
         for h, k, u, threads in zip(hidden, fan_in, units, _layer_threads(len(hidden))):
             split = _split_lanes(u * rows // 4, threads)
-            floats += (h + k) * _stride(u, split, rows // 4)
+            floats += (h + k) * _stride(3 * u, split, rows // 4)
     return 4 * floats
 
 
@@ -107,18 +109,24 @@ def recurrence_plan(B: int, hidden: Sequence[int], in_width: int,
     if B < 1 or in_width < 1 or not hidden or min(hidden) < 1:
         raise ValueError(f"no recurrence plan for B={B}, hidden={tuple(hidden)}, "
                          f"in_width={in_width}")
+    return first_plan_that_fits(
+        B, hidden, lambda c, r, res: plan_smem_bytes(hidden, head_widths, c, r, res))
 
+
+def first_plan_that_fits(B: int, hidden: Sequence[int], smem_bytes) -> RecurrencePlan:
+    """The first (C, R) of :data:`PLAN_CHOICES` whose ``smem_bytes(C, R,
+    resident)`` fits with resident weights, else the first that fits through
+    L2; for an encoder too wide for any, the smallest plan, which the
+    launcher refuses."""
     def plan(cluster, rows, resident):
         return RecurrencePlan(cluster, rows, tuple(-(-h // cluster) for h in hidden),
-                              plan_smem_bytes(hidden, head_widths, cluster, rows, resident),
-                              resident, -(-B // rows))
+                              smem_bytes(cluster, rows, resident), resident, -(-B // rows))
 
     for resident in (True, False):
         for cluster, rows in PLAN_CHOICES:
             p = plan(cluster, rows, resident)
             if p.smem_bytes <= SMEM_LIMIT:
                 return p
-    # too wide for any cluster: the launcher refuses it, as the earlier kernel did
     return min((plan(c, r, False) for c, r in PLAN_CHOICES), key=lambda p: p.smem_bytes)
 
 
@@ -176,15 +184,17 @@ def _launcher():
     return fn
 
 
-def max_active_clusters(plan: RecurrencePlan) -> int:
+def max_active_clusters(plan: RecurrencePlan,
+                        symbol: str = "fused_backgru_max_active_clusters") -> int:
     """``cudaOccupancyMaxActiveClusters`` for the plan's clusters on the
-    current card: how many can run at once."""
-    fn = _build.library().fused_backgru_max_active_clusters
+    current card: how many can run at once.  ``symbol`` names the launcher's
+    query for the kernel (K4's sweep has its own)."""
+    fn = getattr(_build.library(), symbol)
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     active = ctypes.c_int(0)
     _build.check(fn(plan.cluster, plan.smem_bytes, int(plan.resident), ctypes.byref(active)),
-                 "fused_backgru_max_active_clusters")
+                 symbol)
     return active.value
 
 

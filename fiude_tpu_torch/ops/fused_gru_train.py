@@ -9,10 +9,14 @@ Counterpart of ``fiude_tpu/ops/pallas_gru_train.py:278-375``
   runs the serving kernel unchanged and re-runs the whole forward sweep in
   its backward; on the card the stored sequences (~10 MB at the ``state``
   shape) spare the backward a second 42-step sequential sweep.
-* **K4** (``csrc/fused_gru_train.cu``): the head's backward, the reverse
-  sweep over the steps, then the weight cotangents as contractions over the
-  B*T rows of gate cotangents.  x is training data: its cotangent is None
-  (``pallas_gru_train.py:26-28``).
+* **K4** (``csrc/fused_gru_train.cu``): the head's backward (a small launch),
+  the reverse sweep over the steps on thread-block clusters, then the weight
+  cotangents as contractions over the B*T rows of gate cotangents.
+  :func:`bptt_plan` picks the sweep's cluster size C, the batch rows R a
+  cluster takes, the hidden units a CTA owns and whether the CTAs' weight
+  columns fit in shared memory, from the widths alone, as
+  :func:`~fiude_tpu_torch.ops.fused_gru.recurrence_plan` does for K1/K3.  x
+  is training data: its cotangent is None (``pallas_gru_train.py:26-28``).
 * The Function takes the encoder's parameters themselves, in torch's
   (out, in) layout, and returns their cotangents in that layout: autograd
   puts them on the ``nn.Module`` parameters with no packing step (the JAX
@@ -39,8 +43,67 @@ import torch
 
 from fiude_tpu_torch.ops import _build
 from fiude_tpu_torch.ops.fused_gru import (
-    BackGRUWeights, backgru_encode_plain, check_backgru, launch_backgru,
+    BackGRUWeights, RecurrencePlan, _split_lanes, _stride, backgru_encode_plain, check_backgru,
+    first_plan_that_fits, launch_backgru, max_active_clusters,
 )
+
+_SWEEP_WARPS = 12   # kWarps in csrc/fused_gru_train.cu: a sweep CTA's warps
+
+
+def _depths(hidden: Sequence[int]):
+    """Depth of each layer's products in the sweep: 3H_l, plus 3H_{l+1} below
+    the top layer (the cotangent from the layer above)."""
+    return [3 * h + (3 * hidden[l + 1] if l + 1 < len(hidden) else 0)
+            for l, h in enumerate(hidden)]
+
+
+def bptt_layer_warps(hidden: Sequence[int], cluster: int, rows: int):
+    """Warps of a sweep CTA each layer runs on (``layer_warps``): one each,
+    then every further warp to the layer with the most multiply-adds a warp
+    (the lowest layer on a tie)."""
+    work = [-(-h // cluster) * (rows // 4) * k for h, k in zip(hidden, _depths(hidden))]
+    warps = [1] * len(hidden)
+    for _ in range(_SWEEP_WARPS - len(hidden)):
+        best = 0
+        for l in range(1, len(hidden)):
+            if work[l] * warps[best] > work[best] * warps[l]:
+                best = l
+        warps[best] += 1
+    return warps
+
+
+def bptt_smem_bytes(hidden: Sequence[int], cluster: int, rows: int, resident: bool) -> int:
+    """Dynamic shared memory a CTA of the sweep takes (its ``Layout``): two
+    cotangent buffers a layer (gh_l, then gx_{l+1}) and the carried term of
+    its units, each for ``rows`` rows; with ``resident``, the columns of its
+    units in ``w_hh_l`` and ``w_ih_{l+1}``, each row padded to a stride that
+    keeps a warp's loads off shared bank conflicts."""
+    units = [-(-h // cluster) for h in hidden]
+    depths = _depths(hidden)
+    floats = (2 * sum(depths) + sum(units)) * rows
+    if resident:
+        for u, k, warps in zip(units, depths, bptt_layer_warps(hidden, cluster, rows)):
+            split = _split_lanes(u * rows // 4, 32 * warps)
+            floats += k * _stride(u, split, rows // 4)
+    return 4 * floats
+
+
+def bptt_plan(B: int, hidden: Sequence[int]) -> RecurrencePlan:
+    """The cluster launch of K4's reverse sweep for batch ``B`` and hidden
+    widths ``hidden``, chosen as K1/K3's is
+    (:func:`~fiude_tpu_torch.ops.fused_gru.first_plan_that_fits`): resident
+    weight columns in the first (C, R) that fits, else through L2.  Nothing
+    but the number of clusters depends on ``B``."""
+    if B < 1 or not hidden or min(hidden) < 1:
+        raise ValueError(f"no BPTT plan for B={B}, hidden={tuple(hidden)}")
+    return first_plan_that_fits(B, hidden,
+                                lambda c, r, res: bptt_smem_bytes(hidden, c, r, res))
+
+
+def bptt_max_active_clusters(plan: RecurrencePlan) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for the sweep's clusters on the
+    current card: how many can run at once."""
+    return max_active_clusters(plan, "fused_backgru_bptt_max_active_clusters")
 
 
 def encoder_params(encoder) -> Tuple[torch.Tensor, ...]:
@@ -94,16 +157,18 @@ def _backward_launcher():
     ptr, ptrs, ints, i = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
                           ctypes.POINTER(ctypes.c_int), ctypes.c_int)
     fn.argtypes = [ptr, i, i, i, i, ints, ptrs, ptrs, ptrs, ptrs, ptrs, ptrs,
-                   i, ints, ptrs, ptrs, ptrs, ptrs, ptrs, ptr,
-                   ptrs, ptrs, ptrs, ptrs, ptrs, ptrs, ptr]
+                   i, ints, ptrs, ptrs, ptrs, ptrs, ptrs, ptr, ptr,
+                   ptrs, ptrs, ptrs, ptrs, ptrs, ptrs, i, i, ints, i, i, ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
-def encoder_backward_cuda(x: torch.Tensor, params: Sequence[torch.Tensor], w: BackGRUWeights,
-                          hseq, gates, g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Launch K4: the cotangents of ``params`` (torch layout, same order) from
-    the head output's cotangent ``g`` (B, out) and K3's stored sequences."""
+def launch_encoder_backward(x: torch.Tensor, params: Sequence[torch.Tensor], w: BackGRUWeights,
+                            hseq, gates, g: torch.Tensor, plan: RecurrencePlan | None = None):
+    """Launch K4 on checked inputs: ``(cotangents of params, ggx, ggh)``, the
+    cotangents in torch layout and the params' order, and the per-layer
+    (B, T, 3H) gate cotangents the sweep wrote.  ``plan`` defaults to
+    :func:`bptt_plan`'s; the launcher refuses an inconsistent one."""
     hidden, k = check_backgru(x, w)
     B, T, I = x.shape
     n_layers = len(hidden)
@@ -124,6 +189,9 @@ def encoder_backward_cuda(x: torch.Tensor, params: Sequence[torch.Tensor], w: Ba
     ff_out = [wf.shape[1] for wf, _ in w.ff]
     ff_act = [empty(B, n) for n in ff_in]
     ff_delta = [empty(B, n) for n in ff_out]
+    dtop = empty(B, hidden[-1])
+    if plan is None:
+        plan = bptt_plan(B, hidden)
     grads = [empty(*p.shape) for p in params]
     gru_g, ff_g = grads[:4 * n_layers], grads[4 * n_layers:]
     ff_p = params[4 * n_layers:]
@@ -135,11 +203,20 @@ def encoder_backward_cuda(x: torch.Tensor, params: Sequence[torch.Tensor], w: Ba
             c(params[0:4 * n_layers:4]), c(params[1:4 * n_layers:4]), c(hseq), c(gates),
             c(ggx), c(ggh), len(w.ff), _build.c_ints(ff_out),
             c([wf for wf, _ in w.ff]), c(ff_p[0::2]), c(ff_p[1::2]), c(ff_act), c(ff_delta),
-            g.data_ptr(), *(c(gru_g[i::4]) for i in range(4)), c(ff_g[0::2]), c(ff_g[1::2]),
-            stream)
+            g.data_ptr(), dtop.data_ptr(), *(c(gru_g[i::4]) for i in range(4)),
+            c(ff_g[0::2]), c(ff_g[1::2]), plan.cluster, plan.rows, _build.c_ints(plan.units),
+            plan.smem_bytes, int(plan.resident), stream)
     _build.check(code, "fused_backgru_backward")
+    return tuple(grads), ggx, ggh
+
+
+def encoder_backward_cuda(x: torch.Tensor, params: Sequence[torch.Tensor], w: BackGRUWeights,
+                          hseq, gates, g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Launch K4: the cotangents of ``params`` (torch layout, same order) from
+    the head output's cotangent ``g`` (B, out) and K3's stored sequences."""
+    grads = launch_encoder_backward(x, params, w, hseq, gates, g)[0]
     encoder_backward_cuda.launches += 1
-    return tuple(grads)
+    return grads
 
 
 encoder_backward_cuda.launches = 0

@@ -103,7 +103,8 @@ def main() -> int:
         cu, so = out_dir / f"v{i}.cu", out_dir / f"v{i}.so"
         cu.write_text(text)
         builds[name] = (so, threads, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(cu)],
+            [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o", str(so),
+             str(cu)],
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
     for name, (_, _, proc) in builds.items():
         err = proc.communicate()[1]

@@ -9,6 +9,10 @@ and K5/K6 (``csrc/fused_train.cu``) are compared with autograd of their
 twins, values at that bound and every gradient at
 ``max|d| <= 2e-3 * max|ref| + 1e-5`` (the stats-mode bound of
 ``tests/test_pallas_train.py``, relative to the tensor's largest entry).
+The cluster kernels' plans are held too: K1/K3 and K4's sweep through L2 as
+well as resident, inconsistent plans refused, a row's outputs (K4: its gate
+cotangents) the same bits alone as in a batch of 37, two launches equal bit
+for bit.
 The Bayes kernels K7 (``csrc/fused_bayes.cu``) and K8/K9
 (``csrc/fused_train.cu`` with kBayes) are held to the same bounds against
 their twins in both noise modes (injected, and Philox from a seed on both
@@ -168,6 +172,11 @@ def test_wrappers_raise_on_inputs_the_kernels_cannot_take(dev):
     (1, 5, (40, 8), (6,)),
     (37, 4, (20, 16), (6, 6)),
     (149, 3, (24,), (6,)),
+    # the reverse wavefront's first steps: one step, and the first hand-over
+    # of gx from the layer above
+    (5, 1, (24, 16), (12,)),
+    (37, 2, (20, 16), (6, 6)),
+    (3, 2, (40, 24, 8), (6,)),
 ])
 def test_encoder_training_kernels_match_the_twin(dev, B, T, q, ff):
     model = build(dev, q=q, ff=ff)
@@ -220,6 +229,9 @@ def test_encoder_gradients_from_the_cluster_forward_at_state_widths(dev):
     plan = fused_gru.recurrence_plan(37, hidden, model.encoder.input_size,
                                      [lin.out_features for lin in model.encoder.ff_layers.linears])
     assert plan.resident and plan.cluster == 16
+    bptt = fused_gru_train.bptt_plan(37, hidden)
+    assert bptt.resident and bptt.cluster == 16
+    assert fused_gru_train.bptt_max_active_clusters(bptt) >= 1
     params = fused_gru_train.encoder_params(model.encoder)
     rng = np.random.default_rng(8)
     x = on(dev, rng.uniform(0, 1, (37, 10, model.encoder.input_size)))
@@ -230,6 +242,59 @@ def test_encoder_gradients_from_the_cluster_forward_at_state_widths(dev):
     want = torch.autograd.grad((ref * g).sum(), params)
     for a, b in zip(got, want):
         assert_grad_close(a, b)
+    # two K4 launches on the same inputs: the same gradients bit for bit
+    w = fused_gru_train.in_out_weights(params, 2, contiguous=True)
+    _, hseq, gates = fused_gru_train.encoder_forward_cuda(x, w)
+    first = fused_gru_train.encoder_backward_cuda(x, params, w, hseq, gates, g)
+    second = fused_gru_train.encoder_backward_cuda(x, params, w, hseq, gates, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bptt_gate_cotangents_of_a_row_do_not_depend_on_the_batch(dev):
+    """A row's ggx/ggh from K4's sweep are the same bits whether it comes
+    alone or in a batch of 37 (first cluster, a middle one, the ragged last)."""
+    model = build(dev, q=(40, 16), ff=(12,))
+    params = fused_gru_train.encoder_params(model.encoder)
+    w = fused_gru_train.in_out_weights(params, 2, contiguous=True)
+    rng = np.random.default_rng(10)
+    x = on(dev, rng.uniform(0, 1, (37, 6, model.encoder.input_size)))
+    g = on(dev, rng.standard_normal((37, model.encoder.out_features)))
+
+    def sweep(xx, gg):
+        _, hseq, gates = fused_gru_train.encoder_forward_cuda(xx, w)
+        _, ggx, ggh = fused_gru_train.launch_encoder_backward(xx, params, w, hseq, gates, gg)
+        return ggx + ggh
+
+    whole = sweep(x, g)
+    for row in (0, 13, 36):
+        alone = sweep(x[row:row + 1].contiguous(), g[row:row + 1].contiguous())
+        for a, b in zip(alone, whole):
+            assert torch.equal(a[0], b[row])
+
+
+def test_encoder_bptt_through_l2_matches_the_twin_and_bad_plans_raise(dev):
+    model = build(dev, q=(40, 24), ff=(12,))
+    params = fused_gru_train.encoder_params(model.encoder)
+    w = fused_gru_train.in_out_weights(params, 2, contiguous=True)
+    rng = np.random.default_rng(11)
+    x = on(dev, rng.uniform(0, 1, (9, 5, model.encoder.input_size)))
+    g = on(dev, rng.standard_normal((9, model.encoder.out_features)))
+    hidden = [40, 24]
+    plan = fused_gru_train.bptt_plan(9, hidden)
+    assert plan.resident
+    l2 = plan._replace(resident=False, smem_bytes=fused_gru_train.bptt_smem_bytes(
+        hidden, plan.cluster, plan.rows, False))
+    _, hseq, gates = fused_gru_train.encoder_forward_cuda(x, w)
+    got = fused_gru_train.launch_encoder_backward(x, params, w, hseq, gates, g, plan=l2)[0]
+    want = torch.autograd.grad(fused_gru_train.backgru_train_plain(x, params, 2), params, g)
+    for a, b in zip(got, want):
+        assert_grad_close(a, b)
+    for bad in (plan._replace(units=(plan.units[0] + 1, plan.units[1])),
+                plan._replace(smem_bytes=plan.smem_bytes + 4),
+                plan._replace(rows=6)):
+        with pytest.raises(RuntimeError):
+            fused_gru_train.launch_encoder_backward(x, params, w, hseq, gates, g, plan=bad)
 
 
 def test_backgru_through_l2_matches_plain_and_bad_plans_raise(dev):

@@ -1,5 +1,7 @@
-"""The launch plan of the Back-GRU cluster kernel (K1/K3,
-``fiude_tpu_torch/csrc/fused_gru.cu``): ``ops/fused_gru.py::recurrence_plan``.
+"""The launch plans of the Back-GRU cluster kernels: K1/K3
+(``fiude_tpu_torch/csrc/fused_gru.cu``, ``ops/fused_gru.py::recurrence_plan``)
+and K4's reverse sweep (``csrc/fused_gru_train.cu``,
+``ops/fused_gru_train.py::bptt_plan``).
 
 Pure Python, no card and no JAX: the plan decides which CTA of a cluster owns
 which hidden unit, which cluster takes which batch rows and how much shared
@@ -13,6 +15,7 @@ import pytest
 from fiude_tpu_torch.ops.fused_gru import (
     PLAN_CHOICES, SMEM_LIMIT, RecurrencePlan, plan_smem_bytes, recurrence_plan,
 )
+from fiude_tpu_torch.ops.fused_gru_train import bptt_layer_warps, bptt_plan, bptt_smem_bytes
 
 STATE = dict(hidden=(256, 128), in_width=441, head_widths=(64, 64, 686))
 WIDTHS = (20, 24, 40, 300, 8, 16)      # not divided by C, and narrower than C
@@ -88,3 +91,99 @@ def test_plan_prefers_the_first_choice_that_fits():
 def test_plan_refuses_empty_shapes(bad):
     with pytest.raises(ValueError):
         recurrence_plan(**bad)
+
+
+# ---- K4's reverse sweep: ops/fused_gru_train.py::bptt_plan -----------------
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("B", BATCHES)
+def test_bptt_every_unit_and_row_has_exactly_one_owner(B, width):
+    hidden = (width, max(width // 2, 1))
+    plan = bptt_plan(B, hidden)
+    for layer, H in enumerate(hidden):
+        units = [u for own in owners(plan, layer, H) for u in own]
+        assert sorted(units) == list(range(H))
+    rows = [r for i in range(plan.clusters)
+            for r in range(i * plan.rows, min((i + 1) * plan.rows, B))]
+    assert rows == list(range(B))
+    assert plan.clusters == -(-B // plan.rows) and plan.rows % 4 == 0
+
+
+@pytest.mark.parametrize("B", BATCHES)
+def test_bptt_only_the_cluster_count_depends_on_the_batch(B):
+    """C, R and the units a CTA set the sweep's sum order: a row's gate
+    cotangents must not depend on the batch it came in."""
+    plan, ref = bptt_plan(B, STATE["hidden"]), bptt_plan(32, STATE["hidden"])
+    assert plan._replace(clusters=0) == ref._replace(clusters=0)
+
+
+def test_bptt_state_shape_keeps_its_weights_in_shared_memory():
+    plan = bptt_plan(32, STATE["hidden"])
+    assert plan.resident and plan.cluster == 16 and plan.rows == 8
+    assert plan.units == (16, 8) and plan.clusters == 4
+    assert plan.smem_bytes <= SMEM_LIMIT
+    # the loop weights' columns a CTA: w_hh_0 768 x 16, w_ih_1 384 x 16, w_hh_1 384 x 8
+    assert plan.smem_bytes > 4 * (768 * 16 + 384 * 16 + 384 * 8)
+    # the warps by work: layer 0's products are 1,152 deep for 16 units, layer 1's 384 for 8
+    assert bptt_layer_warps(STATE["hidden"], 16, 8) == [10, 2]
+
+
+@pytest.mark.parametrize("hidden", [(1024,), (2048,), (512, 512), (600, 300, 100)])
+def test_bptt_too_wide_for_shared_memory_reads_through_l2(hidden):
+    plan = bptt_plan(8, hidden)
+    assert not plan.resident and plan.smem_bytes <= SMEM_LIMIT
+    assert plan.smem_bytes == bptt_smem_bytes(hidden, plan.cluster, plan.rows, False)
+
+
+def c_layout_bytes(hidden, cluster, rows, resident):
+    """``make_layout`` of ``csrc/fused_gru_train.cu``, line by line."""
+    n, RG = len(hidden), rows // 4
+    units = [-(-h // cluster) for h in hidden]
+    K = [3 * hidden[l] + (3 * hidden[l + 1] if l + 1 < n else 0) for l in range(n)]
+    work = [units[l] * RG * K[l] for l in range(n)]
+    warps = [1] * n
+    for _ in range(12 - n):                      # kWarps - n_layers
+        best = 0
+        for l in range(1, n):
+            if work[l] * warps[best] > work[best] * warps[l]:
+                best = l
+        warps[best] += 1
+    at = sum(2 * K[l] * rows for l in range(n)) + sum(u * rows for u in units)
+    for l in range(n):
+        S = 4
+        while S < 32 and units[l] * RG * S * 2 <= 32 * warps[l]:
+            S *= 2
+        nu = 1 if S * RG >= 32 else 32 // (S * RG)
+        m = -(-units[l] // nu)
+        m += 1 - m % 2
+        if resident:
+            at += K[l] * m * nu
+    return 4 * at
+
+
+@pytest.mark.parametrize("hidden", [(256, 128), (24, 16), (300, 40, 8), (20,), (8, 8, 8, 8),
+                                    (900,) * 8])
+@pytest.mark.parametrize("cluster,rows", PLAN_CHOICES)
+@pytest.mark.parametrize("resident", [True, False])
+def test_bptt_smem_bytes_equals_the_c_layout(hidden, cluster, rows, resident):
+    assert bptt_smem_bytes(hidden, cluster, rows, resident) == \
+        c_layout_bytes(hidden, cluster, rows, resident)
+
+
+def test_bptt_state_shape_takes_the_predicted_layout():
+    # buffers 2 x (1152 + 384) x 8, carry (16 + 8) x 8, slices 1152 x 18 + 384 x 12
+    assert bptt_smem_bytes((256, 128), 16, 8, True) == 4 * (24_576 + 192 + 20_736 + 4_608)
+
+
+@pytest.mark.parametrize("bad", [dict(B=0, hidden=(8,)), dict(B=2, hidden=()),
+                                 dict(B=2, hidden=(8, 0))])
+def test_bptt_plan_refuses_empty_shapes(bad):
+    with pytest.raises(ValueError):
+        bptt_plan(**bad)
+
+
+@pytest.mark.parametrize("hidden", [(256, 128), (24, 16), (300, 40, 8), (20,), (900,) * 8])
+def test_bptt_warps_cover_the_cta_and_every_layer(hidden):
+    warps = bptt_layer_warps(hidden, 16, 8)
+    assert len(warps) == len(hidden) and min(warps) >= 1 and sum(warps) == 12
