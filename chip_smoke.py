@@ -9,7 +9,9 @@ Needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or on PATH) and the repo's
 ``fiude_tpu_torch`` package; it imports no JAX.  It exits nonzero, printing
 no result, when there is no card.  Phases, each printing its lines:
 
-1. the card (``nvidia-smi`` name and power limit) and the kernel build;
+1. the card (``nvidia-smi`` name and power limit) and the kernel build, with
+   ptxas's register and spill report (a spill in the trajectory kernels
+   K2/K7 fails the run);
 2. each kernel against its plain PyTorch twin on the card, at the shapes the
    serving path gives it (the ``state`` config: 49 regions, latent 8, GRU
    441->256->128, 32 windows x 64 samples = 2048 systems, 85 daily points);
@@ -23,7 +25,9 @@ no result, when there is no card.  Phases, each printing its lines:
    cluster plan (C, R, shared memory a CTA, resident weights or not, and
    ``cudaOccupancyMaxActiveClusters``), a ``torch.profiler`` split of a call
    into the projection, the T layer-steps and the head, and K1 under every
-   other plan that fits;
+   other plan that fits; K2's time an RHS evaluation and its launch plan in
+   both compute modes (threads, shared memory, resident or streamed weights,
+   stages, chunks, each pass's products with their warps and split lanes);
 5. the training kernels against their twins at the training shape of the
    ``state`` config (32 windows x 64 samples, 8 weekly points, dt = 1): K3
    and K4 (the encoder's forward and BPTT: value and every weight and bias
@@ -68,9 +72,10 @@ no result, when there is no card.  Phases, each printing its lines:
     of K3, K4, the draw, K8 and K9, ``w_std`` moving, and the first step held
     against the plain step under the same noise seed (the encoder's gradients
     in a second pair of steps whose loss leaves out KL_z);
-12. times of the draw, K7, K8 and K9 against their twins, of a Bayes request
-    and a Bayes training step, a trace of Bayes steps, and one K8 + K9 pass
-    at the daily shape (85 points, 336 evaluations) as a time only;
+12. times of the draw, K7, K8 and K9 against their twins (K7 also an RHS
+    evaluation, and its launch plan in both modes), of a Bayes request and a
+    Bayes training step, a trace of Bayes steps, and one K8 + K9 pass at the
+    daily shape (85 points, 336 evaluations) as a time only;
 13. K5/K6 and K8/K9 in aux-streaming mode (``stats_mode=False``: the forward
     writes every evaluation's rates and Fa, the backward takes their
     cotangents) against autograd of their twins at the training shape, for
@@ -816,6 +821,21 @@ def device_us_by_kernel(fn, n: int) -> dict:
                 not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / n
     return by_name
+
+
+def trajectory_plan_report(w, tag, R, DT, R_out, bayes, smi):
+    """Print the plans K2 (K7 with ``bayes``) takes in both compute modes:
+    threads, shared memory, resident or streamed weights, stages and chunks,
+    and each pass's products as (K, N, warps, split)."""
+    from fiude_tpu_torch.ops import fused_ude
+    for cd in ("float32", "bfloat16"):
+        plan = fused_ude.plan_for(w, R, DT, R_out, bayes=bayes, bf16=cd == "bfloat16")
+        passes = " | ".join(", ".join(f"{j.K}x{j.N} on {j.warps}w/{j.split}" for j in jobs)
+                            for jobs in plan.passes)
+        log(f"  {tag} {cd} plan: {plan.tile} rows x {plan.threads} threads, {plan.smem_bytes} B "
+            f"of shared memory, weights {'resident' if plan.resident else 'streamed'} in "
+            f"{plan.stages} stages of up to {plan.stage_bytes} B, {len(plan.chunks)} chunks an "
+            f"evaluation; passes {passes}; decode in pass {plan.dec_pass} [{smi}]")
 
 
 def encoder_plan_report(x, w_enc, tag, smi, hseq=False):
@@ -1838,7 +1858,7 @@ def main() -> int:
 
     from fiude_tpu_torch.models import UDEForecaster
     from fiude_tpu_torch.models.vae import reparam
-    from fiude_tpu_torch.ops import _build, fused_gru, fused_gru_train, fused_ude
+    from fiude_tpu_torch.ops import _build, fused_bayes, fused_gru, fused_gru_train, fused_ude
     from fiude_tpu_torch.train import load_params, save_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1857,9 +1877,16 @@ def main() -> int:
     _build.library()
     log(f"  built {so.name} from {len(_build.sources())} sources in "
         f"{time.perf_counter() - t0:.1f} s")
+    function = ""
     for line in so.with_name(so.name + ".log").read_text().splitlines():
+        if "Function properties for" in line:
+            function = line.split("Function properties for")[-1].strip()
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"  {line.strip()}")
+        # the trajectory kernels (K2, K7) are pinned to one block an SM: no spills
+        if "ude_trajectory" in function and "spill" in line \
+                and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            raise RuntimeError(f"ptxas spills in {function}: {line.strip()}")
 
     # -- 2. kernels vs plain twins at the serving shapes -------------------------
     log(f"phase 2: kernels vs plain twins (rtol {RTOL}, atol {ATOL})")
@@ -1966,8 +1993,11 @@ def main() -> int:
     with torch.no_grad():
         encoder_plan_report(x, w_enc, "K1", smi)
         encoder_plan_alternatives(x, w_enc, smi)
-    log(f"  K2 fused_ude z0 {tuple(z0.shape)}, T={T_OUT}: kernel {k2_ms:.4f} ms, "
-        f"plain {k2_plain:.4f} ms, bound {k2_bound[0]:.4f} ms by {k2_bound[1]} [{smi}]")
+    log(f"  K2 fused_ude z0 {tuple(z0.shape)}, T={T_OUT}: kernel {k2_ms:.4f} ms "
+        f"({k2_ms * 1e3 / (4 * (T_OUT - 1)):.2f} us an evaluation), plain {k2_plain:.4f} ms, "
+        f"bound {k2_bound[0]:.4f} ms by {k2_bound[1]} [{smi}]")
+    trajectory_plan_report(w, "K2", model.n_regions, model.n_regions * (z0.shape[2] - 3),
+                           w.dec_w.shape[1], False, smi)
     log(f"  request ({BATCH} windows x {SAMPLES} samples, T={T_OUT}): kernels "
         f"{req_ms:.4f} ms, plain {req_plain:.4f} ms [{smi}]")
 
@@ -2058,8 +2088,12 @@ def main() -> int:
                       ("K9", "K9 Bayes trajectory backward")):
         plain, ms = bt[key]
         bound = bt[key + "_bound"]
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.4f} ms by "
-            f"{bound[1]} [{smi}]")
+        per = f" ({ms * 1e3 / (4 * (T_OUT - 1)):.2f} us an evaluation)" if key == "K7" else ""
+        log(f"  {name}: kernel {ms:.4f} ms{per}, plain {plain:.4f} ms, bound {bound[0]:.4f} ms "
+            f"by {bound[1]} [{smi}]")
+    trajectory_plan_report(fused_bayes.pack_bayes_field(bayes.ode).mean, "K7", bayes.n_regions,
+                           bayes.n_regions * (z0.shape[2] - 3), bayes.decoder.linear.out_features,
+                           True, smi)
     log(f"  draw for a request (336 evaluations, w only): {bt['draw_request']:.4f} ms [{smi}]")
     log(f"  Bayes request ({BATCH} windows x {SAMPLES} samples, T={T_OUT}): kernels "
         f"{bt['request'][1]:.4f} ms, plain {bt['request'][0]:.4f} ms [{smi}]")
@@ -2099,7 +2133,8 @@ def main() -> int:
         f"serving shape ({z0.shape[0]} systems), T={BF16_SHORT_T} and T={T_OUT}")
     bf = bf16_serving(dev, model, bayes, z0, grid, rng, smi)
     for key, name in (("K2", "K2 trajectory, bfloat16"), ("K7", "K7 Bayes trajectory, bfloat16")):
-        log(f"  {name}: kernel {bf[key][1]:.4f} ms, plain {bf[key][0]:.4f} ms, bound "
+        log(f"  {name}: kernel {bf[key][1]:.4f} ms ({bf[key][1] * 1e3 / (4 * (T_OUT - 1)):.2f} "
+            f"us an evaluation), plain {bf[key][0]:.4f} ms, bound "
             f"{bf[key + '_bound'][0]:.4f} ms by {bf[key + '_bound'][1]} [{smi}]")
     log(f"  draw for a bfloat16 request (336 evaluations, bfloat16 w and float32 biases): "
         f"{bf['draw_request']:.4f} ms [{smi}]")

@@ -29,8 +29,16 @@
 //
 // What bounds K7 on the card: float32 arithmetic, as K2, with 392 x 128
 // instead of 147 x 128 multiply-adds a row in the first layer (72,960
-// multiply-adds a row an evaluation against K2's 41,600).
-//
+// multiply-adds a row an evaluation against K2's 41,600), and the L2 rate:
+// every block reads each evaluation's 294 KB (147 KB in bfloat16) into shared
+// memory, 12.6 GB a request of 128 blocks.  K7 streams them through two
+// shared-memory stages with cp.async (fused_ude.cuh), the next chunk in
+// flight while the current one is read; the first layer is one pass over
+// [head | tail], 392 deep (the tail's rows follow the head's in the packed
+// buffer).  The buffer's evaluations start at any 4-byte (bfloat16: 2-byte)
+// boundary, so each row is copied in the widest units its address allows,
+// a bfloat16 row from the word that holds its first element.
+
 // The draw is Philox4x32-10 + Box-Muller (philox.cuh), a pure function of
 // (seed, evaluation, packed array, element): the same bits for every block,
 // in the backward as in the forward, and in the plain PyTorch version
@@ -154,12 +162,15 @@ int fused_bayes_draw(const float* mean, const float* stdabs, const float* noise,
 // fused_bayes_draw, each evaluation's packed arrays ((in, out) weights);
 // decoder (3R, R_out); out (T, B, R_out).  With bias != null (the bfloat16
 // compute mode) weff is the draw's bfloat16 buffer and bias (4(T-1), PB) its
-// float32 biases.  Launches on `stream`; returns cudaGetLastError().
+// float32 biases.  plan (plan_len ints): ops/fused_ude.py::TrajectoryPlan.flat()
+// of a K7 plan, refused (cudaErrorInvalidValue) where read_plan finds that the
+// kernel cannot run it.  Launches on `stream`; returns cudaGetLastError().
 int fused_bayes_trajectory(const float* zh0, const float* ztail, int B, int T, float dt,
                            float fa_w, int R, int DT, int N0, int n0_fp, int R_out,
                            const void* weff, int P, int n_fp, const int* fp_out, int n_aug,
                            const int* aug_out, const void* dec_w, const void* dec_b,
-                           float* out, const float* bias, void* stream) {
+                           float* out, const float* bias, const int* plan, int plan_len,
+                           void* stream) {
   if (B < 1 || T < 1 || R < 1 || DT < 0 || N0 < 1 || R_out < 1 || n_fp < 0 || n_fp > kMaxDeep ||
       n_aug < 0 || n_aug > kMaxDeep || (n_fp > 0) != (n0_fp > 0) || (n_aug > 0) != (N0 > n0_fp))
     return cudaErrorInvalidValue;
@@ -196,9 +207,11 @@ int fused_bayes_trajectory(const float* zh0, const float* ztail, int B, int T, f
     }
   }
   a.PB = bf16 ? boff : (size_t)P;
-  const int wmax = pingpong_width(R_out, n_fp, fp_out, n_aug, aug_out);
-  if (bf16) return launch_trajectory<true, true>(zh0, ztail, B, T, dt, fa_w, a, wmax, out, stream);
-  return launch_trajectory<true, false>(zh0, ztail, B, T, dt, fa_w, a, wmax, out, stream);
+  if (bf16)
+    return launch_trajectory<true, true>(zh0, ztail, B, T, dt, fa_w, a, plan, plan_len, out,
+                                         stream);
+  return launch_trajectory<true, false>(zh0, ztail, B, T, dt, fa_w, a, plan, plan_len, out,
+                                        stream);
 }
 
 }  // extern "C"

@@ -49,7 +49,8 @@ from fiude_tpu_torch.models.rhs import out_of_range_mask, sir_field
 from fiude_tpu_torch.ops import _build, philox
 from fiude_tpu_torch.ops.fused_gru import FusedBackGRUEncoder
 from fiude_tpu_torch.ops.fused_ude import (
-    FieldWeights, _check_net, _later_layers, is_bf16, matmul, pack_layers, uniform_step,
+    FieldWeights, _check_net, _later_layers, is_bf16, matmul, pack_layers, plan_for, plan_ints,
+    uniform_step,
 )
 from fiude_tpu_torch.ops.integrate import rk4_38_step
 
@@ -221,7 +222,7 @@ def _launchers():
                                      ptr, ptr, ptr, ptr, ptr, ptr]
     lib.fused_bayes_draw.restype = ctypes.c_int
     lib.fused_bayes_trajectory.argtypes = [ptr, ptr, i, i, f, f, i, i, i, i, i, ptr, i,
-                                           i, ints, i, ints, ptr, ptr, ptr, ptr, ptr]
+                                           i, ints, i, ints, ptr, ptr, ptr, ptr, ints, i, ptr]
     lib.fused_bayes_trajectory.restype = ctypes.c_int
     return lib
 
@@ -293,10 +294,12 @@ def check_bayes_field(bw: BayesField, R: int, DT: int) -> int:
 
 def bayes_trajectory_cuda(z0: torch.Tensor, w: BayesWeights,
                           weff: Union[torch.Tensor, DrawnBf16], *, T: int,
-                          dt: float, fa_w: float = 1.0) -> torch.Tensor:
+                          dt: float, fa_w: float = 1.0,
+                          stage_bytes: Optional[int] = None) -> torch.Tensor:
     """Launch K7 on the drawn weights ``weff`` (4(T-1), P): z0 (B, R, L) ->
     (T, B, R_out); in the bfloat16 compute mode when ``weff`` is a
-    :class:`DrawnBf16`."""
+    :class:`DrawnBf16`.  ``stage_bytes`` goes to
+    :func:`~fiude_tpu_torch.ops.fused_ude.trajectory_plan` (None: its default)."""
     if z0.dim() != 3 or z0.dtype != torch.float32:
         raise ValueError(f"z0 must be a float32 (B, R, L) tensor, got {z0.dtype} "
                          f"{tuple(z0.shape)}")
@@ -324,6 +327,8 @@ def bayes_trajectory_cuda(z0: torch.Tensor, w: BayesWeights,
         raise ValueError(f"the drawn weights must be (4(T-1), P) = {(4 * (T - 1), P)}, got "
                          f"{tuple(weff.shape)}")
     _build.check_weights([w.dec_w, w.dec_b], z0.device)
+    plan = plan_for(m, R, R * (L - 3), R_out, bayes=True, bf16=bf16, stage_bytes=stage_bytes)
+    plan_c, plan_len = plan_ints(plan)
     out = torch.empty(T, B, R_out, device=z0.device, dtype=torch.float32)
     head = z0[..., :3].reshape(B, 3 * R).contiguous()
     tail = z0[..., 3:].reshape(B, R * (L - 3)).contiguous()
@@ -336,7 +341,7 @@ def bayes_trajectory_cuda(z0: torch.Tensor, w: BayesWeights,
             len(m.fp), _build.c_ints([wl.shape[1] for wl, _ in m.fp]),
             len(m.aug), _build.c_ints([wl.shape[1] for wl, _ in m.aug]),
             w.dec_w.data_ptr(), w.dec_b.data_ptr(), out.data_ptr(),
-            _build.ptr(bias), stream)
+            _build.ptr(bias), plan_c, plan_len, stream)
     _build.check(code, "fused_bayes_trajectory")
     bayes_trajectory_cuda.launches += 1
     bayes_trajectory_cuda.bf16_launches += int(bf16)

@@ -19,7 +19,7 @@ tail's first-layer product, both operands are rounded to bfloat16 (nearest
 even) and the products are summed in float32; biases, ELU, ``|.|``, the SIR
 field, the stage combination, the state and the decode product stay float32.
 The weights are rounded once, by :func:`bf16_matrices`; the kernel rounds
-activations where it stores them and sums with float32 FMAs.
+activations where it stores them and sums in float32 on the tensor cores.
 
 :func:`trajectory_decode` dispatches strictly on the state's device: a CPU
 tensor takes :func:`trajectory_decode_plain`, a CUDA tensor launches the
@@ -31,7 +31,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+import itertools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,9 +41,307 @@ from fiude_tpu_torch.ops import _build
 from fiude_tpu_torch.ops.fused_gru import FusedBackGRUEncoder
 from fiude_tpu_torch.ops.integrate import rk4_38_step
 
-_MAX_DEEP = 8   # kMaxDeep in csrc/fused_ude.cu
+_MAX_DEEP = 8   # kMaxDeep in csrc/fused_ude.cuh
 
 Layer = Tuple[torch.Tensor, torch.Tensor]
+
+# The launch plan of the trajectory kernel (csrc/fused_ude.cuh): made here
+# alone; the C launcher checks that the kernel can run it (read_plan) and
+# refuses it otherwise.
+TILE = 16              # kTile: ensemble rows a block
+THREADS = 512          # kThreads: sixteen warps
+WARPS = THREADS // 32
+SMEM_LIMIT = 232_448   # dynamic shared memory a block can use (kSmemLimit)
+SPLITS = (1, 2, 4, 8)  # lanes that share an output tile, each summing every S-th k
+COLS = 4               # kCols: a lane's tile of a CUDA-core product is 4 rows x COLS columns
+MAX_CHUNKS = 24        # kMaxChunks: weight chunks an evaluation
+ARGS_BYTES = 2560      # kArgsBytes: the plan and the arguments, copied ahead of the tile
+# job kinds (kFirst ... kCt): the first layer over the head (and, in K7, the
+# tail), a later layer of the rates net or of the Fa net, the decode, and K2's
+# frozen-tail term computed once
+FIRST, FP, AUG, DECODE, CT = range(5)
+
+
+class Job(NamedTuple):
+    """One product of a pass: ``out (16, N) = in (16, K) @ W (K, N)``, on warps
+    ``[warp0, warp0 + warps)``.  On the CUDA cores a lane owns 4 rows x COLS
+    columns of ``out`` for every ``split``-th k, and the ``split`` lanes of
+    a tile sum their parts with a fixed shuffle tree; on the tensor cores
+    (bfloat16) warp i of the job owns the 8-column tiles i, i + warps, ..."""
+    kind: int
+    layer: int      # later layer index (FP, AUG), else 0
+    K: int
+    N: int
+    warp0: int
+    warps: int
+    split: int
+    ldw: int        # row stride of W in shared memory, elements
+
+
+class Chunk(NamedTuple):
+    """The rows ``[k0, k1)`` of each matrix job of pass ``step`` that one
+    weight chunk holds, at byte offsets ``off`` from the chunk's base."""
+    step: int
+    k0: Tuple[int, int]
+    k1: Tuple[int, int]
+    off: Tuple[int, int]
+
+
+class TrajectoryPlan(NamedTuple):
+    """How ``ude_trajectory_kernel`` (K2, K7) is launched: a pure function of
+    the widths and the mode (:func:`trajectory_plan`), never of the batch."""
+    tile: int
+    threads: int
+    smem_bytes: int
+    resident: bool       # the field's weights loaded once (else streamed every evaluation)
+    stages: int          # weight chunks in shared memory at once
+    stage_bytes: int     # bytes of the largest chunk
+    offsets: Tuple[int, ...]   # byte offsets: zh, zin, zs, kbuf, ct, h0, fpb, augb,
+    #                            rates, fa, dec, wts (see ``LAYOUT``)
+    ldw_dec: int
+    passes: Tuple[Tuple[Job, ...], ...]   # an evaluation's passes, without the decode
+    dec_pass: int                         # the pass that also decodes, in stage 1
+    dec_jobs: Tuple[Job, ...]             # that pass with the decode job
+    final: Tuple[Job, ...]                # the decode alone (the last point)
+    ct: Tuple[Job, ...]                   # K2's tail term (empty for K7)
+    chunks: Tuple[Chunk, ...]             # an evaluation's weight chunks, in order
+
+    def flat(self) -> Tuple[int, ...]:
+        """The plan as the C launcher reads it (``read_plan``)."""
+        out = [self.tile, self.threads, self.smem_bytes, int(self.resident), self.stages,
+               self.stage_bytes, *self.offsets, self.ldw_dec, len(self.passes), self.dec_pass]
+        for jobs in (*self.passes, self.dec_jobs, self.final, self.ct):
+            out.append(len(jobs))
+            for j in jobs:
+                out.extend(j)
+        out.append(len(self.chunks))
+        for c in self.chunks:
+            out.extend((c.step, *c.k0, *c.k1, *c.off))
+        return tuple(out)
+
+
+LAYOUT = ("zh", "zin", "zs", "kbuf", "ct", "h0", "fpb", "augb", "rates", "fa", "dec", "wts")
+
+
+def row_stride(n: int, bf16: bool) -> int:
+    """Row stride (elements) of an N-column matrix in shared memory: rows on
+    16-byte boundaries, and a stride of an odd number of 16-byte units, so
+    that 8 consecutive rows start in 8 different bank groups; a float32 row
+    holds whole tiles of COLS columns, a bfloat16 row its shift of one
+    element and the tensor cores' last tile of 8 columns."""
+    if bf16:
+        return 8 * (-(-(8 * -(-n // 8) + 2) // 8) | 1)
+    return 4 * ((COLS // 4) * -(-n // COLS) | 1)
+
+
+LATENCY = 4   # kLatency: a warp alone issues at best one k-step every LATENCY slots
+
+
+def operand_stride(width: int) -> int:
+    """Row stride (elements) of a bfloat16 activation buffer read by the
+    tensor cores, [16 rows][stride]: k-blocks of 16 past the width (up to 15
+    more for an operand that starts inside a row) read zeros, and 8 rows a
+    lane group loads fall in 8 different bank groups (stride = 8 mod 16)."""
+    return 16 * -(-width // 16) + 24
+
+
+def _smsp_load(splits, jobs) -> int:
+    """The time, in k-steps, of the busiest of the SM's four schedulers when
+    the jobs' warps sit consecutively from warp 0 (warp w on scheduler
+    w % 4): the k-steps it issues, but no less than LATENCY times its
+    longest warp's (one warp cannot hide its own load latency)."""
+    chains = [[], [], [], []]
+    w = 0
+    for (K, N), S in zip(jobs, splits):
+        for _ in range(_warps(N, S)):
+            chains[w % 4].append(-(-K // S))
+            w += 1
+    return max(max(sum(c), LATENCY * max(c, default=0)) for c in chains)
+
+
+def _warps(N: int, S: int) -> int:
+    """Warps of a job: its 4 row groups x column groups of COLS, times S."""
+    return -(-(4 * -(-N // COLS)) * S // 32)
+
+
+def assign(jobs: Sequence[Tuple[int, int]], kinds: Sequence[Tuple[int, int]],
+           ldws: Sequence[int]) -> Tuple[Job, ...]:
+    """Warps and splits for the jobs ``(K, N)`` of one pass: the splits (in
+    the order of :data:`SPLITS`, the first job's the most significant) that
+    give the least load on the busiest scheduler, then the fewest split
+    lanes, with every output tile of a job on one warp's lanes once."""
+    best = None
+    for splits in itertools.product(SPLITS, repeat=len(jobs)):
+        warps = [_warps(N, S) for (K, N), S in zip(jobs, splits)]
+        if sum(warps) > WARPS:
+            continue
+        key = (_smsp_load(splits, jobs), sum(splits))
+        if best is None or key < best[0]:
+            best = (key, splits, warps)
+    if best is None:
+        raise ValueError(f"no plan fits the products {tuple(jobs)} on {WARPS} warps")
+    _, splits, warps = best
+    out, w0 = [], 0
+    for (K, N), S, w, (kind, layer), ldw in zip(jobs, splits, warps, kinds, ldws):
+        out.append(Job(kind, layer, K, N, w0, w, S, ldw))
+        w0 += w
+    return tuple(out)
+
+
+def _chunk_rows(K: int, n: int, c: int) -> Tuple[int, int]:
+    return c * K // n, (c + 1) * K // n
+
+
+def trajectory_plan(R: int, DT: int, N0: int, n0_fp: int, R_out: int,
+                    fp_out: Sequence[int], aug_out: Sequence[int], *, bayes: bool,
+                    bf16: bool, resident: Optional[bool] = None,
+                    stage_bytes: Optional[int] = None) -> TrajectoryPlan:
+    """The launch plan of K2 (``bayes=False``) or K7 for a field of ``R``
+    regions, frozen tail ``DT``, first layer ``N0`` wide (``n0_fp`` rates
+    columns first), later layers ``fp_out`` / ``aug_out`` and ``R_out``
+    decoder outputs, in float32 or (``bf16``) bfloat16.
+
+    A block takes 16 ensemble rows on 512 threads.  Each RHS evaluation runs
+    as passes: the first layer (K7: over [head | tail], 3R + DT deep), then
+    layer d of both nets side by side, then the SIR combine; the decode of the
+    state rides in one pass of every step's first evaluation.  The field's
+    weights sit in shared memory: ``resident`` (K2 where they fit beside the
+    tile: loaded once) or streamed (K7 always, its weights being new every
+    evaluation): a pass's rows split into chunks of at most ``stage_bytes``,
+    two chunks in shared memory at once, the next one copied while the
+    current one is used.  Raises ``ValueError`` for widths no plan takes or a
+    plan over :data:`SMEM_LIMIT` bytes."""
+    fp_out, aug_out = tuple(fp_out), tuple(aug_out)
+    n_fp, n_aug = len(fp_out), len(aug_out)
+    if bayes and resident:
+        raise ValueError("K7's weights are new every evaluation: they cannot stay resident")
+    esize = 2 if bf16 else 4
+    W3 = 3 * R
+    row = TILE * 4
+    ldw = lambda n: row_stride(n, bf16)              # noqa: E731
+
+    # an evaluation's passes: the first layer, then layer d of each net
+    K0 = W3 + DT if bayes else W3
+    passes = [[(K0, N0, FIRST, 0)]]
+    for d in range(max(n_fp, n_aug)):
+        step = []
+        if d < n_fp:
+            step.append((n0_fp if d == 0 else fp_out[d - 1], fp_out[d], FP, d))
+        if d < n_aug:
+            step.append((N0 - n0_fp if d == 0 else aug_out[d - 1], aug_out[d], AUG, d))
+        passes.append(step)
+
+    def plan_of(step, extra=()):
+        jobs = [(K, N) for K, N, _, _ in step] + [(K, N) for K, N, _, _ in extra]
+        kinds = [(k, l) for _, _, k, l in step] + [(k, l) for _, _, k, l in extra]
+        ldws = [ldw(N) for _, N, _, _ in step] + [row_stride(N, False) for _, N, _, _ in extra]
+        return assign(jobs, kinds, ldws)
+
+    decode = ((W3, R_out, DECODE, 0),)
+    plans = [plan_of(step) for step in passes]
+    with_dec = []
+    for step, p in zip(passes, plans):
+        try:
+            q = plan_of(step, decode)
+        except ValueError:
+            q = None
+        with_dec.append(q)
+    costs = [(_smsp_load([j.split for j in q], [(j.K, j.N) for j in q])
+              - _smsp_load([j.split for j in p], [(j.K, j.N) for j in p]), i)
+             for i, (p, q) in enumerate(zip(plans, with_dec)) if q is not None]
+    if not costs:
+        raise ValueError("no pass of the evaluation can take the decode")
+    dec_pass = min(costs)[1]
+    final = plan_of([], decode)
+    ct = () if bayes else plan_of([(DT, N0, CT, 0)])      # DT = 0: the bias alone
+
+    # the tile, feature-major [feature][16 rows] floats
+    # (bytes; the tensor cores' inputs in bfloat16 as rows of operand_stride)
+    operand = lambda w: (2 * TILE * operand_stride(w) if w else 0) if bf16 else w * row  # noqa
+    wf, wa = max(fp_out[:-1], default=0), max(aug_out[:-1], default=0)
+    sizes = {
+        "zh": W3 * row, "zin": operand(K0), "zs": W3 * row if bf16 else 0,
+        "kbuf": max(3 * W3, 0 if bayes else DT) * row, "ct": 0 if bayes else N0 * row,
+        "h0": operand(N0), "fpb": 2 * operand(wf), "augb": 2 * operand(wa),
+        "rates": 2 * R * row if n_fp else 0, "fa": W3 * row if n_aug else 0,
+    }
+    offsets, off = {}, ARGS_BYTES
+    for name in LAYOUT[:-2]:
+        offsets[name] = off
+        off += sizes[name]
+    if not bf16:
+        offsets["zs"] = offsets["zin"]       # float32: the product reads the stage input itself
+    ldw_dec = row_stride(R_out, False)
+    offsets["dec"] = off
+    off += W3 * ldw_dec * 4
+    offsets["wts"] = off
+
+    pass_bytes = [sum(j.K * j.ldw * esize for j in p if j.kind != DECODE) for p in plans]
+    if resident is None:
+        resident = not bayes and off + sum(pass_bytes) <= SMEM_LIMIT
+    chunks = []
+    if resident:
+        base = 0
+        for i, p in enumerate(plans):
+            mats = [j for j in p if j.kind != DECODE]
+            offs = [base + sum(m.K * m.ldw * esize for m in mats[:k]) for k in range(len(mats))]
+            chunks.append(Chunk(i, *_pad2([0] * len(mats), [m.K for m in mats], offs)))
+            base += pass_bytes[i]
+        stages, stage = len(plans), max(pass_bytes)
+        smem = off + base
+    else:
+        if stage_bytes is None:
+            stage_bytes = min((SMEM_LIMIT - off) // 2 // 16 * 16,
+                              -(-max(pass_bytes) // 16) * 16)
+        if stage_bytes < 16 or stage_bytes % 16:
+            raise ValueError(f"stage_bytes must be a positive multiple of 16, got {stage_bytes}")
+        for i, p in enumerate(plans):
+            mats = [j for j in p if j.kind != DECODE]
+            for n in range(1, min(m.K for m in mats) + 1):     # a row of each a chunk
+                rows = [[_chunk_rows(m.K, n, c) for m in mats] for c in range(n)]
+                if max(sum((b - a) * m.ldw * esize for (a, b), m in zip(r, mats))
+                       for r in rows) <= stage_bytes:
+                    break
+            else:
+                raise ValueError(f"a row of pass {i} exceeds a stage of {stage_bytes} bytes")
+            for r in rows:
+                offs = [sum((b - a) * m.ldw * esize for (a, b), m in zip(r[:k], mats))
+                        for k in range(len(mats))]
+                chunks.append(Chunk(i, *_pad2([a for a, _ in r], [b for _, b in r], offs)))
+        stages, stage = 2, stage_bytes
+        smem = off + 2 * stage_bytes
+    if len(chunks) > MAX_CHUNKS:
+        raise ValueError(f"{len(chunks)} weight chunks an evaluation; at most {MAX_CHUNKS}")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the plan takes {smem} bytes of shared memory; a block has "
+                         f"{SMEM_LIMIT}")
+    return TrajectoryPlan(TILE, THREADS, smem, bool(resident), stages, stage,
+                          tuple(offsets[k] for k in LAYOUT), ldw_dec, tuple(plans), dec_pass,
+                          with_dec[dec_pass], final, ct, tuple(chunks))
+
+
+def _pad2(k0, k1, off):
+    """(k0, k1, off) of at most two matrix jobs, padded with zeros."""
+    pad = lambda v: tuple(v) + (0,) * (2 - len(v))   # noqa: E731
+    return pad(k0), pad(k1), pad(off)
+
+
+def plan_for(w, R: int, DT: int, R_out: int, *, bayes: bool, bf16: bool,
+             resident: Optional[bool] = None,
+             stage_bytes: Optional[int] = None) -> TrajectoryPlan:
+    """:func:`trajectory_plan` for the packed field ``w`` (:class:`FieldWeights`
+    or :class:`UDEWeights`) and a decoder of ``R_out`` outputs."""
+    return _plan_cached(R, DT, w.w0_head.shape[1], w.n0_fp, R_out,
+                        tuple(wl.shape[1] for wl, _ in w.fp),
+                        tuple(wl.shape[1] for wl, _ in w.aug), bayes, bf16, resident,
+                        stage_bytes)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_cached(R, DT, N0, n0_fp, R_out, fp_out, aug_out, bayes, bf16, resident,
+                 stage_bytes) -> TrajectoryPlan:
+    return trajectory_plan(R, DT, N0, n0_fp, R_out, fp_out, aug_out, bayes=bayes, bf16=bf16,
+                           resident=resident, stage_bytes=stage_bytes)
 
 
 class UDEWeights(NamedTuple):
@@ -193,7 +492,7 @@ def _launcher():
     ptr, ptrs, ints, i, f = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
                              ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float)
     fn.argtypes = [ptr, ptr, i, i, f, f, i, i, i, i, i, ptr, ptr, ptr,
-                   i, ints, ptrs, ptrs, i, ints, ptrs, ptrs, ptr, ptr, ptr, i, ptr]
+                   i, ints, ptrs, ptrs, i, ints, ptrs, ptrs, ptr, ptr, ptr, i, ints, i, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -210,12 +509,21 @@ def _check_net(layers, width: int, out: int, name: str) -> None:
         raise ValueError(f"{name} must end at width {out}, ends at {width}")
 
 
+@functools.lru_cache(maxsize=64)
+def plan_ints(plan: TrajectoryPlan):
+    """``plan.flat()`` as the C array the launchers take."""
+    flat = plan.flat()
+    return _build.c_ints(flat), len(flat)
+
+
 def trajectory_decode_cuda(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: float,
                            fa_w: float = 1.0, compute_dtype: str = "float32",
-                           rounded=None) -> torch.Tensor:
+                           rounded=None, resident: Optional[bool] = None,
+                           stage_bytes: Optional[int] = None) -> torch.Tensor:
     """Launch K2 on ``z0``'s device and current stream; in the bfloat16
     compute mode on ``rounded`` (:func:`bf16_matrices` of ``w``, made here
-    when None)."""
+    when None).  ``resident`` and ``stage_bytes`` go to :func:`trajectory_plan`
+    (None: its defaults)."""
     bf16 = is_bf16(compute_dtype)
     if z0.dim() != 3 or z0.dtype != torch.float32:
         raise ValueError(f"z0 must be a float32 (B, R, L) tensor, got {z0.dtype} "
@@ -235,6 +543,9 @@ def trajectory_decode_cuda(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: float
     _build.check_weights([w.w0_head, w.w0_tail, w.b0, w.dec_w, w.dec_b]
                          + [t for layer in layers for t in layer], z0.device)
 
+    plan = plan_for(w, R, R * (L - 3), R_out, bayes=False, bf16=bf16, resident=resident,
+                    stage_bytes=stage_bytes)
+    plan_c, plan_len = plan_ints(plan)
     launch = _launcher()
     head = z0[..., :3].reshape(B, 3 * R).contiguous()
     tail = z0[..., 3:].reshape(B, R * (L - 3)).contiguous()
@@ -260,7 +571,8 @@ def trajectory_decode_cuda(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: float
                       R, R * (L - 3), N0, w.n0_fp, R_out,
                       w0_head.data_ptr(), w0_tail.data_ptr(), w.b0.data_ptr(),
                       *net_args(w.fp, fp_w), *net_args(w.aug, aug_w),
-                      w.dec_w.data_ptr(), w.dec_b.data_ptr(), out.data_ptr(), int(bf16), stream)
+                      w.dec_w.data_ptr(), w.dec_b.data_ptr(), out.data_ptr(), int(bf16),
+                      plan_c, plan_len, stream)
     _build.check(code, "fused_ude_trajectory")
     trajectory_decode.launches += 1
     trajectory_decode.bf16_launches += int(bf16)

@@ -12,7 +12,10 @@ twins, values at that bound and every gradient at
 The cluster kernels' plans are held too: K1/K3 and K4's sweep through L2 as
 well as resident, inconsistent plans refused, a row's outputs (K4: its gate
 cotangents) the same bits alone as in a batch of 37, two launches equal bit
-for bit.
+for bit; and K2/K7's (``fused_ude.trajectory_plan``): both kernels at the
+`state` widths in both modes with a ragged batch of 37, a row alone the same
+bits as in it, resident and streamed weights against the twin, and plans
+the kernel cannot run refused by the launcher.
 The Bayes kernels K7 (``csrc/fused_bayes.cu``) and K8/K9
 (``csrc/fused_train.cu`` with kBayes) are held to the same bounds against
 their twins in both noise modes (injected, and Philox from a seed on both
@@ -820,3 +823,98 @@ def test_bf16_forecasters_serve(dev):
     assert got.shape == want.shape and 0 < (got - want).abs().max() < 0.05
     with pytest.raises(ValueError, match="compute_dtype"):
         fused_ude.FusedForecaster(model, compute_dtype="float16")
+
+
+# -- the trajectory kernels' plans (K2, K7): state widths, resident and streamed, rows ------
+
+def state_models(dev, kernel):
+    """(model, packed weights, the launch) of K2 or K7 at the `state` widths."""
+    if kernel == "K2":
+        model = build(dev, "FaFp", L=8, **STATE_ODE)
+        w = fused_ude.pack_ude(model.ode, model.decoder)
+        return w, lambda z, cd, **kw: fused_ude.trajectory_decode_cuda(
+            z, w, T=5, dt=1 / 7, fa_w=1.0, compute_dtype=cd, **kw), \
+            lambda z, cd: fused_ude.trajectory_decode_plain(z, w, T=5, dt=1 / 7, fa_w=1.0,
+                                                            compute_dtype=cd)
+    model = build(dev, "UONNb", L=8, **STATE_ODE)
+    w = fused_bayes.pack_bayes(model.ode, model.decoder)
+    like = w.field.mean
+    mean, std = fused_bayes.flatten_field(like), fused_bayes.flatten_field(w.field.std)
+    noise = injected_noise(dev, like, 16)
+    matrix = fused_bayes.noise_matrix(noise, like, 16).contiguous()
+
+    def k7(z, cd, **kw):
+        weff, _, _ = fused_bayes.bayes_draw_cuda(mean, std, like, 16, noise=matrix,
+                                                 bf16=cd == "bfloat16")
+        return fused_bayes.bayes_trajectory_cuda(z, w, weff, T=5, dt=1 / 7, fa_w=1.0, **kw)
+
+    return w, k7, lambda z, cd: fused_bayes.bayes_trajectory_decode_plain(
+        z, w, T=5, dt=1 / 7, fa_w=1.0, noise=noise, compute_dtype=cd)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K7"])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_trajectory_kernels_at_state_widths_and_rows_alone(dev, kernel, cd):
+    """K2 and K7 at the `state` widths with a ragged tile (B = 37) against
+    their twins, and a row alone the same bits as inside the batch."""
+    w, launch, twin = state_models(dev, kernel)
+    z0 = on(dev, np.random.default_rng(4).uniform(0.0, 0.6, (37, 49, 8)))
+    got, want = launch(z0, cd), twin(z0, cd)
+    if cd == "float32":
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert_bf16_close(got, want)
+    for row in (0, 21, 36):
+        alone = launch(z0[row:row + 1].contiguous(), cd)
+        assert torch.equal(alone[:, 0], got[:, row])
+
+
+@pytest.mark.parametrize("kernel,cd,kw", [
+    ("K2", "float32", {}),                                  # streamed: its weights do not fit
+    ("K2", "bfloat16", {}),                                 # resident
+    ("K2", "bfloat16", {"resident": False}),                # the same weights streamed
+    ("K2", "float32", {"resident": False, "stage_bytes": 16384}),
+    ("K7", "float32", {"stage_bytes": 16384}),              # more, smaller chunks
+    ("K7", "bfloat16", {"stage_bytes": 16384}),
+])
+def test_resident_and_streamed_plans_match_the_twin(dev, kernel, cd, kw):
+    w, launch, twin = state_models(dev, kernel)
+    z0 = on(dev, np.random.default_rng(6).uniform(0.0, 0.6, (40, 49, 8)))
+    got, want = launch(z0, cd, **kw), twin(z0, cd)
+    if cd == "float32":
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert_bf16_close(got, want)
+    # float32: another split into chunks changes where the rows sit, not the sums' order
+    # (in bfloat16 a k-block of 16 that a chunk boundary cuts is summed in two parts)
+    if cd == "float32":
+        assert torch.equal(got, launch(z0, cd))
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K7"])
+def test_plans_the_kernel_cannot_run_are_refused(dev, kernel, monkeypatch):
+    """The launcher reads the plan ``trajectory_plan`` made and refuses one
+    the kernel cannot run: over the card's shared memory, chunks larger than
+    their stage, K7's weights resident (K2's streamed chunks read as
+    resident overlap), a split without the warps to cover its outputs, a
+    product of the wrong depth, a buffer over the one before it."""
+    w, launch, _ = state_models(dev, kernel)
+    field = w if kernel == "K2" else w.field.mean
+    plan = fused_ude.plan_for(field, 49, 245, 49, bayes=kernel == "K7", bf16=False)
+    z0 = on(dev, np.random.default_rng(7).uniform(0.0, 0.6, (3, 49, 8)))
+    first = plan.passes[0][0]
+    offsets = list(plan.offsets)
+    offsets[fused_ude.LAYOUT.index("h0")] -= 16
+    bad = [plan._replace(smem_bytes=fused_ude.SMEM_LIMIT + 16),
+           plan._replace(stage_bytes=16),
+           plan._replace(resident=not plan.resident),
+           plan._replace(passes=((first._replace(split=2 * first.split),),) + plan.passes[1:]),
+           plan._replace(passes=((first._replace(K=first.K - 1),),) + plan.passes[1:]),
+           plan._replace(offsets=tuple(offsets))]
+    module = fused_ude if kernel == "K2" else fused_bayes
+    for p in bad:
+        monkeypatch.setattr(module, "plan_for", lambda *args, p=p, **kw: p)
+        with pytest.raises(RuntimeError):
+            launch(z0, "float32")
+    monkeypatch.setattr(module, "plan_for", lambda *args, **kw: plan)
+    assert torch.isfinite(launch(z0, "float32")).all()        # the plan itself runs
