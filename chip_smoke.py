@@ -39,7 +39,10 @@ no result, when there is no card.  Phases, each printing its lines:
    batches = 14 steps) with the launch counters of K3-K6 read around it, a
    checkpoint round trip, and its first step (the seeded weights) held
    against the same step with ``fused_train=False``;
-7. times of K3-K6 against their twins (CUDA events), K3 against the library
+7. times of K3-K6 against their twins (CUDA events; K6 also split by the
+   profiler into its reverse sweep and its contraction, with its plan, and
+   the contraction alone held to its plain version on a random workspace of
+   the training shape's plan and timed), K3 against the library
    with its plan and split as in phase 4; K4 against the library's autograd
    backward, timed 7 times (min, median, max: cuDNN's time moves between
    calls), K4's sweep plan (C, R, units a CTA, shared memory, resident, warps
@@ -72,7 +75,8 @@ no result, when there is no card.  Phases, each printing its lines:
     of K3, K4, the draw, K8 and K9, ``w_std`` moving, and the first step held
     against the plain step under the same noise seed (the encoder's gradients
     in a second pair of steps whose loss leaves out KL_z);
-12. times of the draw, K7, K8 and K9 against their twins (K7 also an RHS
+12. times of the draw, K7, K8 and K9 against their twins (K9 split, planned
+    and its contraction held and timed as K6's in phase 7; K7 also an RHS
     evaluation, and its launch plan in both modes), of a Bayes request and a
     Bayes training step, a trace of Bayes steps, and one K8 + K9 pass at the
     daily shape (85 points, 336 evaluations) as a time only;
@@ -146,7 +150,10 @@ Bayes step's encoder gradients are held in a step whose loss leaves KL_z out
 (see ``train_end_to_end``).
 
 The last two lines are a JSON object of per-kernel results and
-``{"ok": true, "device": {...}}``.  Any failed check raises.
+``{"ok": true, "device": {...}}``.  K6/K9's entries carry their plan and
+their profiler split into sweep and contraction; the contraction has entries
+of its own (K6's form and K9's), launched once a backward.  Any failed check
+raises.
 """
 
 from __future__ import annotations
@@ -634,17 +641,19 @@ def train_end_to_end(dev, rng, tmp, ode_name="UONN", stats=True, windows=WINDOWS
     trainer.setup_training(lr=LR)
     steps = (WEEKS - 1) * len(loader)
     if bayes:
-        names = ("K3", "K4", "draw", "K8", "K9")
+        names = ("K3", "K4", "draw", "K8", "K9", "contraction")
         counters = (fused_gru_train.encoder_forward_cuda, fused_gru_train.encoder_backward_cuda,
                     fused_bayes.bayes_draw_cuda, fused_bayes_train.bayes_train_forward_cuda,
-                    fused_bayes_train.bayes_train_backward_cuda)
+                    fused_bayes_train.bayes_train_backward_cuda,
+                    fused_train.cotangent_contraction_cuda)
     else:
-        names = ("K3", "K4", "K5", "K6")
+        names = ("K3", "K4", "K5", "K6", "contraction")
         counters = (fused_gru_train.encoder_forward_cuda, fused_gru_train.encoder_backward_cuda,
-                    fused_train.train_forward_cuda, fused_train.train_backward_cuda)
+                    fused_train.train_forward_cuda, fused_train.train_backward_cuda,
+                    fused_train.cotangent_contraction_cuda)
     # the trajectory kernels' launches in the mode this run trains in
-    count = {n: "launches" if stats or n in ("K3", "K4", "draw") else "stream_launches"
-             for n in names}
+    count = {n: "launches" if stats or n in ("K3", "K4", "draw", "contraction")
+             else "stream_launches" for n in names}
     torch.cuda.synchronize()
     for n, c in zip(names, counters):
         setattr(c, count[n], 0)
@@ -823,6 +832,86 @@ def device_us_by_kernel(fn, n: int) -> dict:
     return by_name
 
 
+def backward_split(fn, n: int = 5) -> dict:
+    """A K6/K9 call split into its reverse sweep and its contraction (the
+    grouped launch and the sum of its partials), ms a call: each kernel's
+    mean over the launches a torch.profiler trace of ``n`` calls recorded (a
+    long-lived process's trace can drop some; each call launches each kernel
+    once); {} when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.events():
+        for key in ("train_backward_kernel", "train_contract_kernel", "train_reduce_kernel"):
+            if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name:
+                us, count = seen.get(key, (0.0, 0))
+                seen[key] = (us + e.time_range.elapsed_us(), count + 1)
+    if not seen:
+        return {}
+    ms = {k: us / count / 1e3 for k, (us, count) in seen.items()}
+    return {"sweep_ms": ms.get("train_backward_kernel", 0.0),
+            "contraction_ms": ms.get("train_contract_kernel", 0.0)
+            + ms.get("train_reduce_kernel", 0.0),
+            "launches_traced": {k: count for k, (_, count) in seen.items()}}
+
+
+def backward_plan_summary(plan) -> dict:
+    """The backward plan's numbers for the kernels line."""
+    return {"rows": plan.rows, "threads": plan.threads, "blocks": plan.blocks,
+            "smem_bytes": plan.smem_bytes, "workspace_floats_a_row": plan.F,
+            "workspace_MB": round(plan.ws_floats * 4 / 2 ** 20, 1),
+            "contraction_ctas": plan.ctas}
+
+
+def contraction_check(dev, like, bayes, B, smi, tag):
+    """The grouped contraction of K6 (K9 with ``bayes``) at the training
+    shape's plan, on a random workspace: held to its plain version in float64
+    within 1e-5 of the sum of its terms' magnitudes (float32 sums of 2,048
+    rows, then of 28 evaluations), timed against it (CUDA events, in turns)
+    with its bound: (max abs err, (plain ms, kernel ms), bound)."""
+    import torch
+    from fiude_tpu_torch.ops import fused_train
+    plan = fused_train.field_plan(B, WEEKS, like, bayes=bayes)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    ws = torch.randn(plan.ws_floats, device=dev, generator=gen)
+    tail = torch.randn(B, like.w0_tail.shape[0], device=dev, generator=gen)
+    z = torch.randn(plan.E, plan.P, device=dev, generator=gen) if bayes else None
+    faw = torch.randn(plan.blocks, 8, device=dev, generator=gen)
+    got = fused_train.cotangent_contraction_cuda(plan, ws, tail, z, faw)
+    args64 = [t.double() if t is not None else None for t in (ws, tail, z, faw)]
+    want = fused_train.cotangent_contraction_plain(plan, *args64)
+    scale = fused_train.cotangent_contraction_plain(
+        plan, *[t.abs() if t is not None else None for t in args64])
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{tag} contraction: non-finite output")
+    err = (got.double() - want).abs()
+    worst = (err / scale.clamp_min(1e-30)).max().item()
+    log(f"  {tag} contraction ({plan.ctas} CTAs) vs its plain version in float64: max abs err "
+        f"{err.max().item():.3g}, worst err / sum|terms| {worst:.3g} (held to 1e-5)")
+    if worst > 1e-5:
+        raise RuntimeError(f"{tag} contraction disagrees with its plain version")
+    if not torch.equal(got, fused_train.cotangent_contraction_cuda(plan, ws, tail, z, faw)):
+        raise RuntimeError(f"{tag} contraction: two launches differ")
+    times = in_turns(
+        lambda n: cuda_ms(lambda: fused_train.cotangent_contraction_plain(plan, ws, tail, z, faw),
+                          n),
+        lambda n: cuda_ms(lambda: fused_train.cotangent_contraction_cuda(plan, ws, tail, z, faw),
+                          n), 2, 10)
+    macs = sum(j.n_eval * plan.Bp * j.K * j.N for j in plan.jobs)
+    bound = bound_ms(2 * macs + (2 * plan.E * plan.P if bayes else 0),
+                     4 * (plan.ws_floats + tail.numel() + (z.numel() if bayes else 0)
+                          + faw.numel() + plan.grad_floats))
+    log(f"  {tag} contraction: kernel {times[1]:.4f} ms, plain {times[0]:.4f} ms, bound "
+        f"{bound[0]:.4f} ms by {bound[1]} [{smi}]")
+    return err.max().item(), times, bound
+
+
 def trajectory_plan_report(w, tag, R, DT, R_out, bayes, smi):
     """Print the plans K2 (K7 with ``bayes``) takes in both compute modes:
     threads, shared memory, resident or streamed weights, stages and chunks,
@@ -999,6 +1088,8 @@ def train_times(model, x, z0, step_inputs):
                                                       retain_graph=True), n),
         lambda n: cuda_ms(lambda: fused_train.train_backward_cuda(
             traj, g_traj, tail0, w, fa_w, dts, tm, gstats, stats_mode=True), n), 3, 10))
+    out.append(backward_split(lambda: fused_train.train_backward_cuda(
+        traj, g_traj, tail0, w, fa_w, dts, tm, gstats, stats_mode=True)))
 
     out.append(step_times(step_inputs))
 
@@ -1343,6 +1434,8 @@ def bayes_times(dev, model, z0, z_train, forecaster, served, request, grid, step
         lambda n: cuda_ms(lambda: fused_bayes_train.bayes_train_backward_cuda(
             traj, g_traj, tail0, like, weff, wteff, z, fa_w, dts, tm, gstats, stats_mode=True),
             n), 2, 10)
+    out["K9_split"] = backward_split(lambda: fused_bayes_train.bayes_train_backward_cuda(
+        traj, g_traj, tail0, like, weff, wteff, z, fa_w, dts, tm, gstats, stats_mode=True))
     out["K8_bound"] = bound_ms(2 * Bt * E_w * hot, nbytes(head0, tail0, traj, weff))
     out["K9_bound"] = bound_ms(2 * Bt * E_w * 3 * hot + 2 * E_w * P,
                                nbytes(traj, g_traj, tail0, weff, z, head0, tail0) + 8 * P)
@@ -1490,6 +1583,8 @@ def stream_times(dev, model, bayes, z_train):
         lambda n: cuda_ms(lambda: fused_train.train_backward_cuda(
             traj, g[0], tail0, w, fa_w, dts, g_rates=g[1], g_fa=g[2]), n), 3, 10)
     hot, tail_macs = field_macs(w, False), w.w0_tail.numel()
+    out["K6_split"] = backward_split(lambda: fused_train.train_backward_cuda(
+        traj, g[0], tail0, w, fa_w, dts, g_rates=g[1], g_fa=g[2]))
     out["K5_bound"] = bound_ms(2 * B * (4 * (T - 1) * hot + tail_macs),
                                nbytes(head0, tail0, traj, rates, fa) + field_bytes(w))
     out["K6_bound"] = bound_ms(2 * B * 3 * (4 * (T - 1) * hot + tail_macs),
@@ -1519,6 +1614,8 @@ def stream_times(dev, model, bayes, z_train):
         lambda n: cuda_ms(lambda: fused_bayes_train.bayes_train_backward_cuda(
             traj, g[0], tail0, like, weff, wteff, z, fa_w, dts, g_rates=g[1], g_fa=g[2]), n),
         2, 10)
+    out["K9_split"] = backward_split(lambda: fused_bayes_train.bayes_train_backward_cuda(
+        traj, g[0], tail0, like, weff, wteff, z, fa_w, dts, g_rates=g[1], g_fa=g[2]))
     hot = field_macs(like, True)
     out["K8_bound"] = bound_ms(2 * B * E * hot, nbytes(head0, tail0, traj, rates, fa, weff))
     out["K9_bound"] = bound_ms(2 * B * E * 3 * hot + 2 * E * P,
@@ -1858,7 +1955,9 @@ def main() -> int:
 
     from fiude_tpu_torch.models import UDEForecaster
     from fiude_tpu_torch.models.vae import reparam
-    from fiude_tpu_torch.ops import _build, fused_bayes, fused_gru, fused_gru_train, fused_ude
+    from fiude_tpu_torch.ops import (
+        _build, fused_bayes, fused_gru, fused_gru_train, fused_train, fused_ude,
+    )
     from fiude_tpu_torch.train import load_params, save_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2027,6 +2126,7 @@ def main() -> int:
     log(f"phase 7: training times on {card}")
     times = train_times(model, x, z_train, step_inputs)
     (k3_plain, k3_ms), (k4_plain, k4_ms), (k5_plain, k5_ms), (k6_plain, k6_ms) = times[:4]
+    k6_split = times.pop(4)
     step_plain, step_ms = times[4]
     (k3_library, k4_library, k4_libraries), (k3_bound, k4_bound, k5_bound, k6_bound) = \
         times[5:]
@@ -2038,6 +2138,11 @@ def main() -> int:
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms{lib}, bound {bound[0]:.4f} ms "
             f"by {bound[1]} [{smi}]")
     log(f"  K3 / library {k3_ms / k3_library:.3f}, {k3_ms * 1e3 / T_IN:.3f} us a step [{smi}]")
+    k6_plan = fused_train.field_plan(z_train.shape[0], WEEKS, fused_ude.pack_field(model.ode))
+    log(f"  K6 plan: {backward_plan_summary(k6_plan)}; split of a call (torch.profiler, "
+        f"ms a launch of each kernel): {k6_split or 'no device time (not measured)'} [{smi}]")
+    k6c_err, k6c_times, k6c_bound = contraction_check(dev, fused_ude.pack_field(model.ode),
+                                                      False, z_train.shape[0], smi, "K6")
     log(f"  K4 library backward, 7 timings of 10 calls: min {k4_libraries[0]:.4f} ms, median "
         f"{k4_library:.4f} ms, max {k4_libraries[-1]:.4f} ms; K4 / median "
         f"{k4_ms / k4_library:.3f}, K4 / min {k4_ms / k4_libraries[0]:.3f} [{smi}]")
@@ -2091,6 +2196,12 @@ def main() -> int:
         per = f" ({ms * 1e3 / (4 * (T_OUT - 1)):.2f} us an evaluation)" if key == "K7" else ""
         log(f"  {name}: kernel {ms:.4f} ms{per}, plain {plain:.4f} ms, bound {bound[0]:.4f} ms "
             f"by {bound[1]} [{smi}]")
+    k9_plan = fused_train.field_plan(z_train.shape[0], WEEKS,
+                                     fused_bayes.pack_bayes_field(bayes.ode).mean, bayes=True)
+    log(f"  K9 plan: {backward_plan_summary(k9_plan)}; split of a call (torch.profiler, "
+        f"ms a launch of each kernel): {bt['K9_split'] or 'no device time (not measured)'} [{smi}]")
+    k9c_err, k9c_times, k9c_bound = contraction_check(
+        dev, fused_bayes.pack_bayes_field(bayes.ode).mean, True, z_train.shape[0], smi, "K9")
     trajectory_plan_report(fused_bayes.pack_bayes_field(bayes.ode).mean, "K7", bayes.n_regions,
                            bayes.n_regions * (z0.shape[2] - 3), bayes.decoder.linear.out_features,
                            True, smi)
@@ -2122,6 +2233,9 @@ def main() -> int:
                       ("K9", "K9 Bayes trajectory backward")):
         log(f"  {name}, aux-streaming: kernel {st[key][1]:.4f} ms, plain {st[key][0]:.4f} ms, "
             f"bound {st[key + '_bound'][0]:.4f} ms by {st[key + '_bound'][1]} [{smi}]")
+        if key + "_split" in st:
+            log(f"    split (torch.profiler, ms a launch of each kernel): "
+                f"{st[key + '_split'] or 'no device time (not measured)'} [{smi}]")
     for tag, inputs in (("", s_step_inputs), ("Bayes ", sb_step_inputs)):
         plain, ms = step_times(inputs)
         log(f"  {tag}training step, aux-streaming ({BATCH} windows x {SAMPLES} samples, {WEEKS} "
@@ -2148,11 +2262,15 @@ def main() -> int:
     x_launches = experiment_runs(dev, smi)
     log(f"  run_experiment's UONN run launched {x_launches}")
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None,
+              **extra):
         return {"name": name, "route": "cuda", "source": f"fiude_tpu_torch/csrc/{source}",
                 "replaces": f"fiude_tpu/ops/{replaces}", "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": library_ms}
+                "bound_by": bound[1], "library_ms": library_ms, **extra}
+
+    k6_extra = {"plan": backward_plan_summary(k6_plan)}
+    k9_extra = {"plan": backward_plan_summary(k9_plan)}
 
     log(json.dumps({"kernels": [
         entry("fused_backgru", "fused_gru.cu", "pallas_gru.py:127", launches["K1"], k1_err,
@@ -2166,7 +2284,10 @@ def main() -> int:
         entry("fused_train_trajectory_forward", "fused_train.cu", "pallas_train.py:654",
               train_launches["K5"], k5_err, k5_ms, k5_plain, k5_bound),
         entry("fused_train_trajectory_backward", "fused_train.cu", "pallas_train.py:728",
-              train_launches["K6"], k6_err, k6_ms, k6_plain, k6_bound),
+              train_launches["K6"], k6_err, k6_ms, k6_plain, k6_bound, split=k6_split,
+              **k6_extra),
+        entry("fused_train_cotangent_contraction", "fused_train.cu", "pallas_train.py:504",
+              train_launches["contraction"], k6c_err, k6c_times[1], k6c_times[0], k6c_bound),
         entry("fused_bayes_trajectory_decode", "fused_bayes.cu", "pallas_bayes.py:237",
               b_launches["K7"], k7_err, bt["K7"][1], bt["K7"][0], bt["K7_bound"]),
         entry("fused_bayes_train_trajectory_forward", "fused_train.cu",
@@ -2174,7 +2295,10 @@ def main() -> int:
               bt["K8_bound"]),
         entry("fused_bayes_train_trajectory_backward", "fused_train.cu",
               "pallas_bayes_train.py:712", bt_launches["K9"], k9_err, bt["K9"][1], bt["K9"][0],
-              bt["K9_bound"]),
+              bt["K9_bound"], split=bt["K9_split"], **k9_extra),
+        entry("fused_bayes_train_cotangent_contraction", "fused_train.cu",
+              "pallas_bayes_train.py:377", bt_launches["contraction"], k9c_err, k9c_times[1],
+              k9c_times[0], k9c_bound),
         entry("bayes_weight_draw", "fused_bayes.cu", "pallas_bayes_train.py:95",
               b_launches["draw"] + bt_launches["draw"], draw_err, bt["draw"][1], bt["draw"][0],
               bt["draw_bound"]),
@@ -2185,13 +2309,13 @@ def main() -> int:
               st["K5_bound"]),
         entry("fused_train_trajectory_backward[aux-streaming]", "fused_train.cu",
               "pallas_train.py:728", s_launches["K6"], s_err["K6"], st["K6"][1], st["K6"][0],
-              st["K6_bound"]),
+              st["K6_bound"], split=st["K6_split"], **k6_extra),
         entry("fused_bayes_train_trajectory_forward[aux-streaming]", "fused_train.cu",
               "pallas_bayes_train.py:627", sb_launches["K8"], s_err["K8"], st["K8"][1],
               st["K8"][0], st["K8_bound"]),
         entry("fused_bayes_train_trajectory_backward[aux-streaming]", "fused_train.cu",
               "pallas_bayes_train.py:712", sb_launches["K9"], s_err["K9"], st["K9"][1],
-              st["K9"][0], st["K9_bound"]),
+              st["K9"][0], st["K9_bound"], split=st["K9_split"], **k9_extra),
         entry("fused_trajectory_decode[bfloat16]", "fused_ude.cu", "pallas_ude.py:306",
               bf["launches"]["K2 bfloat16"], bf["K2_err"], bf["K2"][1], bf["K2"][0],
               bf["K2_bound"]),

@@ -20,11 +20,7 @@
 // evaluation is ~41.6k multiply-adds a row at the `state` config, and the
 // backward does ~15 evaluations' worth a step (3 recomputed stages, then 4
 // evaluations each recomputed with its activations kept, backpropagated to
-// the inputs, and contracted into the weight cotangents).  The TPU backward
-// sums weight cotangents in per-tile VMEM blocks; one block of the card holds
-// 227 KB of shared memory, not the 166 KB of hot weights' cotangents beside
-// the ~3x larger live set of the backward, and float atomics across blocks
-// would change the gradient's bits from run to run.
+// the inputs, and contracted into the weight cotangents).
 //
 // What the design does about it:
 //  * one block per tile of kTile = 16 ensemble rows (128 blocks at B = 2048),
@@ -32,18 +28,35 @@
 //  * state, stages, stage cotangents and every layer's pre- and
 //    post-activation stay in shared memory, feature-major ([feature][row]);
 //    ~210 KB a block in the backward at the `state` config, ~110 KB forward;
-//  * each block owns one slice of a partials buffer in global memory and
-//    adds its weight cotangents there, each element owned by one thread in
-//    every pass; the slices are summed after the launch (as the JAX package
-//    sums its per-tile blocks, pallas_train.py:806-810): no atomics, the same
-//    bits on every run;
-//  * the frozen tail's first-layer term is computed once; its cotangents
-//    (the tail's, the tail weights', the first bias's) are contracted once at
-//    the end from the first layer's cotangent summed over all evaluations;
+//  * the frozen tail's first-layer term is computed once;
 //  * the backward reads transposed copies of the weights ((out, in)), so the
 //    threads of a warp read consecutive addresses in both directions;
 //  * the statistics are accumulated per thread over the whole trajectory and
 //    reduced once per block, in a fixed order.
+//
+// The backward (K6, and K9 below) runs in two parts.  The reverse sweep's
+// products issue several steps' weight loads before their FMAs (kAheadFor:
+// a step waited ~400 cycles for its weights from L2).  The sweep forms no
+// weight cotangent: at every evaluation it writes the layer
+// inputs (the state, each net's part of the first layer's output, each inner
+// layer's output) and the pre-activation cotangents (the first layer's, each
+// deep layer's) of its rows to a workspace in global memory, coalesced and
+// evict-first, (E, Bp, F) floats, F = 972 at the `state` config (222 MB at
+// B = 2048, E = 28).  One grouped contraction launch then forms every weight
+// and bias cotangent as X^T D over the E x B rows: a CTA a (matrix, 64 x 64
+// output tile, evaluation), 4 x 4 outputs a thread, float32 FMAs in row
+// order; a second small launch adds each output's evaluations in order.  The
+// TPU kernel adds its cotangents per tile in VMEM (pallas_train.py:504-547);
+// a block of the card could hold 16 rows' worth beside the sweep's live set,
+// and adding them into a global slice a block at every evaluation cost K6
+// 1.0 ms and K9 8.2 ms (scripts/port_train_times.py --probe).  The frozen
+// tail's terms come from the first layer's cotangent summed over every
+// evaluation (kept in shared memory, d0sum): the tail's cotangent at the end
+// of the sweep, the tail weights' and the first bias's in the contraction.
+// No float atomics anywhere: the same bits on every run.  The plan (rows a
+// block, threads, shared memory, the workspace's segments, the contraction's
+// jobs, tiles and chunks) is ops/fused_train.py::backward_plan, the only
+// planner; the launchers check what the kernels rely on and refuse the rest.
 // All arithmetic is float32.  The kernels allocate nothing.
 //
 // Aux-streaming mode (stats_mode=False in the JAX package, its default;
@@ -72,13 +85,14 @@
 // kBayes:
 //  * the frozen tail's first-layer term is recomputed on every evaluation
 //    (the first layer is resampled), so the tail keeps its own shared buffer;
-//  * the tail's cotangent, the tail weights' and the first bias's are
-//    contracted on every evaluation, with that evaluation's weights; the
-//    tail's cotangent accumulates in the output rows the block owns;
-//  * a block's slice holds two cotangent sets: g_mean += g_w and, P floats
-//    further on, g_stdabs += g_w * z(e), with z(e) read at accumulation time
-//    (it cannot be formed from the summed g_mean); the sign of std is
-//    autograd's, outside the kernel;
+//  * the sweep adds the tail's cotangent into the rows the block owns on
+//    every evaluation, with that evaluation's weights;
+//  * the contraction forms each evaluation's cotangents G(e) = X(e)^T D(e)
+//    apart (a CTA an evaluation), the tail weights' with ztail and D0(e),
+//    and writes G(e) and z(e) * G(e) (z(e) read once a tile) for the
+//    cotangents of the packed means and |stds|: g_mean = sum_e G(e),
+//    g_stdabs = sum_e z(e) * G(e) (it cannot be formed from the summed
+//    g_mean); the sign of std is autograd's, outside the kernel;
 //  * no per-block copy of any weight: the Bayes backward uses the shared
 //    memory of K6 less the summed first-layer cotangent plus the tail
 //    (216,320 bytes a block at the `state` config, K6 208,832).
@@ -101,15 +115,26 @@ struct Net {
   const float* w[kMaxDeep];     // (in, out)
   const float* wt[kMaxDeep];    // (out, in)
   const float* b[kMaxDeep];
-  size_t gw[kMaxDeep], gb[kMaxDeep];   // offsets of the cotangents in a slice
+  size_t gw[kMaxDeep], gb[kMaxDeep];   // the packed offsets of its (w, b)
+};
+
+// The backward's workspace (ops/fused_train.py::backward_plan, checked by the
+// launcher), which the sweep writes every evaluation's layer inputs and
+// pre-activation cotangents to: float offsets of the segments in a row of F
+// floats, rows padded to Bp.
+struct Sweep {
+  int Bp, F, N0p;
+  int u, h0fp, h0aug, d0;                     // segments
+  int fp_post[kMaxDeep], aug_post[kMaxDeep], fp_d[kMaxDeep], aug_d[kMaxDeep];
+  float* ws;       // (E, Bp, F), then K6's summed first-layer cotangent (Bp, N0p)
+  float* faw;      // (blocks, kStats): each block's share of fa_w's cotangent
 };
 
 // With kBayes every weight pointer is that of evaluation 0 in a buffer of
-// effective weights (E, P) (the transposes likewise), and the offsets of the
-// cotangent slice are also the packed offsets of the arrays in P.
+// effective weights (E, P) (the transposes likewise), at the arrays' packed
+// offsets.
 struct Args {
   size_t P;            // floats of one evaluation's packed weights
-  const float* z;      // (E, P) the evaluations' noise (kBayes backward only)
   int B, T, R, DT, N0, n0_fp;
   int dmax;            // the widest layer after the first
   const float* w0h;    // (3R, N0)
@@ -121,7 +146,7 @@ struct Args {
   const float* dts;    // (T-1)
   const float* tmask;  // (T-1)
   const float* fa_w;   // scalar
-  size_t g_w0h, g_w0t, g_b0, g_faw, n_grad;   // slice layout
+  size_t g_w0h, g_w0t, g_b0;   // packed offsets
   // aux-streaming mode (stream_aux): no statistics and no tmask; the forward
   // writes every evaluation's aux, the backward reads its cotangents (either
   // may be absent: a family without that net, or a loss that never read it)
@@ -130,6 +155,7 @@ struct Args {
   float* fa_out;         // (E, B, 3R)
   const float* g_rates;  // (E, B, 2R)
   const float* g_fa;     // (E, B, 3R)
+  Sweep sw;              // the backward's plan and workspace
 };
 
 // Per-net activation buffers: pre[d] for every layer after the first,
@@ -160,10 +186,6 @@ __device__ __forceinline__ void fma4(float4& acc, const float4& x, float w) {
   acc.x += x.x * w; acc.y += x.y * w; acc.z += x.z * w; acc.w += x.w * w;
 }
 
-__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
 // pre = in @ W + (addend ? addend : bias); post (if given) = ELU(pre) on the
 // columns < split when act_lo and >= split when act_hi, pre elsewhere.
 // Ends with a barrier.
@@ -187,89 +209,120 @@ __device__ void dense(const float* __restrict__ W, const float* __restrict__ bia
   __syncthreads();
 }
 
-// out (+)= (delta @ W^T) [* elu'(pre) when act], Wt (N, K) = W^T row-major.
-// Ends with a barrier.
-__device__ void dense_back(const float* __restrict__ Wt, const float4* delta, int N, int K,
-                           float4* out, const float4* pre, bool act, bool accumulate) {
-  for (int it = threadIdx.x; it < K * kG; it += blockDim.x) {
-    const int k = it % K, g = it / K;
-    float4 acc = splat(0.f);
-    const float4* d4 = delta + g;
-#pragma unroll 4
-    for (int j = 0; j < N; ++j) fma4(acc, d4[j * kG], __ldg(Wt + (size_t)j * K + k));
-    if (act) {
-      const float4 h = pre[k * kG + g];
-      acc.x *= elu_grad(h.x); acc.y *= elu_grad(h.y);
-      acc.z *= elu_grad(h.z); acc.w *= elu_grad(h.w);
+// ---- the backward's products (K5/K8 keep dense above) -------------------------
+//
+// A product out[col][rows] = sum_k x[k][rows] * W[k * ldw + col] over the
+// tile's 16 rows: a thread an output column of 4 rows (one weight and one
+// 16-byte load of activations a step), each thread issuing the loads of
+// kAhead steps of its sum before their FMAs.  A step's weights come from L2
+// (~400 cycles): issued a step at a time, every step waited for them
+// (scripts/port_train_times.py --probe: 350-650 cycles a step in every
+// product).  The sum's order is the steps' order either way.  kAhead is
+// measured per kernel: 8 for K6; 1 for K9, whose evaluations each read new
+// weights and whose deeper loops ran slower.  Register tiles of 4 rows x 4
+// columns on split lanes were no faster in either kernel and are not kept
+// (PERF.md, Findings).  The weights come through L1 at
+// any alignment: K9 reads them at their packed offsets in the draw's buffer.
+template <bool kBayes>
+constexpr int kAheadFor = kBayes ? 1 : 8;
+
+// Column col's sum for the 4 rows of group g starts at init(col, g), as
+// dense's starts at its bias or addend: with the same FMAs in the same order,
+// the backward's recomputed stages are the forward's bit for bit, so a state
+// freezes at the same stage in both.  `epi(col, g, v)` gets the 4 sums.  No
+// barrier.
+template <int kAhead, class Init, class Epi>
+__device__ __forceinline__ void product(const float4* x, const float* __restrict__ W, int ldw,
+                                        int K, int N, Init init, Epi epi) {
+  for (int it = threadIdx.x; it < N * kG; it += blockDim.x) {
+    const int j = it % N, g = it / N;
+    float4 acc = init(j, g);
+    int k = 0;
+    for (; k + kAhead <= K; k += kAhead) {
+      float w[kAhead];
+      float4 xv[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        w[u] = __ldg(W + (size_t)(k + u) * ldw + j);
+        xv[u] = x[(k + u) * kG + g];
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) fma4(acc, xv[u], w[u]);
     }
-    if (accumulate) {
-      const float4 o = out[k * kG + g];
-      acc.x += o.x; acc.y += o.y; acc.z += o.z; acc.w += o.w;
-    }
-    out[k * kG + g] = acc;
+    for (; k < K; ++k) fma4(acc, x[k * kG + g], __ldg(W + (size_t)k * ldw + j));
+    const float v[4] = {acc.x, acc.y, acc.z, acc.w};
+    epi(j, g, v);
   }
+}
+
+__device__ __forceinline__ float4 elu4(float4 v) {
+  return make_float4(eluf(v.x), eluf(v.y), eluf(v.z), eluf(v.w));
+}
+
+// dense's function with the backward's products.  Ends with a barrier.
+template <int kAhead>
+__device__ void dense_t(const float* __restrict__ W, const float* __restrict__ bias,
+                        const float4* addend, const float4* in, int K, int N, float4* pre,
+                        float4* post, int split, bool act_lo, bool act_hi) {
+  product<kAhead>(in, W, N, K, N, [&](int col, int rg) {
+    return addend ? addend[col * kG + rg] : splat(__ldg(bias + col));
+  }, [&](int col, int rg, const float (&v)[4]) {
+    const float4 o = make_float4(v[0], v[1], v[2], v[3]);
+    pre[col * kG + rg] = o;
+    if (post) post[col * kG + rg] = (col < split ? act_lo : act_hi) ? elu4(o) : o;
+  });
   __syncthreads();
 }
 
-// This block's slice: gw (K, N) += x^T delta, gb (N) += column sums of delta,
-// over the tile's rows.  Each element has one owner thread.  With kBayes the
-// std cotangents, P floats further on, take the same sums times this
-// evaluation's noise zw (K, N), zb (N).
-template <bool kBayes>
-__device__ void weight_grad(const float4* x, int K, const float4* delta, int N,
-                            float* __restrict__ gw, float* __restrict__ gb,
-                            const float* __restrict__ zw, const float* __restrict__ zb,
-                            size_t P) {
-  for (int it = threadIdx.x; it < K * N; it += blockDim.x) {
-    const int k = it / N, j = it % N;
-    float s = 0.f;
-#pragma unroll
-    for (int g = 0; g < kG; ++g) s += dot4(x[k * kG + g], delta[j * kG + g]);
-    gw[it] += s;
-    if (kBayes) gw[P + it] += s * __ldg(zw + it);
-  }
-  if (gb != nullptr) {
-    for (int j = threadIdx.x; j < N; j += blockDim.x) {
-      float s = 0.f;
-#pragma unroll
-      for (int g = 0; g < kG; ++g) {
-        const float4 d = delta[j * kG + g];
-        s += d.x + d.y + d.z + d.w;
-      }
-      gb[j] += s;
-      if (kBayes) gb[P + j] += s * __ldg(zb + j);
+// out (+)= (delta @ W^T) [* elu'(pre) when act], Wt (N, K) = W^T row-major,
+// with the backward's products.  Ends with a barrier.
+template <int kAhead>
+__device__ void dense_back_t(const float* __restrict__ Wt, const float4* delta, int N, int K,
+                             float4* out, const float4* pre, bool act, bool accumulate) {
+  product<kAhead>(delta, Wt, K, N, K, [](int, int) { return splat(0.f); },
+                  [&](int col, int rg, const float (&v)[4]) {
+    float4 o = make_float4(v[0], v[1], v[2], v[3]);
+    if (act) {
+      const float4 h = pre[col * kG + rg];
+      o.x *= elu_grad(h.x); o.y *= elu_grad(h.y); o.z *= elu_grad(h.z); o.w *= elu_grad(h.w);
     }
-  }
+    if (accumulate) {
+      const float4 p = out[col * kG + rg];
+      o.x += p.x; o.y += p.y; o.z += p.z; o.w += p.w;
+    }
+    out[col * kG + rg] = o;
+  });
+  __syncthreads();
 }
 
 // out (B, K) rows row0.. += delta @ W^T for the tile's valid rows, Wt (N, K):
 // the tail's cotangent, accumulated over evaluations in the rows this block
-// owns (kBayes).  Each element has one owner thread.
-__device__ void dense_back_rows(const float* __restrict__ Wt, const float4* delta, int N, int K,
-                                float* __restrict__ out, int row0, int valid) {
-  for (int it = threadIdx.x; it < K * kG; it += blockDim.x) {
-    const int k = it % K, g = it / K;
-    float4 acc = splat(0.f);
-    const float4* d4 = delta + g;
-#pragma unroll 4
-    for (int j = 0; j < N; ++j) fma4(acc, d4[j * kG], __ldg(Wt + (size_t)j * K + k));
-    const int r = 4 * g;
-    float* o = out + (size_t)(row0 + r) * K + k;
-    if (r < valid) o[0] += acc.x;
-    if (r + 1 < valid) o[K] += acc.y;
-    if (r + 2 < valid) o[2 * (size_t)K] += acc.z;
-    if (r + 3 < valid) o[3 * (size_t)K] += acc.w;
-  }
+// owns (kBayes).  Each element has one owner thread.  No barrier.
+template <int kAhead>
+__device__ void dense_back_rows_t(const float* __restrict__ Wt, const float4* delta, int N, int K,
+                                  float* __restrict__ out, int row0, int valid) {
+  product<kAhead>(delta, Wt, K, N, K, [](int, int) { return splat(0.f); },
+                  [&](int col, int rg, const float (&v)[4]) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (4 * rg + r < valid) out[(size_t)(row0 + 4 * rg + r) * K + col] += v[r];
+  });
 }
 
 // A net's layers after the first, reading `in` (width K), pre/post-activations
-// into `acts`.  Layer d's output is ELU'd for layer d+1 when d < n-2.
+// into `acts`.  Layer d's output is ELU'd for layer d+1 when d < n-2.  With
+// kBackward the products are the backward's (kAhead steps of loads ahead).
+template <bool kBackward, int kAhead>
 __device__ void net_forward(const Net& net, size_t woff, const float4* in, int K,
                             const Acts& acts) {
   for (int d = 0; d < net.n; ++d) {
     const bool last = d == net.n - 1;
-    dense(net.w[d] + woff, net.b[d] + woff, nullptr, in, K, net.out[d], acts.pre[d],
-          last ? nullptr : acts.post[d], net.out[d], d < net.n - 2, false);
+    if constexpr (kBackward)
+      dense_t<kAhead>(net.w[d] + woff, net.b[d] + woff, nullptr, in, K, net.out[d], acts.pre[d],
+                      last ? nullptr : acts.post[d], net.out[d], d < net.n - 2, false);
+    else
+      dense(net.w[d] + woff, net.b[d] + woff, nullptr, in, K, net.out[d], acts.pre[d],
+            last ? nullptr : acts.post[d], net.out[d], d < net.n - 2, false);
     in = acts.post[d];
     K = net.out[d];
   }
@@ -285,18 +338,29 @@ __device__ void store_tile(const float4* src, int B, int W, int row0, float* __r
 // term recomputed from them.  Where the aux streams are given (the forward
 // in aux-streaming mode) the evaluation's |rates| and Fa go to their rows
 // row0.. of slot e: the rates before the freeze mask, for frozen rows too.
-template <bool kBayes>
+// kBackward (the backward's recomputation) takes the backward's products.
+template <bool kBayes, bool kBackward>
 __device__ void rhs_eval(const Args& a, const Stash& st, const float4* zs, float4* field,
                          float fa_w, float m, int valid, float* stats, int e, int row0) {
   const bool mech = a.n0_fp > 0, has_aug = a.aug.n > 0;
   const size_t woff = kBayes ? a.P * (size_t)e : 0;
-  if (kBayes)
-    dense(a.w0t + woff, a.b0 + woff, nullptr, st.tail, a.DT, a.N0, st.ct, nullptr, 0, false,
-          false);
-  dense(a.w0h + woff, nullptr, st.ct, zs, 3 * a.R, a.N0, st.h0pre, st.h0post, a.n0_fp,
-        a.fp.n >= 2, a.aug.n >= 2);
-  if (mech) net_forward(a.fp, woff, st.h0post, a.n0_fp, st.fp);
-  if (has_aug) net_forward(a.aug, woff, st.h0post + a.n0_fp * kG, a.N0 - a.n0_fp, st.aug);
+  constexpr int kAhead = kAheadFor<kBayes>;
+  if constexpr (kBackward) {
+    if (kBayes)
+      dense_t<kAhead>(a.w0t + woff, a.b0 + woff, nullptr, st.tail, a.DT, a.N0, st.ct, nullptr, 0,
+                      false, false);
+    dense_t<kAhead>(a.w0h + woff, nullptr, st.ct, zs, 3 * a.R, a.N0, st.h0pre, st.h0post,
+                    a.n0_fp, a.fp.n >= 2, a.aug.n >= 2);
+  } else {
+    if (kBayes)
+      dense(a.w0t + woff, a.b0 + woff, nullptr, st.tail, a.DT, a.N0, st.ct, nullptr, 0, false,
+            false);
+    dense(a.w0h + woff, nullptr, st.ct, zs, 3 * a.R, a.N0, st.h0pre, st.h0post, a.n0_fp,
+          a.fp.n >= 2, a.aug.n >= 2);
+  }
+  if (mech) net_forward<kBackward, kAhead>(a.fp, woff, st.h0post, a.n0_fp, st.fp);
+  if (has_aug)
+    net_forward<kBackward, kAhead>(a.aug, woff, st.h0post + a.n0_fp * kG, a.N0 - a.n0_fp, st.aug);
   if (mech && a.rates_out != nullptr)
     store_tile(st.fp.pre[a.fp.n - 1], a.B, 2 * a.R, row0,
                a.rates_out + (size_t)e * a.B * 2 * a.R, true, true);
@@ -466,18 +530,18 @@ train_forward_kernel(const float* __restrict__ zh0, const float* __restrict__ zt
   const float third = 1.f / 3.f;
   for (int i = 0; i + 1 < a.T; ++i) {
     const float dt = a.dts[i], m = a.stream_aux ? 1.f : a.tmask[i];
-    rhs_eval<kBayes>(a, st, zh, k[0], fa_w, m, valid, stats, 4 * i + 0, row0);
+    rhs_eval<kBayes, false>(a, st, zh, k[0], fa_w, m, valid, stats, 4 * i + 0, row0);
     for (int e = threadIdx.x; e < n; e += blockDim.x) zsf[e] = zhf[e] + dt * k1[e] * third;
     __syncthreads();
-    rhs_eval<kBayes>(a, st, zs, k[1], fa_w, m, valid, stats, 4 * i + 1, row0);
+    rhs_eval<kBayes, false>(a, st, zs, k[1], fa_w, m, valid, stats, 4 * i + 1, row0);
     for (int e = threadIdx.x; e < n; e += blockDim.x)
       zsf[e] = zhf[e] + dt * (k2[e] - k1[e] * third);
     __syncthreads();
-    rhs_eval<kBayes>(a, st, zs, k[2], fa_w, m, valid, stats, 4 * i + 2, row0);
+    rhs_eval<kBayes, false>(a, st, zs, k[2], fa_w, m, valid, stats, 4 * i + 2, row0);
     for (int e = threadIdx.x; e < n; e += blockDim.x)
       zsf[e] = zhf[e] + dt * (k1[e] - k2[e] + k3[e]);
     __syncthreads();
-    rhs_eval<kBayes>(a, st, zs, k[3], fa_w, m, valid, stats, 4 * i + 3, row0);
+    rhs_eval<kBayes, false>(a, st, zs, k[3], fa_w, m, valid, stats, 4 * i + 3, row0);
     for (int e = threadIdx.x; e < n; e += blockDim.x)
       zhf[e] = zhf[e] + dt * (k1[e] + 3.f * (k2[e] + k3[e]) + k4[e]) * 0.125f;
     __syncthreads();
@@ -488,7 +552,11 @@ train_forward_kernel(const float* __restrict__ zh0, const float* __restrict__ zt
 }
 
 // ---------------------------------------------------------------------------
-// K6: backward.
+// K6 / K9: backward.  The reverse sweep (train_backward_kernel) recomputes
+// each step's stages, backpropagates every evaluation to the state and the
+// tail, and writes the evaluation's layer inputs and pre-activation
+// cotangents to the workspace; the contraction (train_contract_kernel, then
+// train_reduce_kernel) forms every weight and bias cotangent from them.
 // ---------------------------------------------------------------------------
 struct Grad {          // [feature][kTile] buffers of the reverse sweep
   float4 *zh, *u2, *u3, *u4;             // the step's stage inputs
@@ -498,53 +566,86 @@ struct Grad {          // [feature][kTile] buffers of the reverse sweep
   float4 *da, *db, *dc;                  // deep-layer cotangents
 };
 
+// The block's 16 rows of a row-major matrix (row stride ld, row0's first
+// element at dst) from a [W][kTile] buffer: a thread a float4 (one feature, 4
+// rows), its 4 rows stored apart, a warp's lanes on consecutive columns.
+// Evict-first, as the aux streams: the contraction reads them once.
+__device__ void store_rows(const float4* src, int W, float* __restrict__ dst, int ld) {
+  for (int it = threadIdx.x; it < W * kG; it += blockDim.x) {
+    const int f = it % W, g = it / W;
+    const float4 v = src[f * kG + g];
+    float* o = dst + (size_t)(4 * g) * ld + f;
+    __stcs(o, v.x);
+    __stcs(o + ld, v.y);
+    __stcs(o + 2 * (size_t)ld, v.z);
+    __stcs(o + 3 * (size_t)ld, v.w);
+  }
+}
+
+// Evaluation e's rows row0.. of a workspace segment.
+__device__ __forceinline__ float* ws_rows(const Args& a, int e, int seg, int row0) {
+  return a.sw.ws + ((size_t)e * a.sw.Bp + row0) * a.sw.F + seg;
+}
+
 // Backprop a net's layers after the first from `delta` (its last layer's
 // output cotangent, in buffer `x`), into the first layer's columns
-// [c0, c0 + K0) of g.d0; ping-pongs through x and y.
-template <bool kBayes>
-__device__ void net_backward(const Args& a, const Net& net, const Acts& acts,
-                             const Stash& st, int c0, int K0, float4* x, float4* y,
-                             const Grad& g, float* slice, size_t woff) {
-  const float* z = kBayes ? a.z + woff : nullptr;
+// [c0, c0 + K0) of g.d0; ping-pongs through x and y.  Each layer's cotangent
+// goes to evaluation e's segment seg_d[d] of the workspace.
+template <int kAhead>
+__device__ void net_backward(const Args& a, const Net& net, const Acts& acts, const Stash& st,
+                             int c0, int K0, float4* x, float4* y, const Grad& g, size_t woff,
+                             const int* seg_d, int e, int row0) {
   float4* delta = x;
   float4* other = y;
   for (int d = net.n - 1; d >= 0; --d) {
-    const float4* in = d == 0 ? st.h0post + c0 * kG : acts.post[d - 1];
     const float4* in_pre = d == 0 ? st.h0pre + c0 * kG : acts.pre[d - 1];
     const int K = d == 0 ? K0 : net.out[d - 1];
     const bool act = d == 0 ? net.n >= 2 : d - 1 < net.n - 2;
-    weight_grad<kBayes>(in, K, delta, net.out[d], slice + net.gw[d], slice + net.gb[d],
-                        z + net.gw[d], z + net.gb[d], a.P);
+    store_rows(delta, net.out[d], ws_rows(a, e, seg_d[d], row0), a.sw.F);
     float4* dst = d == 0 ? g.d0 + c0 * kG : other;
-    dense_back(net.wt[d] + woff, delta, net.out[d], K, dst, in_pre, act, false);
+    dense_back_t<kAhead>(net.wt[d] + woff, delta, net.out[d], K, dst, in_pre, act, false);
     other = delta;
     delta = dst;
   }
 }
 
-// VJP of one RHS evaluation at u: g.gu = d(field)/du^T g.gout, with every
-// weight cotangent added to this block's slice.  In stats mode the aux
-// cotangents are m * (g1 + 2 (rate - shift) g2) for the rates and
+// VJP of one RHS evaluation at u: g.gu = d(field)/du^T g.gout.  In stats mode
+// the aux cotangents are m * (g1 + 2 (rate - shift) g2) for the rates and
 // m * 2 g_f2 Fa for the Fa field (pallas_train.py:435-445); in aux-streaming
 // mode they are evaluation e's tiles of g_rates and g_fa, staged in g.da and
 // g.dc (free until the loop below writes the nets' cotangents there), zero
 // where a stream is absent.  The freeze mask zeroes the field's cotangent,
 // not the state's, and not the aux cotangent: a frozen row's rates and Fa
-// still reach the nets.  With kBayes the weights
-// (and the noise of the std cotangents) are evaluation e's, and the tail's
-// terms are contracted here, into g_ztail's rows row0...
+// still reach the nets.  The evaluation's layer inputs and pre-activation
+// cotangents go to the workspace; no weight cotangent is formed here.  K6
+// adds the first layer's cotangent to d0sum; K9, whose first layer is new
+// every evaluation, adds the tail's cotangent into g_ztail's rows row0...
 template <bool kBayes>
 __device__ void rhs_vjp(const Args& a, const Stash& st, const Grad& g, const float4* u,
-                        float fa_w, float m, const float* gs, int valid, float* slice,
-                        float& faw_acc, int e, float* __restrict__ g_ztail, int row0) {
+                        float fa_w, float m, const float* gs, int valid, float& faw_acc, int e,
+                        float* __restrict__ g_ztail, int row0) {
   const bool mech = a.n0_fp > 0, has_aug = a.aug.n > 0;
   const size_t woff = kBayes ? a.P * (size_t)e : 0;
-  const float* zn = kBayes ? a.z + woff : nullptr;
   const bool aux_rates = a.stream_aux && mech && a.g_rates != nullptr;
   const bool aux_fa = a.stream_aux && has_aug && a.g_fa != nullptr;
   if (aux_rates) load_tile(a.g_rates + (size_t)e * a.B * 2 * a.R, a.B, 2 * a.R, row0, g.da);
   if (aux_fa) load_tile(a.g_fa + (size_t)e * a.B * 3 * a.R, a.B, 3 * a.R, row0, g.dc);
-  rhs_eval<kBayes>(a, st, u, nullptr, fa_w, m, valid, nullptr, e, row0);   // ends in a barrier
+  rhs_eval<kBayes, true>(a, st, u, nullptr, fa_w, m, valid, nullptr, e, row0);  // ends in a barrier
+
+  // the layer inputs: the state, the first layer's output (each net's part),
+  // each inner layer's
+  const int F = a.sw.F;
+  store_rows(u, 3 * a.R, ws_rows(a, e, a.sw.u, row0), F);
+  if (mech) {
+    store_rows(st.h0post, a.n0_fp, ws_rows(a, e, a.sw.h0fp, row0), F);
+    for (int d = 0; d + 1 < a.fp.n; ++d)
+      store_rows(st.fp.post[d], a.fp.out[d], ws_rows(a, e, a.sw.fp_post[d], row0), F);
+  }
+  if (has_aug) {
+    store_rows(st.h0post + a.n0_fp * kG, a.N0 - a.n0_fp, ws_rows(a, e, a.sw.h0aug, row0), F);
+    for (int d = 0; d + 1 < a.aug.n; ++d)
+      store_rows(st.aug.post[d], a.aug.out[d], ws_rows(a, e, a.sw.aug_post[d], row0), F);
+  }
 
   const float* z = reinterpret_cast<const float*>(u);
   const float* go = reinterpret_cast<const float*>(g.gout);
@@ -599,26 +700,21 @@ __device__ void rhs_vjp(const Args& a, const Stash& st, const Grad& g, const flo
     gu[iR] = 0.f;
   }
   __syncthreads();
+  constexpr int kAhead = kAheadFor<kBayes>;
   if (mech)
-    net_backward<kBayes>(a, a.fp, st.fp, st, 0, a.n0_fp, g.da, g.db, g, slice, woff);
+    net_backward<kAhead>(a, a.fp, st.fp, st, 0, a.n0_fp, g.da, g.db, g, woff, a.sw.fp_d, e, row0);
   if (has_aug)
-    net_backward<kBayes>(a, a.aug, st.aug, st, a.n0_fp, a.N0 - a.n0_fp, g.dc, g.db, g, slice,
-                         woff);
-  // first layer: its weights' cotangent per evaluation; the bias and tail
-  // terms from the sum over evaluations (at the end) when the weights are
-  // fixed, per evaluation when they are resampled; the input cotangent
-  weight_grad<kBayes>(u, 3 * a.R, g.d0, a.N0, slice + a.g_w0h, nullptr, zn + a.g_w0h, nullptr,
-                      a.P);
+    net_backward<kAhead>(a, a.aug, st.aug, st, a.n0_fp, a.N0 - a.n0_fp, g.dc, g.db, g, woff,
+                         a.sw.aug_d, e, row0);
+  store_rows(g.d0, a.N0, ws_rows(a, e, a.sw.d0, row0), F);
   if (kBayes) {
-    weight_grad<true>(st.tail, a.DT, g.d0, a.N0, slice + a.g_w0t, slice + a.g_b0,
-                      zn + a.g_w0t, zn + a.g_b0, a.P);
-    dense_back_rows(a.w0tt + woff, g.d0, a.N0, a.DT, g_ztail, row0, valid);
+    dense_back_rows_t<kAhead>(a.w0tt + woff, g.d0, a.N0, a.DT, g_ztail, row0, valid);
   } else {
     float* d0sum = reinterpret_cast<float*>(g.d0sum);
     const float* d0 = reinterpret_cast<const float*>(g.d0);
     for (int q = threadIdx.x; q < a.N0 * kTile; q += blockDim.x) d0sum[q] += d0[q];
   }
-  dense_back(a.w0ht + woff, g.d0, a.N0, 3 * a.R, g.gu, nullptr, false, true);
+  dense_back_t<kAhead>(a.w0ht + woff, g.d0, a.N0, 3 * a.R, g.gu, nullptr, false, true);
 }
 
 size_t grad_features(const Args& a, bool bayes) {
@@ -635,14 +731,12 @@ template <bool kBayes>
 __global__ void __launch_bounds__(kThreads)
 train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ gtraj,
                       const float* __restrict__ ztail, const float* __restrict__ gstats,
-                      Args a, float* __restrict__ g_zhead, float* __restrict__ g_ztail,
-                      float* __restrict__ partials) {
+                      Args a, float* __restrict__ g_zhead, float* __restrict__ g_ztail) {
   extern __shared__ float4 smem[];
   const int W3 = 3 * a.R, B = a.B;
   const int row0 = blockIdx.x * kTile;
   const int valid = min(kTile, B - row0);
   const int tid = threadIdx.x;
-  float* slice = partials + (size_t)blockIdx.x * a.n_grad;
   const int dmax = a.dmax;
 
   Grad g;
@@ -665,7 +759,6 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
   float gs[5];
   for (int q = 0; q < 5; ++q) gs[q] = a.stream_aux ? 0.f : gstats[q];
 
-  for (size_t e = tid; e < a.n_grad; e += blockDim.x) slice[e] = 0.f;
   if (kBayes) {
     for (int e = tid; e < valid * a.DT; e += blockDim.x) g_ztail[(size_t)row0 * a.DT + e] = 0.f;
   } else {
@@ -675,7 +768,9 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
   load_tile(ztail, B, a.DT, row0, tail);
   load_tile(gtraj + (size_t)(a.T - 1) * B * W3, B, W3, row0, g.gz);
   __syncthreads();
-  if (!kBayes) dense(a.w0t, a.b0, nullptr, tail, a.DT, a.N0, st.ct, nullptr, 0, false, false);
+  constexpr int kAhead = kAheadFor<kBayes>;
+  if (!kBayes)
+    dense_t<kAhead>(a.w0t, a.b0, nullptr, tail, a.DT, a.N0, st.ct, nullptr, 0, false, false);
 
   const int n = W3 * kTile;
   float* zh = reinterpret_cast<float*>(g.zh);
@@ -696,13 +791,13 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
     load_tile(traj + (size_t)i * B * W3, B, W3, row0, g.zh);
     __syncthreads();
     // the stages, recomputed from the stored state (k1..k3 in gk1..gk3)
-    rhs_eval<kBayes>(a, st, g.zh, g.gk1, fa_w, m, valid, nullptr, 4 * i, row0);
+    rhs_eval<kBayes, true>(a, st, g.zh, g.gk1, fa_w, m, valid, nullptr, 4 * i, row0);
     for (int e = tid; e < n; e += blockDim.x) u2[e] = zh[e] + dt * gk1[e] * third;
     __syncthreads();
-    rhs_eval<kBayes>(a, st, g.u2, g.gk2, fa_w, m, valid, nullptr, 4 * i + 1, row0);
+    rhs_eval<kBayes, true>(a, st, g.u2, g.gk2, fa_w, m, valid, nullptr, 4 * i + 1, row0);
     for (int e = tid; e < n; e += blockDim.x) u3[e] = zh[e] + dt * (gk2[e] - gk1[e] * third);
     __syncthreads();
-    rhs_eval<kBayes>(a, st, g.u3, g.gk3, fa_w, m, valid, nullptr, 4 * i + 2, row0);
+    rhs_eval<kBayes, true>(a, st, g.u3, g.gk3, fa_w, m, valid, nullptr, 4 * i + 2, row0);
     for (int e = tid; e < n; e += blockDim.x) {
       u4[e] = zh[e] + dt * (gk1[e] - gk2[e] + gk3[e]);
       const float c = gz[e];
@@ -713,8 +808,7 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
       gacc[e] = c;
     }
     __syncthreads();
-    rhs_vjp<kBayes>(a, st, g, g.u4, fa_w, m, gs, valid, slice, faw_acc, 4 * i + 3, g_ztail,
-                    row0);
+    rhs_vjp<kBayes>(a, st, g, g.u4, fa_w, m, gs, valid, faw_acc, 4 * i + 3, g_ztail, row0);
     for (int e = tid; e < n; e += blockDim.x) {
       gacc[e] += gu[e];
       gk1[e] += dt * gu[e];
@@ -723,8 +817,7 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
       gout[e] = gk3[e];
     }
     __syncthreads();
-    rhs_vjp<kBayes>(a, st, g, g.u3, fa_w, m, gs, valid, slice, faw_acc, 4 * i + 2, g_ztail,
-                    row0);
+    rhs_vjp<kBayes>(a, st, g, g.u3, fa_w, m, gs, valid, faw_acc, 4 * i + 2, g_ztail, row0);
     for (int e = tid; e < n; e += blockDim.x) {
       gacc[e] += gu[e];
       gk2[e] += dt * gu[e];
@@ -732,16 +825,14 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
       gout[e] = gk2[e];
     }
     __syncthreads();
-    rhs_vjp<kBayes>(a, st, g, g.u2, fa_w, m, gs, valid, slice, faw_acc, 4 * i + 1, g_ztail,
-                    row0);
+    rhs_vjp<kBayes>(a, st, g, g.u2, fa_w, m, gs, valid, faw_acc, 4 * i + 1, g_ztail, row0);
     for (int e = tid; e < n; e += blockDim.x) {
       gacc[e] += gu[e];
       gk1[e] += dt * gu[e] * third;
       gout[e] = gk1[e];
     }
     __syncthreads();
-    rhs_vjp<kBayes>(a, st, g, g.zh, fa_w, m, gs, valid, slice, faw_acc, 4 * i + 0, g_ztail,
-                    row0);
+    rhs_vjp<kBayes>(a, st, g, g.zh, fa_w, m, gs, valid, faw_acc, 4 * i + 0, g_ztail, row0);
     for (int e = tid; e < n; e += blockDim.x) gacc[e] += gu[e];
     __syncthreads();
     load_tile(gtraj + (size_t)i * B * W3, B, W3, row0, g.gout);
@@ -751,21 +842,193 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
   }
   store_tile(g.gz, B, W3, row0, g_zhead);
 
-  // the tail's terms, from the first layer's cotangent summed over every
-  // evaluation: g_tail = d0sum @ W0t^T, g_W0t += tail^T d0sum, g_b0 += sums
-  // (with kBayes they were contracted on every evaluation)
+  // K6's tail: the first layer's cotangent summed over every evaluation goes
+  // to the workspace for the tail weights' and the first bias's cotangents,
+  // and gives the tail's own, g_tail = d0sum @ W0t^T (with kBayes it was
+  // added on every evaluation)
   if (!kBayes) {
+    const size_t E = 4 * (size_t)(a.T - 1);
+    store_rows(g.d0sum, a.N0, a.sw.ws + E * a.sw.Bp * a.sw.F + (size_t)row0 * a.sw.N0p,
+               a.sw.N0p);
     load_tile(ztail, B, a.DT, row0, tail);
     __syncthreads();
-    weight_grad<false>(tail, a.DT, g.d0sum, a.N0, slice + a.g_w0t, slice + a.g_b0, nullptr,
-                       nullptr, 0);
-    __syncthreads();
-    dense_back(a.w0tt, g.d0sum, a.N0, a.DT, tail, nullptr, false, false);
+    dense_back_t<kAhead>(a.w0tt, g.d0sum, a.N0, a.DT, tail, nullptr, false, false);
     store_tile(tail, B, a.DT, row0, g_ztail);
   }
   __syncthreads();
   // blockDim floats from the start of shared memory (>= 38 * kTile floats)
-  block_sum(&faw_acc, 1, reinterpret_cast<float*>(smem), slice + a.g_faw);
+  block_sum(&faw_acc, 1, reinterpret_cast<float*>(smem), a.sw.faw + (size_t)blockIdx.x * kStats);
+}
+
+// ---- the weight cotangents: one grouped contraction -------------------------
+//
+// Job j is one weight matrix (K, N) and its bias: G = sum over rows of
+// X^T D, X the matrix's input rows (K wide), D its pre-activation cotangent
+// rows (N wide), both from the workspace (K6/K9's tail weights: X = ztail,
+// D = K6's summed first-layer cotangent, or K9's of each evaluation), and the
+// bias's cotangent the column sums of D.  A CTA owns (job, 64 x 64 output
+// tile, one evaluation's Bp rows): a thread 4 x 4 outputs, the rows streamed
+// 16 at a time through shared memory (X and D as float4 rows, the next step's
+// loads issued before this step's FMAs), IEEE float32 FMAs in row order.  It
+// writes its evaluation's partial tile (kBayes: and z(e) times it, z(e) read
+// once a tile) to the partials; train_reduce_kernel then sums each output's
+// partials over the evaluations in order.  No atomics: the same bits on
+// every run.
+constexpr int kCT = 64;               // a CTA's output tile: kCT x kCT
+constexpr int kCRows = 16;            // rows a step
+constexpr int kCThreads = 256;
+constexpr int kMaxJobs = 2 + 2 * kMaxDeep;
+
+struct Job {
+  int K, N;                  // widths of X and D: the cotangent is (K, N)
+  int xsrc;                  // 0: X from the workspace, 1: X = ztail (B, xld)
+  int xld, dld;              // row strides (floats)
+  long long xoff, doff;      // float offsets of evaluation 0's first row
+  long long estride;         // floats from one evaluation's rows to the next's
+  int n_eval, kt, nt, cta0;  // evaluations (each a chunk of Bp rows), tiles, first CTA
+  long long part, bpart;     // offsets of the partials [n_eval][K][N], [n_eval][N] (-1: none)
+  long long gw, gb;          // offsets in the packed layout (gb -1: no bias)
+};
+
+struct Contract {
+  int n_jobs, B, Bp, ctas, blocks;
+  long long P, part_total;   // packed floats; floats of one set of partials
+  Job job[kMaxJobs];
+};
+
+template <bool kBayes>
+__global__ void __launch_bounds__(kCThreads)
+train_contract_kernel(const __grid_constant__ Contract c, const float* __restrict__ ws,
+                      const float* __restrict__ ztail, const float* __restrict__ z,
+                      float* __restrict__ part) {
+  __shared__ __align__(16) float xs[2][kCRows][kCT];
+  __shared__ __align__(16) float ds[2][kCRows][kCT];
+  int j = 0;
+  while (j + 1 < c.n_jobs && (int)blockIdx.x >= c.job[j + 1].cta0) ++j;
+  const Job& jb = c.job[j];
+  int local = (int)blockIdx.x - jb.cta0;
+  const int e = local % jb.n_eval;
+  local /= jb.n_eval;
+  const int k0 = (local / jb.nt) * kCT, n0 = (local % jb.nt) * kCT;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lr = tid >> 4, kx = k0 + 4 * (tid & 15), nd = n0 + 4 * (tid & 15);
+  const bool bias = k0 == 0 && jb.gb >= 0;
+  const float* xe = ws + jb.xoff + (long long)e * jb.estride;
+  const float* de = ws + jb.doff + (long long)e * jb.estride;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  auto load = [&](int b, float4& xv, float4& dv) {
+    if (jb.xsrc == 0) {
+      xv = kx < jb.K ? __ldg(reinterpret_cast<const float4*>(xe + (size_t)b * jb.xld + kx)) : zero;
+    } else {
+      float t[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        t[i] = b < c.B && kx + i < jb.K ? __ldg(ztail + (size_t)b * jb.xld + kx + i) : 0.f;
+      xv = make_float4(t[0], t[1], t[2], t[3]);
+    }
+    dv = nd < jb.N ? __ldg(reinterpret_cast<const float4*>(de + (size_t)b * jb.dld + nd)) : zero;
+  };
+
+  float acc[16], bacc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  float4 xv, dv;
+  load(lr, xv, dv);
+  const int steps = c.Bp / kCRows;
+  for (int s = 0; s < steps; ++s) {
+    const int buf = s & 1;
+    *reinterpret_cast<float4*>(&xs[buf][lr][4 * (tid & 15)]) = xv;
+    *reinterpret_cast<float4*>(&ds[buf][lr][4 * (tid & 15)]) = dv;
+    __syncthreads();
+    if (s + 1 < steps) load((s + 1) * kCRows + lr, xv, dv);
+#pragma unroll
+    for (int r = 0; r < kCRows; ++r) {
+      const float4 xa = *reinterpret_cast<const float4*>(&xs[buf][r][4 * ty]);
+      const float4 da = *reinterpret_cast<const float4*>(&ds[buf][r][4 * tx]);
+      const float xr[4] = {xa.x, xa.y, xa.z, xa.w}, dr[4] = {da.x, da.y, da.z, da.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[4 * i + q] = fmaf(xr[i], dr[q], acc[4 * i + q]);
+    }
+    if (bias) {               // row ty of the step: each row once a column
+      const float4 da = *reinterpret_cast<const float4*>(&ds[buf][ty][4 * tx]);
+      bacc[0] += da.x; bacc[1] += da.y; bacc[2] += da.z; bacc[3] += da.w;
+    }
+  }
+
+  const int K = jb.K, N = jb.N;
+  const float* ze = kBayes ? z + (long long)e * c.P : nullptr;
+  float* pw = part + jb.part + (size_t)e * K * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + 4 * ty + i;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = n0 + 4 * tx + q;
+      if (k >= K || col >= N) continue;
+      const size_t o = (size_t)k * N + col;
+      pw[o] = acc[4 * i + q];
+      if (kBayes) pw[c.part_total + o] = acc[4 * i + q] * __ldg(ze + jb.gw + o);
+    }
+  }
+  if (bias) {                 // the 16 row classes' sums, added in order
+    __syncthreads();
+    float* red = &xs[0][0][0];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) red[ty * kCT + 4 * tx + q] = bacc[q];
+    __syncthreads();
+    if (tid < kCT && n0 + tid < N) {
+      float sum = 0.f;
+      for (int t = 0; t < 16; ++t) sum += red[t * kCT + tid];
+      float* pb = part + jb.bpart + (size_t)e * N + n0 + tid;
+      pb[0] = sum;
+      if (kBayes) pb[c.part_total] = sum * __ldg(ze + jb.gb + n0 + tid);
+    }
+  }
+}
+
+// Each packed cotangent (kBayes: the means', then the |std|s') as the sum of
+// its partials over the evaluations in order; fa_w's as the blocks' shares
+// in order, after them.
+template <bool kBayes>
+__global__ void __launch_bounds__(256)
+train_reduce_kernel(const __grid_constant__ Contract c, const float* __restrict__ part,
+                    const float* __restrict__ faw, float* __restrict__ grads) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i == c.P) {
+    float sum = 0.f;
+    for (int b = 0; b < c.blocks; ++b) sum += faw[(size_t)b * kStats];
+    grads[(kBayes ? 2 : 1) * c.P] = sum;
+    return;
+  }
+  if (i > c.P) return;
+  const float* src = nullptr;
+  long long stride = 0;
+  int n = 0;
+  for (int j = 0; j < c.n_jobs && src == nullptr; ++j) {
+    const Job& jb = c.job[j];
+    const long long kn = (long long)jb.K * jb.N;
+    if (i >= jb.gw && i < jb.gw + kn) {
+      src = part + jb.part + (i - jb.gw);
+      stride = kn;
+      n = jb.n_eval;
+    } else if (jb.gb >= 0 && i >= jb.gb && i < jb.gb + jb.N) {
+      src = part + jb.bpart + (i - jb.gb);
+      stride = jb.N;
+      n = jb.n_eval;
+    }
+  }
+  if (src == nullptr) return;    // not reached: the plan covers every packed offset
+  float sum = 0.f;
+  for (int e = 0; e < n; ++e) sum += src[e * stride];
+  grads[i] = sum;
+  if (kBayes) {
+    float sd = 0.f;
+    for (int e = 0; e < n; ++e) sd += src[c.part_total + e * stride];
+    grads[c.P + i] = sd;
+  }
 }
 
 // Host side -------------------------------------------------------------------
@@ -786,7 +1049,7 @@ int fill_args(Args& a, int B, int T, const float* dts, const float* tmask,
               const void* w0t, const void* b0, int n_fp, const int* fp_out,
               const void* const* fp_w, const void* const* fp_wt, const void* const* fp_b,
               int n_aug, const int* aug_out, const void* const* aug_w,
-              const void* const* aug_wt, const void* const* aug_b, bool bayes = false) {
+              const void* const* aug_wt, const void* const* aug_b) {
   if (B < 1 || T < 1 || R < 1 || DT < 0 || N0 < 1 || n_fp < 0 || n_fp > kMaxDeep ||
       n_aug < 0 || n_aug > kMaxDeep || (n_fp > 0) != (n0_fp > 0) ||
       (n_aug > 0) != (N0 > n0_fp))
@@ -802,7 +1065,7 @@ int fill_args(Args& a, int B, int T, const float* dts, const float* tmask,
   a.dmax = 1;
   for (int d = 0; d < n_fp; ++d) a.dmax = fp_out[d] > a.dmax ? fp_out[d] : a.dmax;
   for (int d = 0; d < n_aug; ++d) a.dmax = aug_out[d] > a.dmax ? aug_out[d] : a.dmax;
-  // the cotangent slice: w0h, w0t, b0, each deep layer's (w, b), fa_w
+  // the packed layout: w0h, w0t, b0, each deep layer's (w, b)
   size_t off = 0;
   a.g_w0h = off; off += (size_t)3 * R * N0;
   a.g_w0t = off; off += (size_t)DT * N0;
@@ -820,14 +1083,11 @@ int fill_args(Args& a, int B, int T, const float* dts, const float* tmask,
     in = aug_out[d];
   }
   a.P = off;
-  if (bayes) off *= 2;       // the std cotangents follow the mean cotangents
-  a.g_faw = off; off += kStats;
-  a.n_grad = off;
   return cudaSuccess;
 }
 
 // Point the weights at evaluation 0 of the effective-weight buffers: the
-// packed offsets are the slice's.
+// packed offsets.
 void point_at(Args& a, const float* w, const float* wt) {
   a.w0h = w + a.g_w0h; a.w0t = w + a.g_w0t; a.b0 = w + a.g_b0;
   a.w0ht = wt != nullptr ? wt + a.g_w0h : nullptr;
@@ -867,36 +1127,231 @@ int launch_forward(const float* zh0, const float* ztail, const Args& a, float* t
   return cudaGetLastError();
 }
 
+// ---- the backward's plan ------------------------------------------------------
+//
+// ops/fused_train.py::backward_plan makes it, the only planner.  The launchers
+// read its ints (64-bit, BackwardPlan.flat()) and check what the kernels rely
+// on; they refuse any other plan.  In order:
+//   rows, threads, B, T, bayes, blocks, Bp, E, smem_bytes, F, N0p, ws_floats,
+//   ctas, part_total, P, grad_floats;
+//   n, then n workspace segments (kind, layer, offset, width);
+//   n, then n contraction jobs (K, N, xsrc, xld, xoff, dld, doff, estride,
+//     n_eval, kt, nt, cta0, part, bpart, gw, gb).
+enum SegKind { kSU, kSH0Fp, kSH0Aug, kSFpPost, kSAugPost, kSD0, kSFpD, kSAugD };
+constexpr int kMaxSegs = 4 + 4 * kMaxDeep;
+constexpr long long kSmemLimit = 232448;         // dynamic shared memory a block can use
+constexpr long long kMaxOffset = 1LL << 50;      // floats: any offset or size of the plan
+constexpr long long kMaxWidth = 1 << 16;         // floats: a width, a row stride
+static_assert(kCRows == kTile, "the contraction steps through a block's rows");
+
+struct PlanHead {
+  long long rows, threads, B, T, bayes, blocks, Bp, E, smem, F, N0p, ws_floats, ctas,
+      part_total, P, grad_floats;
+};
+struct Seg { long long kind, layer, off, width; };
+
+// The ints of a plan, read in order; `ok` turns false on reading past the
+// end or on a value outside [-1, kMaxOffset).
+struct Longs {
+  const long long* v;
+  int n, i;
+  bool ok;
+  long long get() {
+    const long long x = i < n ? v[i++] : -2;
+    ok = ok && x >= -1 && x < kMaxOffset;
+    return x;
+  }
+};
+
+long long round4(long long n) { return (n + 3) / 4 * 4; }
+
+// Whether n_eval x rows operand rows, `width` floats each at off + e * estride
+// + b * ld, lie inside [0, total).  All arguments below kMaxOffset.
+bool inside(long long off, long long estride, long long n_eval, long long ld, long long rows,
+            long long width, long long total) {
+  if (off < 0 || estride < 0 || ld < 0 || n_eval < 1 || rows < 1 || width < 1 ||
+      off + width > total)
+    return false;
+  long long room = total - off - width;
+  if (ld > 0) {
+    if (rows - 1 > room / ld) return false;
+    room -= (rows - 1) * ld;
+  }
+  return estride == 0 || n_eval - 1 <= room / estride;
+}
+
+bool apart(long long a0, long long a1, long long b0, long long b1) { return a1 <= b0 || b1 <= a0; }
+
+// Reads the plan of n ints at v into h, segs (ns of them) and c, and checks
+// what the contraction relies on: the header's counts consistent (the
+// blocks, the padded rows, E = 4(T-1), the packed cotangents' length, the
+// workspace at least the rows' floats and K6's summed first-layer cotangent,
+// shared memory within the limit); every segment inside a row, apart from
+// the others; every job's X and D rows inside the workspace (ztail: inside
+// its B rows of xld floats) at 16-byte alignment, its partials inside
+// part_total and apart from every other's, its CTAs following the previous
+// job's, one a 64 x 64 tile and evaluation; and the packed cotangents [0, P)
+// covered once by the jobs' weights and biases.
+bool read_plan(const long long* v, int n, bool bayes, PlanHead& h, Seg* segs, int& ns,
+               Contract& c) {
+  if (v == nullptr) return false;
+  Longs in{v, n, 0, true};
+  long long* head[] = {&h.rows, &h.threads, &h.B, &h.T, &h.bayes, &h.blocks, &h.Bp, &h.E,
+                       &h.smem, &h.F, &h.N0p, &h.ws_floats, &h.ctas, &h.part_total, &h.P,
+                       &h.grad_floats};
+  for (long long* f : head) *f = in.get();
+  if (!in.ok || h.rows != kTile || h.threads != kThreads || h.bayes != (bayes ? 1 : 0) ||
+      h.B < 1 || h.B > (1 << 26) || h.T < 2 || h.T > kMaxWidth ||
+      h.E != 4 * (h.T - 1) || h.blocks != (h.B + kTile - 1) / kTile ||
+      h.Bp != h.blocks * kTile || h.smem < 1 || h.smem > kSmemLimit || h.F < 1 ||
+      h.F > kMaxWidth || h.F % 4 || h.N0p < 0 || h.N0p > kMaxWidth || h.N0p % 4 || h.P < 1 ||
+      h.grad_floats != (bayes ? 2 : 1) * h.P + 1 || h.ctas < 1 || h.ctas > 0x7fffffff ||
+      h.ws_floats < h.E * h.Bp * h.F + (bayes ? 0 : h.Bp * h.N0p))
+    return false;
+
+  ns = (int)in.get();
+  if (!in.ok || ns < 1 || ns > kMaxSegs) return false;
+  for (int i = 0; i < ns; ++i) {
+    Seg& s = segs[i];
+    for (long long* f : {&s.kind, &s.layer, &s.off, &s.width}) *f = in.get();
+    if (!in.ok || s.kind < kSU || s.kind > kSAugD || s.layer < 0 || s.layer >= kMaxDeep ||
+        s.off < 0 || s.width < 1 || s.off + s.width > h.F)
+      return false;
+    for (int j = 0; j < i; ++j)
+      if (!apart(s.off, s.off + s.width, segs[j].off, segs[j].off + segs[j].width) ||
+          (s.kind == segs[j].kind && s.layer == segs[j].layer))
+        return false;
+  }
+
+  c = Contract{};
+  c.B = (int)h.B; c.Bp = (int)h.Bp; c.blocks = (int)h.blocks; c.ctas = (int)h.ctas;
+  c.P = h.P; c.part_total = h.part_total;
+  c.n_jobs = (int)in.get();
+  if (!in.ok || c.n_jobs < 1 || c.n_jobs > kMaxJobs) return false;
+  long long cta = 0, covered = 0;
+  long long parts[2 * kMaxJobs][2], packed[2 * kMaxJobs][2];
+  int n_parts = 0, n_packed = 0;
+  for (int j = 0; j < c.n_jobs; ++j) {
+    long long K, N, xsrc, xld, xoff, dld, doff, estride, n_eval, kt, nt, cta0, part, bpart, gw,
+        gb;
+    for (long long* f : {&K, &N, &xsrc, &xld, &xoff, &dld, &doff, &estride, &n_eval, &kt, &nt,
+                         &cta0, &part, &bpart, &gw, &gb})
+      *f = in.get();
+    if (!in.ok || K < 1 || K > kMaxWidth || N < 1 || N > kMaxWidth || n_eval < 1 ||
+        n_eval > h.E || kt != (K + kCT - 1) / kCT || nt != (N + kCT - 1) / kCT || cta0 != cta ||
+        (xsrc != 0 && xsrc != 1) || xld > kMaxWidth || dld > kMaxWidth || dld % 4 || doff % 4 ||
+        !inside(doff, estride, n_eval, dld, h.Bp, round4(N), h.ws_floats) ||
+        (gb < 0) != (bpart < 0))
+      return false;
+    if (xsrc == 0 ? xld % 4 || xoff % 4 ||
+                        !inside(xoff, estride, n_eval, xld, h.Bp, round4(K), h.ws_floats)
+                  : xld < K || xoff != 0)
+      return false;
+    cta += kt * nt * n_eval;
+    parts[n_parts][0] = part;
+    parts[n_parts++][1] = part + n_eval * K * N;
+    packed[n_packed][0] = gw;
+    packed[n_packed++][1] = gw + K * N;
+    covered += K * N;
+    if (gb >= 0) {
+      parts[n_parts][0] = bpart;
+      parts[n_parts++][1] = bpart + n_eval * N;
+      packed[n_packed][0] = gb;
+      packed[n_packed++][1] = gb + N;
+      covered += N;
+    }
+    Job& jb = c.job[j];
+    jb.K = (int)K; jb.N = (int)N; jb.xsrc = (int)xsrc; jb.xld = (int)xld; jb.dld = (int)dld;
+    jb.xoff = xoff; jb.doff = doff; jb.estride = estride; jb.n_eval = (int)n_eval;
+    jb.kt = (int)kt; jb.nt = (int)nt; jb.cta0 = (int)cta0;
+    jb.part = part; jb.bpart = bpart; jb.gw = gw; jb.gb = gb;
+  }
+  if (!in.ok || in.i != n || cta != h.ctas || covered != h.P) return false;
+  for (int i = 0; i < n_parts; ++i) {
+    if (parts[i][0] < 0 || parts[i][1] > h.part_total) return false;
+    for (int j = 0; j < i; ++j)
+      if (!apart(parts[i][0], parts[i][1], parts[j][0], parts[j][1])) return false;
+  }
+  for (int i = 0; i < n_packed; ++i) {       // apart and inside [0, P), summing to P
+    if (packed[i][0] < 0 || packed[i][1] > h.P) return false;
+    for (int j = 0; j < i; ++j)
+      if (!apart(packed[i][0], packed[i][1], packed[j][0], packed[j][1])) return false;
+  }
+  return true;
+}
+
+// Checks that the plan read by read_plan is for these widths (a), as the
+// sweep relies on: its batch, points and packed length; room for the shared
+// memory it carves and for K6's summed first-layer cotangent; and exactly
+// the segments the sweep writes, each as wide as it writes it.  Fills a.sw.
+bool sweep_plan(Args& a, bool bayes, const PlanHead& h, const Seg* segs, int ns) {
+  const long long carve = (long long)(grad_features(a, bayes) + stash_features(a)) * kTile * 4;
+  if (h.B != a.B || h.T != a.T || h.P != (long long)a.P || h.smem < carve ||
+      (!bayes && h.N0p < a.N0))
+    return false;
+  Sweep& sw = a.sw;
+  sw.Bp = (int)h.Bp;
+  sw.F = (int)h.F;
+  sw.N0p = (int)h.N0p;
+  int want = 0;
+  auto find = [&](int kind, int layer, int width) {
+    ++want;
+    for (int i = 0; i < ns; ++i)
+      if (segs[i].kind == kind && segs[i].layer == layer)
+        return segs[i].width == width ? (int)segs[i].off : -1;
+    return -1;
+  };
+  bool ok = (sw.u = find(kSU, 0, 3 * a.R)) >= 0 && (sw.d0 = find(kSD0, 0, a.N0)) >= 0;
+  sw.h0fp = sw.h0aug = -1;
+  if (a.fp.n) ok = ok && (sw.h0fp = find(kSH0Fp, 0, a.n0_fp)) >= 0;
+  if (a.aug.n) ok = ok && (sw.h0aug = find(kSH0Aug, 0, a.N0 - a.n0_fp)) >= 0;
+  for (int d = 0; d < a.fp.n; ++d) {
+    ok = ok && (sw.fp_d[d] = find(kSFpD, d, a.fp.out[d])) >= 0;
+    if (d + 1 < a.fp.n) ok = ok && (sw.fp_post[d] = find(kSFpPost, d, a.fp.out[d])) >= 0;
+  }
+  for (int d = 0; d < a.aug.n; ++d) {
+    ok = ok && (sw.aug_d[d] = find(kSAugD, d, a.aug.out[d])) >= 0;
+    if (d + 1 < a.aug.n) ok = ok && (sw.aug_post[d] = find(kSAugPost, d, a.aug.out[d])) >= 0;
+  }
+  return ok && want == ns;
+}
+
 template <bool kBayes>
 int launch_backward(const float* traj, const float* gtraj, const float* ztail,
-                    const float* gstats, const Args& a, float* g_zhead, float* g_ztail,
-                    float* partials, void* stream) {
-  const size_t smem = (grad_features(a, kBayes) + stash_features(a)) * kTile * sizeof(float);
+                    const float* gstats, Args& a, float* g_zhead, float* g_ztail,
+                    const long long* plan, int plan_len, float* ws, float* faw, void* stream) {
+  PlanHead h;
+  Seg segs[kMaxSegs];
+  int ns = 0;
+  Contract c;
+  if (!read_plan(plan, plan_len, kBayes, h, segs, ns, c) || !sweep_plan(a, kBayes, h, segs, ns) ||
+      ws == nullptr || faw == nullptr)
+    return cudaErrorInvalidValue;
+  a.sw.ws = ws;
+  a.sw.faw = faw;
   cudaError_t e = cudaFuncSetAttribute(train_backward_kernel<kBayes>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)h.smem);
   if (e != cudaSuccess) return e;
-  train_backward_kernel<kBayes><<<(a.B + kTile - 1) / kTile, kThreads, smem,
+  train_backward_kernel<kBayes><<<(a.B + kTile - 1) / kTile, kThreads, (size_t)h.smem,
                                   static_cast<cudaStream_t>(stream)>>>(
-      traj, gtraj, ztail, gstats, a, g_zhead, g_ztail, partials);
+      traj, gtraj, ztail, gstats, a, g_zhead, g_ztail);
+  return cudaGetLastError();
+}
+
+template <bool kBayes>
+int launch_contract(const Contract& c, const float* ws, const float* ztail, const float* z,
+                    const float* faw, float* part, float* grads, cudaStream_t s) {
+  train_contract_kernel<kBayes><<<c.ctas, kCThreads, 0, s>>>(c, ws, ztail, z, part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  train_reduce_kernel<kBayes><<<(unsigned)((c.P + 1 + 255) / 256), 256, 0, s>>>(c, part, faw,
+                                                                                grads);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
-
-// Floats of one block's cotangent slice in fused_train_backward's partials
-// (layout: w0h, w0t, b0, each fp layer's w then b, each aug layer's, then
-// fa_w padded to 8), for the wrapper to allocate and split.
-long long fused_train_grad_floats(int R, int DT, int N0, int n0_fp, int n_fp,
-                                  const int* fp_out, int n_aug, const int* aug_out) {
-  long long n = (long long)3 * R * N0 + (long long)DT * N0 + N0;
-  int in = n0_fp;
-  for (int d = 0; d < n_fp; ++d) { n += (long long)in * fp_out[d] + fp_out[d]; in = fp_out[d]; }
-  in = N0 - n0_fp;
-  for (int d = 0; d < n_aug; ++d) { n += (long long)in * aug_out[d] + aug_out[d]; in = aug_out[d]; }
-  return n + kStats;
-}
 
 int fused_train_blocks(int B) { return (B + kTile - 1) / kTile; }
 
@@ -924,14 +1379,15 @@ int fused_train_forward(const float* zh0, const float* ztail, int B, int T,
   return launch_forward<false>(zh0, ztail, a, traj, stats, stream);
 }
 
-// K6.  traj (T, B, 3R) from K5, gtraj its cotangent, ztail (B, DT), gstats (5)
-// the cotangents of the five statistics; weights (in, out) and their
-// transposes (out, in), w0ht (N0, 3R), w0tt (N0, DT).  Writes g_zhead
-// (B, 3R), g_ztail (B, DT) and partials (blocks, fused_train_grad_floats):
-// each block's share of every weight cotangent, summed by the caller.  With
-// aux_mode != 0 tmask and gstats are not read (null) and the aux cotangents
-// are g_rates (4(T-1), B, 2R) and g_fa (4(T-1), B, 3R), either null when the
-// loss never read that stream.
+// K6's reverse sweep.  traj (T, B, 3R) from K5, gtraj its cotangent, ztail
+// (B, DT), gstats (5) the cotangents of the five statistics; weights (in,
+// out) and their transposes (out, in), w0ht (N0, 3R), w0tt (N0, DT); the plan
+// of plan_len ints (ops/fused_train.py::backward_plan, refused unless
+// read_plan and sweep_plan take it for these widths).  Writes g_zhead (B, 3R), g_ztail
+// (B, DT), the workspace ws (the plan's ws_floats) and faw (blocks, 8): each
+// block's share of fa_w's cotangent.  With aux_mode != 0 tmask and gstats
+// are not read (null) and the aux cotangents are g_rates (4(T-1), B, 2R) and
+// g_fa (4(T-1), B, 3R), either null when the loss never read that stream.
 int fused_train_backward(const float* traj, const float* gtraj, const float* ztail,
                          int B, int T, const float* dts, const float* tmask,
                          const float* fa_w, const float* gstats, int R, int DT, int N0,
@@ -941,8 +1397,9 @@ int fused_train_backward(const float* traj, const float* gtraj, const float* zta
                          const void* const* fp_b, int n_aug, const int* aug_out,
                          const void* const* aug_w, const void* const* aug_wt,
                          const void* const* aug_b, float* g_zhead, float* g_ztail,
-                         float* partials, int aux_mode, const float* g_rates,
-                         const float* g_fa, void* stream) {
+                         int aux_mode, const float* g_rates, const float* g_fa,
+                         const long long* plan, int plan_len, float* ws, float* faw,
+                         void* stream) {
   Args a;
   int err = fill_args(a, B, T, dts, tmask, fa_w, R, DT, N0, n0_fp, w0h, w0t, b0, n_fp,
                       fp_out, fp_w, fp_wt, fp_b, n_aug, aug_out, aug_w, aug_wt, aug_b);
@@ -950,8 +1407,8 @@ int fused_train_backward(const float* traj, const float* gtraj, const float* zta
   a.w0ht = static_cast<const float*>(w0ht);
   a.w0tt = static_cast<const float*>(w0tt);
   if (aux_mode) stream_aux(a, nullptr, nullptr, g_rates, g_fa);
-  return launch_backward<false>(traj, gtraj, ztail, gstats, a, g_zhead, g_ztail, partials,
-                                stream);
+  return launch_backward<false>(traj, gtraj, ztail, gstats, a, g_zhead, g_ztail, plan, plan_len,
+                                ws, faw, stream);
 }
 
 // K8.  As fused_train_forward, with the weights of evaluation e = 4 * step +
@@ -968,7 +1425,7 @@ int fused_bayes_train_forward(const float* zh0, const float* ztail, int B, int T
   Args a;
   int err = fill_args(a, B, T, dts, tmask, fa_w, R, DT, N0, n0_fp, nullptr, nullptr, nullptr,
                       n_fp, fp_out, nullptr, nullptr, nullptr, n_aug, aug_out, nullptr, nullptr,
-                      nullptr, true);
+                      nullptr);
   if (err != cudaSuccess) return err;
   if ((long long)a.P != P) return cudaErrorInvalidValue;
   point_at(a, weff, nullptr);
@@ -976,30 +1433,52 @@ int fused_bayes_train_forward(const float* zh0, const float* ztail, int B, int T
   return launch_forward<true>(zh0, ztail, a, traj, stats, stream);
 }
 
-// K9.  As fused_train_backward, with weff, wteff (each matrix transposed in
-// its slot) and z (4(T-1), P) from fused_bayes_draw.  partials (blocks,
-// 2 P + 8): each block's share of the cotangents of the packed means, then of
-// the packed |std|s (g_w * z summed over the evaluations), then of fa_w.
-// aux_mode, g_rates and g_fa as in fused_train_backward.
+// K9's reverse sweep.  As fused_train_backward, with weff and wteff (each
+// matrix transposed in its slot) (4(T-1), P) from fused_bayes_draw, and the
+// Bayes plan; g_ztail gets the tail's cotangent summed over the evaluations.
 int fused_bayes_train_backward(const float* traj, const float* gtraj, const float* ztail,
                                int B, int T, const float* dts, const float* tmask,
                                const float* fa_w, const float* gstats, int R, int DT, int N0,
-                               int n0_fp, const float* weff, const float* wteff,
-                               const float* z, long long P, int n_fp, const int* fp_out,
-                               int n_aug, const int* aug_out, float* g_zhead, float* g_ztail,
-                               float* partials, int aux_mode, const float* g_rates,
-                               const float* g_fa, void* stream) {
+                               int n0_fp, const float* weff, const float* wteff, long long P,
+                               int n_fp, const int* fp_out, int n_aug, const int* aug_out,
+                               float* g_zhead, float* g_ztail, int aux_mode,
+                               const float* g_rates, const float* g_fa,
+                               const long long* plan, int plan_len, float* ws, float* faw,
+                               void* stream) {
   Args a;
   int err = fill_args(a, B, T, dts, tmask, fa_w, R, DT, N0, n0_fp, nullptr, nullptr, nullptr,
                       n_fp, fp_out, nullptr, nullptr, nullptr, n_aug, aug_out, nullptr, nullptr,
-                      nullptr, true);
+                      nullptr);
   if (err != cudaSuccess) return err;
   if ((long long)a.P != P) return cudaErrorInvalidValue;
   point_at(a, weff, wteff);
-  a.z = z;
   if (aux_mode) stream_aux(a, nullptr, nullptr, g_rates, g_fa);
-  return launch_backward<true>(traj, gtraj, ztail, gstats, a, g_zhead, g_ztail, partials,
-                               stream);
+  return launch_backward<true>(traj, gtraj, ztail, gstats, a, g_zhead, g_ztail, plan, plan_len,
+                               ws, faw, stream);
+}
+
+// The weight cotangents of K6 (bayes = 0) or K9 (bayes = 1) from a sweep's
+// workspace ws, ztail (B, DT), z (4(T-1), P) (K9's noise; null for K6) and
+// faw (blocks, 8), by the sweep's plan (plan_len ints, BackwardPlan.flat()):
+// two launches (the contraction, then the sum of its partials), the partials
+// in `part` (the plan's part_total floats, twice with bayes).  Writes grads:
+// the packed cotangents (P), with bayes then the packed |std|s' (P), then
+// fa_w's.
+int fused_train_contract(int bayes, const long long* plan, int plan_len, const float* ws,
+                         const float* ztail, const float* z, const float* faw, float* part,
+                         float* grads, void* stream) {
+  PlanHead h;
+  Seg segs[kMaxSegs];
+  int ns = 0;
+  Contract c;
+  if (!read_plan(plan, plan_len, bayes != 0, h, segs, ns, c) || ws == nullptr ||
+      faw == nullptr || part == nullptr || grads == nullptr || (bayes && z == nullptr))
+    return cudaErrorInvalidValue;
+  for (int j = 0; j < c.n_jobs; ++j)
+    if (c.job[j].xsrc == 1 && ztail == nullptr) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bayes ? launch_contract<true>(c, ws, ztail, z, faw, part, grads, s)
+               : launch_contract<false>(c, ws, ztail, z, faw, part, grads, s);
 }
 
 }  // extern "C"

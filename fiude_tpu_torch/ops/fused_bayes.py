@@ -49,8 +49,8 @@ from fiude_tpu_torch.models.rhs import out_of_range_mask, sir_field
 from fiude_tpu_torch.ops import _build, philox
 from fiude_tpu_torch.ops.fused_gru import FusedBackGRUEncoder
 from fiude_tpu_torch.ops.fused_ude import (
-    FieldWeights, _check_net, _later_layers, is_bf16, matmul, pack_layers, plan_for, plan_ints,
-    uniform_step,
+    FieldRecord, FieldWeights, _check_net, _later_layers, is_bf16, matmul, pack_layers, plan_for,
+    plan_ints, uniform_step,
 )
 from fiude_tpu_torch.ops.integrate import rk4_38_step
 
@@ -171,17 +171,21 @@ def effective_weights(bw: BayesField, mean_flat, std_flat, z: torch.Tensor) -> F
 
 
 def field_eval(zs: torch.Tensor, z_tail: torch.Tensor, w: FieldWeights, fa_w,
-               bf16: bool = False):
+               bf16: bool = False, keep: Optional[list] = None):
     """One evaluation of the field on the head ``zs`` (B, 3R) with the tail's
     first-layer term computed from ``w``: ``(field, rates or None, fa or
     None)``, the field frozen out of range; with ``bf16`` both operands of
-    every product rounded to bfloat16."""
+    every product rounded to bfloat16.  ``keep`` (a list) gets the
+    evaluation's :class:`~fiude_tpu_torch.ops.fused_ude.FieldRecord`."""
     B, R = zs.shape[0], zs.shape[1] // 3
     h0 = matmul(zs, w.w0_head, bf16) + (matmul(z_tail, w.w0_tail, bf16) + w.b0)
-    fa = _later_layers(h0[:, w.n0_fp:], w.aug, bf16) if w.aug else None
+    rec = FieldRecord(zs, h0, [], [])
+    if keep is not None:
+        keep.append(rec)
+    fa = _later_layers(h0[:, w.n0_fp:], w.aug, bf16, rec.aug) if w.aug else None
     rates = None
     if w.n0_fp:
-        rates = _later_layers(h0[:, : w.n0_fp], w.fp, bf16).abs().reshape(B, R, 2)
+        rates = _later_layers(h0[:, : w.n0_fp], w.fp, bf16, rec.fp).abs().reshape(B, R, 2)
         f = sir_field(rates, zs.reshape(B, R, 3))
         if fa is not None:
             f = f + fa_w * fa.reshape(B, R, 3)

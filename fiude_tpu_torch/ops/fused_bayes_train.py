@@ -12,7 +12,10 @@ evaluations, ``z(e)`` a pure function of ``(seed, e)`` (or injected, for
 tests), shared by every row.  On the card the draw kernel
 (:func:`~fiude_tpu_torch.ops.fused_bayes.bayes_draw_cuda`) writes every
 evaluation's weights, their transposes and ``z`` once; K8 and K9
-(``csrc/fused_train.cu`` with kBayes) read them.  K9 returns the cotangents of
+(``csrc/fused_train.cu`` with kBayes) read them; K9 is K6's reverse sweep and
+grouped contraction (:func:`~fiude_tpu_torch.ops.fused_train.backward_plan`
+with ``bayes``), the contraction forming each evaluation's cotangents apart.
+K9 returns the cotangents of
 the packed means, ``g_mean = sum_e g_w(e)``, and of the packed |stds|,
 ``g_stdabs = sum_e g_w(e) * z(e)``; the sign of ``std`` and the un-packing are
 autograd's, through :func:`~fiude_tpu_torch.ops.fused_bayes.pack_bayes_field`
@@ -42,7 +45,7 @@ from fiude_tpu_torch.ops.fused_bayes import (
 )
 from fiude_tpu_torch.ops.fused_train import (
     RATE_SHIFT, _check_field, aux_buffers, check_aux_cotangents, contiguous_or_none,
-    count_launch,
+    cotangent_contraction, count_launch, field_plan, plan_ints,
 )
 from fiude_tpu_torch.ops.fused_ude import FieldWeights
 
@@ -54,12 +57,14 @@ def bayes_train_trajectory_plain(z_head: torch.Tensor, z_tail: torch.Tensor, bw:
                                  tmask: Optional[torch.Tensor] = None,
                                  seed: Optional[int] = None,
                                  noise: Optional[Sequence[torch.Tensor]] = None,
-                                 stats_mode: bool = False):
+                                 stats_mode: bool = False, keep: Optional[list] = None):
     """Plain twin of the draw + K8 + K9, differentiable by autograd in the
     state, ``fa_w`` and the packed means and |stds|: ``(traj (T, B, 3R), rates
     (E, B, 2R) | None, fa (E, B, 3R) | None)``, or with ``stats_mode``
     ``(traj, r1 (2,), r2 (2,), f2 ())`` under ``tmask`` (all-ones when None).
-    z_head (B, 3R) region-major, z_tail (B, R*(L-3))."""
+    z_head (B, 3R) region-major, z_tail (B, R*(L-3)).  ``keep`` (a list) gets
+    every evaluation's :class:`~fiude_tpu_torch.ops.fused_ude.FieldRecord`, in
+    evaluation order."""
     n_steps = dts.shape[0]
     B = z_head.shape[0]
     if tmask is None:
@@ -73,7 +78,7 @@ def bayes_train_trajectory_plain(z_head: torch.Tensor, z_tail: torch.Tensor, bw:
     def field(zs, m, e):
         nonlocal r1, r2, f2
         w = effective_weights(bw, mean_flat, std_flat, draw(e))
-        f, rates, fa = field_eval(zs, z_tail, w, fa_w)
+        f, rates, fa = field_eval(zs, z_tail, w, fa_w, keep=keep)
         if not stats_mode:
             if rates is not None:
                 rates_seq.append(rates.reshape(B, -1))
@@ -113,8 +118,8 @@ def _launchers():
                                               i, ints, i, ints, ptr, ptr, i, ptr, ptr, ptr]
     lib.fused_bayes_train_forward.restype = ctypes.c_int
     lib.fused_bayes_train_backward.argtypes = [ptr, ptr, ptr, i, i, ptr, ptr, ptr, ptr, i, i, i,
-                                               i, ptr, ptr, ptr, ll, i, ints, i, ints, ptr, ptr,
-                                               ptr, i, ptr, ptr, ptr]
+                                               i, ptr, ptr, ll, i, ints, i, ints, ptr, ptr, i,
+                                               ptr, ptr, ctypes.POINTER(ll), i, ptr, ptr, ptr]
     lib.fused_bayes_train_backward.restype = ctypes.c_int
     lib.fused_train_blocks.argtypes = [i]
     lib.fused_train_blocks.restype = ctypes.c_int
@@ -184,12 +189,12 @@ bayes_train_forward_cuda.stream_launches = 0
 def bayes_train_backward_cuda(traj, g_traj, z_tail, like: FieldWeights, weff, wteff, z, fa_w,
                               dts, tmask=None, gstats=None, *, stats_mode: bool = False,
                               g_rates=None, g_fa=None):
-    """Launch K9: ``(g_head (B, 3R), g_tail, g_mean (P,), g_stdabs (P,),
-    g_fa_w)`` from the cotangents of the trajectory and of the streamed aux
-    (``g_rates`` (E, B, 2R), ``g_fa`` (E, B, 3R), contiguous; ``None`` for a
-    stream the loss never read) or, with ``stats_mode``, of the five sums
-    (``gstats`` (5,)), on the forward's drawn weights, their transposes and
-    noise."""
+    """Launch K9, the reverse sweep then the contraction: ``(g_head (B, 3R),
+    g_tail, g_mean (P,), g_stdabs (P,), g_fa_w)`` from the cotangents of the
+    trajectory and of the streamed aux (``g_rates`` (E, B, 2R), ``g_fa`` (E,
+    B, 3R), contiguous; ``None`` for a stream the loss never read) or, with
+    ``stats_mode``, of the five sums (``gstats`` (5,)), on the forward's drawn
+    weights, their transposes and noise."""
     T, B, W3 = traj.shape
     if not stats_mode:
         tmask = gstats = None
@@ -204,8 +209,10 @@ def bayes_train_backward_cuda(traj, g_traj, z_tail, like: FieldWeights, weff, wt
     check_aux_cotangents(g_rates, g_fa, T, B, R, traj.device)
     lib = _launchers()
     dev = traj.device
-    partials = torch.empty(lib.fused_train_blocks(B), 2 * P + 8, device=dev,
-                           dtype=torch.float32)
+    plan = field_plan(B, T, like, bayes=True)
+    ints, n = plan_ints(plan)
+    ws = torch.empty(plan.ws_floats, device=dev, dtype=torch.float32)
+    faw = torch.empty(plan.blocks, 8, device=dev, dtype=torch.float32)
     g_head = torch.empty(B, W3, device=dev, dtype=torch.float32)
     g_tail = torch.empty(B, DT, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
@@ -213,12 +220,12 @@ def bayes_train_backward_cuda(traj, g_traj, z_tail, like: FieldWeights, weff, wt
         code = lib.fused_bayes_train_backward(
             traj.data_ptr(), g_traj.data_ptr(), z_tail.data_ptr(), B, T, dts.data_ptr(),
             _build.ptr(tmask), fa_w.data_ptr(), _build.ptr(gstats), R, DT,
-            like.w0_head.shape[1], like.n0_fp, weff.data_ptr(), wteff.data_ptr(), z.data_ptr(),
-            P, *_net_outs(like), g_head.data_ptr(), g_tail.data_ptr(), partials.data_ptr(),
-            int(not stats_mode), _build.ptr(g_rates), _build.ptr(g_fa), stream)
+            like.w0_head.shape[1], like.n0_fp, weff.data_ptr(), wteff.data_ptr(), P,
+            *_net_outs(like), g_head.data_ptr(), g_tail.data_ptr(), int(not stats_mode),
+            _build.ptr(g_rates), _build.ptr(g_fa), ints, n, ws.data_ptr(), faw.data_ptr(), stream)
     _build.check(code, "fused_bayes_train_backward")
+    total = cotangent_contraction(plan, ws, z_tail, z, faw)
     count_launch(bayes_train_backward_cuda, stats_mode)
-    total = partials.sum(dim=0)   # the blocks' partial cotangents
     return g_head, g_tail, total[:P], total[P:2 * P], total[2 * P]
 
 

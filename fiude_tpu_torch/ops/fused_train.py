@@ -32,24 +32,35 @@ exact-horizon ``Trainer.train`` integrates on ``t[eval_pts]``) and
 still integrated, only their sums are masked.  A family without a rates net
 gets zero ``r1``, ``r2``; one without an Fa net a zero ``f2``.
 
+K6 runs as a reverse sweep that writes every evaluation's layer inputs and
+pre-activation cotangents to a workspace (no weight cotangent in the sweep),
+then one grouped contraction that forms every weight and bias cotangent from
+it (:func:`cotangent_contraction`: the kernel on a CUDA workspace, its plain
+version :func:`cotangent_contraction_plain` on a CPU one, which
+:func:`backward_workspace_plain` builds from the twin's records).
+:func:`backward_plan` lays out both, from the widths and the batch, and is
+the only planner: the launchers check what the kernels rely on and refuse
+the rest.
+
 :func:`train_trajectory` dispatches strictly on the state's device: a CPU
 tensor takes :func:`train_trajectory_plain`, a CUDA tensor launches K5 and,
 on backward, K6, in the mode asked for, or raises.
 ``train_forward_cuda.launches`` and ``train_backward_cuda.launches`` count
-the launches of both modes, ``.stream_launches`` those in aux-streaming mode.
+the launches of both modes, ``.stream_launches`` those in aux-streaming mode;
+``cotangent_contraction_cuda.launches`` the contractions (K6's and K9's).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from fiude_tpu_torch.models.rhs import out_of_range_mask, sir_field
 from fiude_tpu_torch.ops import _build
-from fiude_tpu_torch.ops.fused_ude import FieldWeights, _check_net, _later_layers
+from fiude_tpu_torch.ops.fused_ude import FieldRecord, FieldWeights, _check_net, _later_layers
 
 #: the shift of the rate statistics (the (beta, gamma) prior means,
 #: ``fiude_tpu/ops/pallas_train.py:166-171``); ``post_mean = RATE_SHIFT +
@@ -70,11 +81,13 @@ def _check_field(w: FieldWeights) -> None:
 
 def train_trajectory_plain(z_head: torch.Tensor, z_tail: torch.Tensor, w: FieldWeights, *,
                            fa_w, dts: torch.Tensor, tmask: Optional[torch.Tensor] = None,
-                           stats_mode: bool = False):
+                           stats_mode: bool = False, keep: Optional[list] = None):
     """Plain twin of K5 + K6, differentiable by autograd: ``(traj (T, B, 3R),
     rates (E, B, 2R) | None, fa (E, B, 3R) | None)``, or with ``stats_mode``
     ``(traj, r1 (2,), r2 (2,), f2 ())`` under ``tmask`` (all-ones when None).
-    z_head (B, 3R) region-major, z_tail (B, R*(L-3))."""
+    z_head (B, 3R) region-major, z_tail (B, R*(L-3)).  ``keep`` (a list) gets
+    every evaluation's :class:`~fiude_tpu_torch.ops.fused_ude.FieldRecord`, in
+    evaluation order."""
     B = z_head.shape[0]
     if tmask is None:
         tmask = torch.ones_like(dts)
@@ -90,9 +103,12 @@ def train_trajectory_plain(z_head: torch.Tensor, z_tail: torch.Tensor, w: FieldW
     def field(zs, m):
         nonlocal r1, r2, f2
         h0 = zs @ w.w0_head + ct
-        fa = _later_layers(h0[:, w.n0_fp:], w.aug) if has_aug else None
+        rec = FieldRecord(zs, h0, [], [])
+        fa = _later_layers(h0[:, w.n0_fp:], w.aug, keep=rec.aug) if has_aug else None
+        if keep is not None:
+            keep.append(rec)
         if mech:
-            rates = _later_layers(h0[:, : w.n0_fp], w.fp).abs().reshape(B, R, 2)
+            rates = _later_layers(h0[:, : w.n0_fp], w.fp, keep=rec.fp).abs().reshape(B, R, 2)
             if stats_mode:
                 d = rates - shift
                 r1 = r1 + m * d.sum(dim=(0, 1))
@@ -171,16 +187,345 @@ def _launchers():
     fwd.argtypes = [ptr, ptr, i, i, ptr, ptr, ptr, i, i, i, i, ptr, ptr, ptr,
                     i, ints, ptrs, ptrs, i, ints, ptrs, ptrs, ptr, ptr, i, ptr, ptr, ptr]
     fwd.restype = ctypes.c_int
+    longs = ctypes.POINTER(ctypes.c_longlong)
     bwd = lib.fused_train_backward
     bwd.argtypes = [ptr, ptr, ptr, i, i, ptr, ptr, ptr, ptr, i, i, i, i,
                     ptr, ptr, ptr, ptr, ptr, i, ints, ptrs, ptrs, ptrs,
-                    i, ints, ptrs, ptrs, ptrs, ptr, ptr, ptr, i, ptr, ptr, ptr]
+                    i, ints, ptrs, ptrs, ptrs, ptr, ptr, i, ptr, ptr, longs, i, ptr, ptr, ptr]
     bwd.restype = ctypes.c_int
-    lib.fused_train_grad_floats.argtypes = [i, i, i, i, i, ints, i, ints]
-    lib.fused_train_grad_floats.restype = ctypes.c_longlong
+    con = lib.fused_train_contract
+    con.argtypes = [i, longs, i, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    con.restype = ctypes.c_int
     lib.fused_train_blocks.argtypes = [i]
     lib.fused_train_blocks.restype = ctypes.c_int
     return lib
+
+
+# ---- K6 / K9's plan -----------------------------------------------------------
+
+ROWS, THREADS = 16, 256       # kTile, kThreads in csrc/fused_train.cu
+CONTRACT_TILE = 64            # kCT: a contraction CTA's 64 x 64 outputs
+SMEM_LIMIT = 232448           # dynamic shared memory a block can use
+SEGMENT_KINDS = ("u", "h0_fp", "h0_aug", "fp_post", "aug_post", "d0", "fp_delta",
+                 "aug_delta")
+
+
+class Segment(NamedTuple):
+    """Columns ``[off, off + width)`` of a workspace row: a layer input (u,
+    h0_fp, h0_aug, fp_post, aug_post) or a pre-activation cotangent (d0,
+    fp_delta, aug_delta) of the rows' evaluation."""
+    kind: int
+    layer: int
+    off: int
+    width: int
+
+
+class ContractJob(NamedTuple):
+    """One weight matrix (K, N) of the contraction: X (``xsrc`` 0: the
+    workspace at ``xoff``, row stride ``xld``; 1: ztail) and D (the workspace
+    at ``doff``, row stride ``dld``), ``estride`` floats from one evaluation to
+    the next, ``n_eval`` evaluations (a CTA's chunk: one evaluation's Bp
+    rows), ``kt`` x ``nt`` tiles, CTAs from ``cta0``; partials at ``part``
+    ([n_eval][K][N]) and ``bpart`` ([n_eval][N], -1: no bias); the packed
+    offsets ``gw`` and ``gb`` (-1: no bias)."""
+    K: int
+    N: int
+    xsrc: int
+    xld: int
+    xoff: int
+    dld: int
+    doff: int
+    estride: int
+    n_eval: int
+    kt: int
+    nt: int
+    cta0: int
+    part: int
+    bpart: int
+    gw: int
+    gb: int
+
+
+class BackwardPlan(NamedTuple):
+    """How K6 (K9 with ``bayes``) is launched (:func:`backward_plan`): the
+    sweep's blocks of ``rows`` rows on ``threads`` threads with ``smem_bytes``
+    of shared memory, the workspace ((E, Bp, F) floats, then K6's summed
+    first-layer cotangent (Bp, N0p)), and the
+    contraction's jobs (``ctas`` CTAs, ``part_total`` floats of partials a
+    set; kBayes has two sets), writing ``grad_floats`` floats: the packed
+    cotangents (P; Bayes: the means', then the |std|s'), then fa_w's."""
+    rows: int
+    threads: int
+    B: int
+    T: int
+    bayes: bool
+    blocks: int
+    Bp: int
+    E: int
+    smem_bytes: int
+    F: int
+    N0p: int
+    ws_floats: int
+    ctas: int
+    part_total: int
+    P: int
+    grad_floats: int
+    segments: Tuple[Segment, ...]
+    jobs: Tuple[ContractJob, ...]
+    widths: Tuple         # (R, DT, N0, n0_fp, fp_out, aug_out): not part of flat()
+
+    def flat(self) -> Tuple[int, ...]:
+        """The plan as the C launchers read it (``read_plan`` in
+        ``csrc/fused_train.cu``)."""
+        out = [self.rows, self.threads, self.B, self.T, int(self.bayes), self.blocks, self.Bp,
+               self.E, self.smem_bytes, self.F, self.N0p, self.ws_floats, self.ctas,
+               self.part_total, self.P, self.grad_floats]
+        for group in (self.segments, self.jobs):
+            out.append(len(group))
+            for item in group:
+                out.extend(item)
+        return tuple(out)
+
+    def segment(self, kind: str, layer: int = 0) -> Segment:
+        k = SEGMENT_KINDS.index(kind)
+        return next(s for s in self.segments if (s.kind, s.layer) == (k, layer))
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def backward_smem_bytes(R: int, DT: int, N0: int, fp_out: Sequence[int],
+                        aug_out: Sequence[int], bayes: bool) -> int:
+    """Shared memory of a sweep block (``grad_features`` + ``stash_features``
+    x 16 rows): the Grad buffers (11 of 3R, d0 and K6's d0sum, three of the
+    widest deep layer, the tail's own where it does not fit in the stage
+    buffers), then the stash (the first layer's ct, pre, post; each deep
+    layer's pre and, but for the last, post)."""
+    W3 = 3 * R
+    dmax = max([1, *fp_out, *aug_out])
+    tail = DT if bayes or DT > 6 * W3 else 0
+    grad = 11 * W3 + (1 if bayes else 2) * N0 + 3 * dmax + tail
+    stash = 3 * N0 + sum((2 if d + 1 < len(outs) else 1) * o
+                         for outs in (fp_out, aug_out) for d, o in enumerate(outs))
+    return 4 * ROWS * (grad + stash)
+
+
+def backward_plan(B: int, T: int, R: int, DT: int, N0: int, n0_fp: int, fp_out: Sequence[int],
+                  aug_out: Sequence[int], bayes: bool = False) -> BackwardPlan:
+    """K6's (``bayes``: K9's) plan for B rows, T points and these widths (the
+    first layer's N0 columns, ``n0_fp`` of them the rates net's; each net's
+    later layers' widths, empty for a net the family lacks)."""
+    fp_out, aug_out = tuple(fp_out), tuple(aug_out)
+    if B < 1 or T < 2 or R < 1 or DT < 0 or N0 < 1 or (len(fp_out) > 0) != (n0_fp > 0) \
+            or (len(aug_out) > 0) != (N0 > n0_fp) or max(len(fp_out), len(aug_out)) > 8:
+        raise ValueError(f"no backward plan for B={B}, T={T}, R={R}, DT={DT}, N0={N0}, "
+                         f"n0_fp={n0_fp}, nets {fp_out} {aug_out}")
+    E = 4 * (T - 1)
+    blocks = -(-B // ROWS)
+    Bp = blocks * ROWS
+    nets = (fp_out, aug_out)
+    in0 = (n0_fp, N0 - n0_fp)
+
+    def in_width(q, d):
+        return nets[q][d - 1] if d else in0[q]
+
+    segs, off = [], 0
+    widths = [(0, 0, 3 * R)]
+    widths += [(1, 0, n0_fp)] if fp_out else []
+    widths += [(2, 0, N0 - n0_fp)] if aug_out else []
+    widths += [(3 + q, d, o) for q in (0, 1) for d, o in enumerate(nets[q][:-1])]
+    widths += [(5, 0, N0)] + [(6 + q, d, o) for q in (0, 1) for d, o in enumerate(nets[q])]
+    for kind, layer, width in widths:
+        segs.append(Segment(kind, layer, off, width))
+        off += _round4(width)
+    F, N0p = off, _round4(N0)
+    seg = {(s.kind, s.layer): s.off for s in segs}
+    estride = Bp * F
+    ws_floats = E * estride + (0 if bayes else Bp * N0p)
+
+    # the packed layout: w0_head, w0_tail, b0, each later (w, b), rates net first
+    P = 3 * R * N0 + DT * N0 + N0
+    g_w0h, g_w0t, g_b0 = 0, 3 * R * N0, 3 * R * N0 + DT * N0
+    layer_off = []
+    for q in (0, 1):
+        for d, o in enumerate(nets[q]):
+            layer_off.append((q, d, P, P + in_width(q, d) * o))
+            P += in_width(q, d) * o + o
+
+    jobs, cta, part = [], 0, 0
+
+    def job(K, N, xsrc, xld, xoff, dld, doff, es, n_eval, gw, gb):
+        nonlocal cta, part
+        kt, nt = -(-K // CONTRACT_TILE), -(-N // CONTRACT_TILE)
+        jobs.append([K, N, xsrc, xld, xoff, dld, doff, es, n_eval, kt, nt, cta, part, -1, gw, gb])
+        cta += kt * nt * n_eval
+        part += n_eval * K * N
+
+    job(3 * R, N0, 0, F, seg[0, 0], F, seg[5, 0], estride, E, g_w0h, g_b0)
+    if DT > 0:
+        if bayes:
+            job(DT, N0, 1, DT, 0, F, seg[5, 0], estride, E, g_w0t, -1)
+        else:
+            job(DT, N0, 1, DT, 0, N0p, E * estride, 0, 1, g_w0t, -1)
+    for q, d, gw, gb in layer_off:
+        x = seg[3 + q, d - 1] if d else seg[1 + q, 0]
+        job(in_width(q, d), nets[q][d], 0, F, x, F, seg[6 + q, d], estride, E, gw, gb)
+    for jb in jobs:                       # the bias partials after the weights'
+        if jb[15] >= 0:
+            jb[13] = part
+            part += jb[8] * jb[1]
+    plan = BackwardPlan(ROWS, THREADS, B, T, bool(bayes), blocks, Bp, E,
+                        backward_smem_bytes(R, DT, N0, fp_out, aug_out, bayes), F, N0p,
+                        ws_floats, cta, part, P, (2 if bayes else 1) * P + 1, tuple(segs),
+                        tuple(ContractJob(*jb) for jb in jobs), (R, DT, N0, n0_fp, fp_out, aug_out))
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"the backward's block needs {plan.smem_bytes} B of shared memory, "
+                         f"over {SMEM_LIMIT}")
+    return plan
+
+
+@functools.lru_cache(maxsize=64)
+def plan_ints(plan: BackwardPlan):
+    """``plan.flat()`` as the C array the launchers take: 64-bit ints, since
+    the workspace passes 2^31 floats at E x Bp x F > 2^31 (e.g. the daily
+    shape's E = 336 at 6,600 rows)."""
+    flat = plan.flat()
+    return (ctypes.c_longlong * len(flat))(*flat), len(flat)
+
+
+def field_plan(B: int, T: int, w: FieldWeights, bayes: bool = False) -> BackwardPlan:
+    """:func:`backward_plan` for a field in the kernels' layout."""
+    return backward_plan(B, T, w.w0_head.shape[0] // 3, w.w0_tail.shape[0], w.w0_head.shape[1],
+                         w.n0_fp, [wl.shape[1] for wl, _ in w.fp],
+                         [wl.shape[1] for wl, _ in w.aug], bayes)
+
+
+def _workspace_views(plan: BackwardPlan, ws: torch.Tensor):
+    """The workspace as (E, Bp, F) rows and K6's (Bp, N0p) summed first-layer
+    cotangent (None for K9)."""
+    n = plan.E * plan.Bp * plan.F
+    rows = ws[:n].view(plan.E, plan.Bp, plan.F)
+    s0 = None if plan.bayes else ws[n:].view(plan.Bp, plan.N0p)
+    return rows, s0
+
+
+def cotangent_contraction_plain(plan: BackwardPlan, ws: torch.Tensor, z_tail: torch.Tensor,
+                                z: Optional[torch.Tensor] = None,
+                                faw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain twin of the contraction (:func:`cotangent_contraction_cuda`): the
+    packed cotangents (``grad_floats``,) from the workspace ``ws`` through the
+    plan's jobs: each weight's sum over the rows of X^T D, each bias's of D
+    (the Bayes plan: per evaluation, the means' sum of G(e), the |std|s' of
+    ``z``(e) * G(e), ``z`` (E, P)), then fa_w's, the blocks' shares ``faw``
+    (blocks, 8) summed (0 when None)."""
+    rows, s0 = _workspace_views(plan, ws)
+    Bp, P = plan.Bp, plan.P
+    tail = torch.zeros(Bp, z_tail.shape[1], dtype=ws.dtype, device=ws.device)
+    tail[:z_tail.shape[0]] = z_tail
+    out = ws.new_zeros(plan.grad_floats)
+    for jb in plan.jobs:
+        if jb.xsrc == 1:
+            x = tail.expand(jb.n_eval, Bp, jb.K)
+        else:
+            x = rows[..., jb.xoff:jb.xoff + jb.K]
+        d = (s0[:, :jb.N].unsqueeze(0) if jb.estride == 0
+             else rows[..., jb.doff:jb.doff + jb.N])
+        g = torch.einsum("ebk,ebn->ekn", x, d)          # each evaluation's G(e)
+        gb = d.sum(dim=1) if jb.gb >= 0 else None       # (n_eval, N)
+        sets = [(0, g, gb)]
+        if plan.bayes:
+            zw = z[:, jb.gw:jb.gw + jb.K * jb.N].reshape(-1, jb.K, jb.N)
+            zb = z[:, jb.gb:jb.gb + jb.N] if gb is not None else None
+            sets.append((P, zw * g, None if gb is None else zb * gb))
+        for base, gw_e, gb_e in sets:
+            out[base + jb.gw:base + jb.gw + jb.K * jb.N] = gw_e.sum(dim=0).reshape(-1)
+            if gb_e is not None:
+                out[base + jb.gb:base + jb.gb + jb.N] = gb_e.sum(dim=0)
+    if faw is not None:
+        out[-1] = faw[:, 0].sum()
+    return out
+
+
+def cotangent_contraction_cuda(plan: BackwardPlan, ws: torch.Tensor, z_tail: torch.Tensor,
+                               z: Optional[torch.Tensor] = None,
+                               faw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the grouped contraction and the sum of its partials on ``ws``'s
+    device and current stream: what :func:`cotangent_contraction_plain`
+    returns.  ``faw`` None counts as zeros."""
+    dev = ws.device
+    DT = plan.widths[1]
+    if tuple(ws.shape) != (plan.ws_floats,) or tuple(z_tail.shape) != (plan.B, DT) \
+            or (plan.bayes and (z is None or tuple(z.shape) != (plan.E, plan.P))):
+        raise ValueError("the workspace, the tail or the noise do not match the plan")
+    if faw is None:
+        faw = torch.zeros(plan.blocks, 8, device=dev)
+    if tuple(faw.shape) != (plan.blocks, 8):
+        raise ValueError(f"faw must be ({plan.blocks}, 8), got {tuple(faw.shape)}")
+    _build.check_weights([ws, z_tail, faw] + ([z] if plan.bayes else []), dev)
+    lib = _launchers()
+    part = torch.empty(plan.part_total * (2 if plan.bayes else 1), device=dev,
+                       dtype=torch.float32)
+    grads = torch.empty(plan.grad_floats, device=dev, dtype=torch.float32)
+    ints, n = plan_ints(plan)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.fused_train_contract(
+            int(plan.bayes), ints, n, ws.data_ptr(), z_tail.data_ptr(), _build.ptr(z),
+            faw.data_ptr(), part.data_ptr(), grads.data_ptr(), stream)
+    _build.check(code, "fused_train_contract")
+    cotangent_contraction_cuda.launches += 1
+    return grads
+
+
+cotangent_contraction_cuda.launches = 0
+
+
+def cotangent_contraction(plan: BackwardPlan, ws: torch.Tensor, z_tail: torch.Tensor,
+                          z: Optional[torch.Tensor] = None,
+                          faw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The packed cotangents from a workspace: a CPU workspace takes
+    :func:`cotangent_contraction_plain`, a CUDA one the kernel (no fallback)."""
+    if ws.device.type == "cpu":
+        return cotangent_contraction_plain(plan, ws, z_tail, z, faw)
+    if ws.device.type == "cuda":
+        return cotangent_contraction_cuda(plan, ws, z_tail, z, faw)
+    raise ValueError(f"no contraction kernel for device {ws.device}")
+
+
+def backward_workspace_plain(plan: BackwardPlan, kept: Sequence[FieldRecord], outputs: Sequence,
+                             cotangents: Sequence) -> torch.Tensor:
+    """The workspace K6's sweep (K9's with a Bayes plan) writes, from a
+    twin's run (:func:`train_trajectory_plain` or ``bayes_train_trajectory_plain``
+    with ``keep=kept``, on inputs that require grad): every evaluation's layer
+    inputs and the cotangents of its pre-activations under the loss
+    ``sum(output * cotangent)`` (an absent one None), in the plan's segments,
+    rows past B zero; K6's summed first-layer cotangent after them."""
+    pres = [t for rec in kept for t in (rec.h0, *(h for _, h in rec.fp + rec.aug))]
+    loss = sum((o * g).sum() for o, g in zip(outputs, cotangents)
+               if o is not None and g is not None)
+    grads = iter(torch.autograd.grad(loss, pres, allow_unused=True))
+    B = kept[0].u.shape[0]
+    ws = torch.zeros(plan.ws_floats, dtype=kept[0].u.dtype, device=kept[0].u.device)
+    rows, s0 = _workspace_views(plan, ws)
+
+    def put(e, kind, layer, t):
+        s = plan.segment(kind, layer)
+        rows[e, :B, s.off:s.off + s.width] = t.detach()
+
+    for e, rec in enumerate(kept):
+        g0 = next(grads)
+        put(e, "u", 0, rec.u)
+        put(e, "d0", 0, torch.zeros_like(rec.h0) if g0 is None else g0)
+        for name, layers in (("fp", rec.fp), ("aug", rec.aug)):
+            for d, (x, h) in enumerate(layers):
+                put(e, f"h0_{name}" if d == 0 else f"{name}_post", 0 if d == 0 else d - 1, x)
+                g = next(grads)
+                put(e, f"{name}_delta", d, torch.zeros_like(h) if g is None else g)
+    if s0 is not None:
+        n0, d0 = plan.widths[2], plan.segment("d0").off
+        s0[:B, :n0] = rows[:, :B, d0:d0 + n0].sum(0)
+    return ws
 
 
 def aux_buffers(T: int, B: int, R: int, mech: bool, has_aug: bool, device):
@@ -248,11 +593,13 @@ train_forward_cuda.stream_launches = 0
 
 def train_backward_cuda(traj, g_traj, z_tail, w: FieldWeights, fa_w, dts, tmask=None,
                         gstats=None, *, stats_mode: bool = False, g_rates=None, g_fa=None):
-    """Launch K6: ``(g_head (B, 3R), g_tail, [g_w0_head, g_w0_tail, g_b0, g of
-    each later (w, b)], g_fa_w)`` from the cotangents of the trajectory and of
-    the five sums (``gstats`` (5,)) or, in aux-streaming mode, of the streamed
-    aux (``g_rates`` (E, B, 2R), ``g_fa`` (E, B, 3R), contiguous; ``None``
-    for a stream the loss never read)."""
+    """Launch K6, the reverse sweep then the contraction: ``(g_head (B, 3R),
+    g_tail, [g_w0_head, g_w0_tail, g_b0, g of each later (w, b)], g_fa_w)``
+    from the cotangents of the trajectory and of the five sums (``gstats``
+    (5,)) or, in aux-streaming mode, of the streamed aux (``g_rates`` (E, B,
+    2R), ``g_fa`` (E, B, 3R), contiguous; ``None`` for a stream the loss
+    never read).  The workspace (:func:`backward_plan`'s ``ws_floats``, 224
+    MB at the `state` shape) is torch's, for the call."""
     T, B, W3 = traj.shape
     if not stats_mode:
         tmask = gstats = None
@@ -266,11 +613,11 @@ def train_backward_cuda(traj, g_traj, z_tail, w: FieldWeights, fa_w, dts, tmask=
     check_aux_cotangents(g_rates, g_fa, T, B, R, traj.device)
     DT = z_tail.shape[1]
     lib = _launchers()
-    outs = lambda net: _build.c_ints([wl.shape[1] for wl, _ in net])   # noqa: E731
-    n_grad = lib.fused_train_grad_floats(R, DT, N0, w.n0_fp, len(w.fp), outs(w.fp),
-                                         len(w.aug), outs(w.aug))
+    plan = field_plan(B, T, w)
+    ints, n = plan_ints(plan)
     dev = traj.device
-    partials = torch.empty(lib.fused_train_blocks(B), n_grad, device=dev, dtype=torch.float32)
+    ws = torch.empty(plan.ws_floats, device=dev, dtype=torch.float32)
+    faw = torch.empty(plan.blocks, 8, device=dev, dtype=torch.float32)
     g_head = torch.empty(B, W3, device=dev, dtype=torch.float32)
     g_tail = torch.empty(B, DT, device=dev, dtype=torch.float32)
     w0ht = w.w0_head.t().contiguous()
@@ -284,11 +631,11 @@ def train_backward_cuda(traj, g_traj, z_tail, w: FieldWeights, fa_w, dts, tmask=
             _build.ptr(tmask), fa_w.data_ptr(), _build.ptr(gstats), R, DT, N0, w.n0_fp,
             w.w0_head.data_ptr(), w.w0_tail.data_ptr(), w.b0.data_ptr(), w0ht.data_ptr(),
             w0tt.data_ptr(), *_net_args(w.fp, fp_t), *_net_args(w.aug, aug_t),
-            g_head.data_ptr(), g_tail.data_ptr(), partials.data_ptr(), int(not stats_mode),
-            _build.ptr(g_rates), _build.ptr(g_fa), stream)
+            g_head.data_ptr(), g_tail.data_ptr(), int(not stats_mode), _build.ptr(g_rates),
+            _build.ptr(g_fa), ints, n, ws.data_ptr(), faw.data_ptr(), stream)
     _build.check(code, "fused_train_backward")
+    total = cotangent_contraction(plan, ws, z_tail, faw=faw)
     count_launch(train_backward_cuda, stats_mode)
-    total = partials.sum(dim=0)   # the blocks' partial cotangents
     shapes = [w.w0_head.shape, w.w0_tail.shape, w.b0.shape]
     shapes += [t.shape for layer in w.fp + w.aug for t in layer]
     grads, off = [], 0

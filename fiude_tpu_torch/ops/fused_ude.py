@@ -441,12 +441,27 @@ def matmul(x: torch.Tensor, w: torch.Tensor, bf16: bool = False) -> torch.Tensor
     return round_bf16(x) @ round_bf16(w) if bf16 else x @ w
 
 
-def _later_layers(h: torch.Tensor, layers, bf16: bool = False) -> torch.Tensor:
-    """A net's layers after the first: ELU feeds all but the last."""
+class FieldRecord(NamedTuple):
+    """One evaluation of the field as a training twin records it (``keep=``):
+    the state ``u`` (B, 3R), the first layer's pre-activation ``h0`` (B, N0),
+    and each later layer's (input, pre-activation) of the rates net (``fp``)
+    and of the Fa net (``aug``), what K6/K9's sweep writes to its workspace."""
+    u: torch.Tensor
+    h0: torch.Tensor
+    fp: list
+    aug: list
+
+
+def _later_layers(h: torch.Tensor, layers, bf16: bool = False,
+                  keep: Optional[list] = None) -> torch.Tensor:
+    """A net's layers after the first: ELU feeds all but the last.  ``keep``
+    (a list) gets each layer's (input, pre-activation)."""
     for i, (w, b) in enumerate(layers):
         if i < len(layers) - 1:
             h = torch.nn.functional.elu(h)
-        h = matmul(h, w, bf16) + b
+        x, h = h, matmul(h, w, bf16) + b
+        if keep is not None:
+            keep.append((x, h))
     return h
 
 

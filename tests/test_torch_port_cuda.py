@@ -19,7 +19,12 @@ the kernel cannot run refused by the launcher.
 The Bayes kernels K7 (``csrc/fused_bayes.cu``) and K8/K9
 (``csrc/fused_train.cu`` with kBayes) are held to the same bounds against
 their twins in both noise modes (injected, and Philox from a seed on both
-sides), and the draw kernel's normals against ``ops/philox.py``.
+sides), and the draw kernel's normals against ``ops/philox.py``.  K6/K9's
+grouped contraction is held to its plain version on random workspaces at
+ragged widths and batches (rtol 1e-4, atol 1e-4 against float64 sums of
+E x Bp products), K6's gradients repeat bit for bit in both modes, a
+workspace past 2^31 floats gives the gradients of the rows it holds, and the
+launchers refuse a backward plan the kernels cannot run.
 The kernels' other modes are held likewise: the aux-streaming mode of K5/K6
 and K8/K9 (trajectory, rates, Fa and every cotangent under cotangents on all
 three outputs, and with an aux cotangent absent; its trajectory equal to the
@@ -35,6 +40,8 @@ on a machine that has only torch::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -734,6 +741,146 @@ def test_streaming_gradients_repeat_bit_for_bit(dev):
     for a, b in zip(*(stream_pair(dev, model, 50, 6, bayes_kw={"seed": 3})[0][1]
                       for _ in range(2))):
         assert torch.equal(a, b)
+
+
+
+# -- K6/K9's backward: the sweep's workspace and the grouped contraction ------------------
+
+def contraction_case(dev, ode_name, cfg, L, B, T, seed=9):
+    """A random workspace, tail and (Bayes) noise for the plan of a model's
+    widths: (plan, ws, z_tail, z, faw)."""
+    model = build(dev, ode_name, L=L, **cfg)
+    bayes = ode_name.endswith("b")
+    like = fused_bayes.pack_bayes_field(model.ode).mean if bayes else \
+        fused_ude.pack_field(model.ode)
+    plan = fused_train.field_plan(B, T, like, bayes=bayes)
+    rng = np.random.default_rng(seed)
+    ws = on(dev, rng.standard_normal(plan.ws_floats))
+    z_tail = on(dev, rng.standard_normal((B, like.w0_tail.shape[0])))
+    z = on(dev, rng.standard_normal((plan.E, plan.P))) if bayes else None
+    faw = on(dev, rng.standard_normal((plan.blocks, 8)))
+    return plan, ws, z_tail, z, faw
+
+
+@pytest.mark.parametrize("ode_name,cfg,L,B,T", [
+    ("FaFp", dict(R=3, net=(16, 16, 8), aug=(16, 16)), 6, 37, 4),     # ragged last tile
+    ("CONN", dict(R=2, net=(70, 33)), 3, 5, 2),        # no tail (L = 3); K > 64: 2 k-tiles
+    ("SONN", dict(R=5, aug=(20, 7)), 4, 100, 3),
+    ("FaFp", STATE_ODE, 8, 40, 3),                                      # `state` widths
+    ("UONNb", dict(R=3, net=(16, 16, 8), aug=(16, 16)), 6, 37, 3),
+    ("CONNb", dict(R=7, net=(65, 9)), 5, 16, 2),
+    ("SONNb", dict(R=3, aug=(16, 16)), 5, 21, 3),
+    ("UONNb", STATE_ODE, 8, 40, 2),
+])
+def test_contraction_kernel_matches_its_plain_version(dev, ode_name, cfg, L, B, T):
+    plan, ws, z_tail, z, faw = contraction_case(dev, ode_name, cfg, L, B, T)
+    before = fused_train.cotangent_contraction_cuda.launches
+    got = fused_train.cotangent_contraction(plan, ws, z_tail, z, faw)
+    assert fused_train.cotangent_contraction_cuda.launches == before + 1
+    want = fused_train.cotangent_contraction_plain(plan, ws.double(), z_tail.double(),
+                                                   None if z is None else z.double(),
+                                                   faw.double())
+    # float32 sums of E * Bp products of N(0, 1) entries against float64 ones
+    torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, fused_train.cotangent_contraction(plan, ws, z_tail, z, faw))
+
+
+@pytest.mark.parametrize("stats", [True, False])
+def test_k6_gradients_repeat_bit_for_bit(dev, stats):
+    from fiude_tpu_torch.ops.fused_ude import pack_field
+    model = build(dev, "FaFp", R=3, L=6, net=(16, 16, 8), aug=(16, 16))
+    rng = np.random.default_rng(6)
+    z0 = on(dev, rng.uniform(0.0, 0.6, (50, 3, 6)))
+    dts, tm = on(dev, [1.0, 0.5, 1.0]), on(dev, [1.0, 1.0, 0.0])
+    g = [on(dev, rng.standard_normal(shape)) for shape in ((4, 50, 9), (12, 50, 6), (12, 50, 9))]
+
+    def grads():
+        fa_w = torch.tensor(0.7, device=dev, requires_grad=True)
+        values = fused_train.train_trajectory(
+            z0[..., :3].reshape(50, -1), z0[..., 3:].reshape(50, -1),
+            pack_field(model.ode, detach=False), fa_w=fa_w, dts=dts,
+            **({"tmask": tm, "stats_mode": True} if stats else {}))
+        loss = (values[0] * g[0]).sum() + (sum(v.sum() for v in values[1:]) if stats else
+                                          (values[1] * g[1]).sum() + (values[2] * g[2]).sum())
+        return torch.autograd.grad(loss, list(model.ode.parameters()) + [fa_w])
+
+    for a, b in zip(grads(), grads()):
+        assert torch.equal(a, b)
+
+
+def test_backward_plans_the_kernels_cannot_run_are_refused(dev, monkeypatch):
+    from fiude_tpu_torch.ops.fused_ude import pack_field
+    model = build(dev, "FaFp", R=3, L=6, net=(16, 16, 8), aug=(16, 16))
+    w = pack_field(model.ode)
+    rng = np.random.default_rng(3)
+    head, tail = on(dev, rng.uniform(0, 0.5, (20, 9))), on(dev, rng.uniform(0, 0.5, (20, 9)))
+    dts, one = on(dev, [1.0, 1.0]), torch.tensor(1.0, device=dev)
+    traj = fused_train.train_forward_cuda(head, tail, w, one, dts)[0]
+    fused_train.train_backward_cuda(traj, torch.ones_like(traj), tail, w, one, dts)   # runs
+
+    def one_off(i, delta=1):
+        """plan_ints with the plan's int i moved by delta."""
+        def ints(plan):
+            flat = list(plan.flat())
+            flat[i] += delta
+            return (ctypes.c_longlong * len(flat))(*flat), len(flat)
+        return ints
+
+    plan = fused_train.field_plan(20, 3, w)
+    seg0 = 16 + 1                                    # the first segment's kind
+    job0 = seg0 + 4 * len(plan.segments) + 1         # the first job's K
+    # another batch, too little shared memory, an unaligned row, the state's
+    # segment one wider than the sweep writes, an unaligned X, bias partials
+    # over the next job's, a bias past the packed cotangents
+    for i, delta in ((2, 1), (8, -4), (9, 1), (seg0 + 3, 1), (job0 + 4, 1), (job0 + 13, 1),
+                     (len(plan.flat()) - 1, 1)):
+        monkeypatch.setattr(fused_train, "plan_ints", one_off(i, delta))
+        with pytest.raises(RuntimeError, match="fused_train_backward"):
+            fused_train.train_backward_cuda(traj, torch.ones_like(traj), tail, w, one, dts)
+    monkeypatch.undo()
+    # the contraction alone: another batch's plan, and a plan one int off
+    cfg = dict(R=3, net=(16, 16, 8), aug=(16, 16))
+    plan, ws, z_tail, z, faw = contraction_case(dev, "FaFp", cfg, 6, 37, 4)
+    other = contraction_case(dev, "FaFp", cfg, 6, 60, 4)[0]
+    with pytest.raises(ValueError):
+        fused_train.cotangent_contraction_cuda(other, ws, z_tail, z, faw)
+    monkeypatch.setattr(fused_train, "plan_ints", one_off(len(plan.flat()) - 2))
+    with pytest.raises(RuntimeError, match="fused_train_contract"):
+        fused_train.cotangent_contraction_cuda(plan, ws, z_tail, z, faw)
+
+def test_k6_workspace_past_2_31_floats(dev):
+    """36 daily points (E = 140) at the `state` widths on 4 x 4096 rows, four
+    copies of one batch: 2.2e9 floats of workspace.  Each copy's rows get the
+    state cotangents of the batch alone bit for bit, and the weights 4 times
+    its cotangents (float32 sums in another order)."""
+    from fiude_tpu_torch.ops.fused_ude import pack_field
+    model = build(dev, "FaFp", L=8, **STATE_ODE)
+    w = pack_field(model.ode)
+    rng = np.random.default_rng(12)
+    z0 = rng.uniform(0.0, 0.6, (4096, 49, 8))
+    dts = torch.full((35,), 1.0 / 7.0, device=dev)
+    one = torch.tensor(1.0, device=dev)
+
+    def grads(copies):
+        z = on(dev, np.concatenate([z0] * copies))
+        head, tail = z[..., :3].reshape(len(z), -1), z[..., 3:].reshape(len(z), -1)
+        traj, rates, fa = fused_train.train_forward_cuda(head, tail, w, one, dts)
+        plan = fused_train.field_plan(len(z), 36, w)
+        g = torch.ones_like(traj) * 1e-3
+        out = fused_train.train_backward_cuda(traj, g, tail, w, one, dts, g_rates=rates * 1e-3,
+                                              g_fa=fa * 1e-3)
+        return plan, out
+
+    small_plan, (h1, t1, w1, f1) = grads(1)
+    plan, (h4, t4, w4, f4) = grads(4)
+    assert small_plan.ws_floats < 2 ** 31 < plan.ws_floats
+    assert all(bool(torch.isfinite(t).all()) for t in [h1, t1, f1] + w1)
+    for c in range(4):
+        assert torch.equal(h4[4096 * c:4096 * (c + 1)], h1)
+        assert torch.equal(t4[4096 * c:4096 * (c + 1)], t1)
+    for a, b in zip(w4 + [f4], w1 + [f1]):
+        scale = float((4 * b).abs().max()) + 1e-30
+        torch.testing.assert_close(a, 4 * b, rtol=1e-4, atol=1e-4 * scale)
 
 
 # -- the bfloat16 compute mode of K2 and K7 --------------------------------------------
