@@ -869,6 +869,16 @@ def backward_plan_summary(plan) -> dict:
             "contraction_ctas": plan.ctas}
 
 
+def forward_plan_summary(plan) -> dict:
+    """The forward plan's numbers for the kernels line: per pass, each
+    product's (K, N, columns a thread, threads); the chunks, stages and shared
+    memory."""
+    return {"rows": plan.rows, "threads": plan.threads, "cluster": plan.cluster,
+            "blocks": plan.blocks, "smem_bytes": plan.smem_bytes,
+            "stage_bytes": plan.stage_bytes, "chunks": len(plan.chunks),
+            "passes": [[(j.K, j.N, j.cols, j.nt) for j in step] for step in plan.steps]}
+
+
 def contraction_check(dev, like, bayes, B, smi, tag):
     """The grouped contraction of K6 (K9 with ``bayes``) at the training
     shape's plan, on a random workspace: held to its plain version in float64
@@ -2138,6 +2148,11 @@ def main() -> int:
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms{lib}, bound {bound[0]:.4f} ms "
             f"by {bound[1]} [{smi}]")
     log(f"  K3 / library {k3_ms / k3_library:.3f}, {k3_ms * 1e3 / T_IN:.3f} us a step [{smi}]")
+    k5_plan = fused_train.field_forward_plan(z_train.shape[0], WEEKS,
+                                             fused_ude.pack_field(model.ode), bayes=False,
+                                             stream_aux=False)
+    log(f"  K5 plan (stats mode; aux-streaming the same but for its partials): "
+        f"{forward_plan_summary(k5_plan)} [{smi}]")
     k6_plan = fused_train.field_plan(z_train.shape[0], WEEKS, fused_ude.pack_field(model.ode))
     log(f"  K6 plan: {backward_plan_summary(k6_plan)}; split of a call (torch.profiler, "
         f"ms a launch of each kernel): {k6_split or 'no device time (not measured)'} [{smi}]")
@@ -2196,6 +2211,11 @@ def main() -> int:
         per = f" ({ms * 1e3 / (4 * (T_OUT - 1)):.2f} us an evaluation)" if key == "K7" else ""
         log(f"  {name}: kernel {ms:.4f} ms{per}, plain {plain:.4f} ms, bound {bound[0]:.4f} ms "
             f"by {bound[1]} [{smi}]")
+    k8_plan = fused_train.field_forward_plan(
+        z_train.shape[0], WEEKS, fused_bayes.pack_bayes_field(bayes.ode).mean, bayes=True,
+        stream_aux=False)
+    log(f"  K8 plan (stats mode; aux-streaming the same but for its partials): "
+        f"{forward_plan_summary(k8_plan)} [{smi}]")
     k9_plan = fused_train.field_plan(z_train.shape[0], WEEKS,
                                      fused_bayes.pack_bayes_field(bayes.ode).mean, bayes=True)
     log(f"  K9 plan: {backward_plan_summary(k9_plan)}; split of a call (torch.profiler, "
@@ -2271,6 +2291,8 @@ def main() -> int:
 
     k6_extra = {"plan": backward_plan_summary(k6_plan)}
     k9_extra = {"plan": backward_plan_summary(k9_plan)}
+    k5_extra = {"plan": forward_plan_summary(k5_plan)}
+    k8_extra = {"plan": forward_plan_summary(k8_plan)}
 
     log(json.dumps({"kernels": [
         entry("fused_backgru", "fused_gru.cu", "pallas_gru.py:127", launches["K1"], k1_err,
@@ -2282,7 +2304,7 @@ def main() -> int:
         entry("fused_backgru_train_backward", "fused_gru_train.cu", "pallas_gru_train.py:302",
               train_launches["K4"], k4_err, k4_ms, k4_plain, k4_bound, k4_library),
         entry("fused_train_trajectory_forward", "fused_train.cu", "pallas_train.py:654",
-              train_launches["K5"], k5_err, k5_ms, k5_plain, k5_bound),
+              train_launches["K5"], k5_err, k5_ms, k5_plain, k5_bound, **k5_extra),
         entry("fused_train_trajectory_backward", "fused_train.cu", "pallas_train.py:728",
               train_launches["K6"], k6_err, k6_ms, k6_plain, k6_bound, split=k6_split,
               **k6_extra),
@@ -2292,7 +2314,7 @@ def main() -> int:
               b_launches["K7"], k7_err, bt["K7"][1], bt["K7"][0], bt["K7_bound"]),
         entry("fused_bayes_train_trajectory_forward", "fused_train.cu",
               "pallas_bayes_train.py:627", bt_launches["K8"], k8_err, bt["K8"][1], bt["K8"][0],
-              bt["K8_bound"]),
+              bt["K8_bound"], **k8_extra),
         entry("fused_bayes_train_trajectory_backward", "fused_train.cu",
               "pallas_bayes_train.py:712", bt_launches["K9"], k9_err, bt["K9"][1], bt["K9"][0],
               bt["K9_bound"], split=bt["K9_split"], **k9_extra),
@@ -2306,13 +2328,13 @@ def main() -> int:
         # the bfloat16 compute mode (launches of phase 15's requests)
         entry("fused_train_trajectory_forward[aux-streaming]", "fused_train.cu",
               "pallas_train.py:654", s_launches["K5"], s_err["K5"], st["K5"][1], st["K5"][0],
-              st["K5_bound"]),
+              st["K5_bound"], **k5_extra),
         entry("fused_train_trajectory_backward[aux-streaming]", "fused_train.cu",
               "pallas_train.py:728", s_launches["K6"], s_err["K6"], st["K6"][1], st["K6"][0],
               st["K6_bound"], split=st["K6_split"], **k6_extra),
         entry("fused_bayes_train_trajectory_forward[aux-streaming]", "fused_train.cu",
               "pallas_bayes_train.py:627", sb_launches["K8"], s_err["K8"], st["K8"][1],
-              st["K8"][0], st["K8_bound"]),
+              st["K8"][0], st["K8_bound"], **k8_extra),
         entry("fused_bayes_train_trajectory_backward[aux-streaming]", "fused_train.cu",
               "pallas_bayes_train.py:712", sb_launches["K9"], s_err["K9"], st["K9"][1],
               st["K9"][0], st["K9_bound"], split=st["K9_split"], **k9_extra),

@@ -25,10 +25,29 @@
 // What the design does about it:
 //  * one block per tile of kTile = 16 ensemble rows (128 blocks at B = 2048),
 //    the ragged last tile masked (its rows contribute nothing to the sums);
-//  * state, stages, stage cotangents and every layer's pre- and
-//    post-activation stay in shared memory, feature-major ([feature][row]);
-//    ~210 KB a block in the backward at the `state` config, ~110 KB forward;
-//  * the frozen tail's first-layer term is computed once;
+//  * state, stages and activations stay in shared memory, feature-major
+//    ([feature][row]); the backward keeps every layer's pre- and
+//    post-activation (~210 KB a block at the `state` config), the forward
+//    only what the next layer reads: zh, zs, k1..k3 (k4 folds into the
+//    step's update), the tail, ct, the first layer's output, two ping-pong
+//    halves a net and each net's last pre-activation (~110 KB);
+//  * the forward (K5, K8) reads its weights from shared memory only,
+//    streamed through two stages: an evaluation's passes (the first layer;
+//    then layer d of the rates net and of the Fa net on threads of their
+//    own) cut into chunks that fit a stage, the next chunk's cp.async copies
+//    issued after the barrier that frees its stage, while the current one is
+//    used; 512 threads, a thread a tile of 4 rows x 1-8 columns of one
+//    product (ops/fused_train.py::forward_plan picks them by a cost model);
+//    the SIR combine is fused with the stage update, which also writes the
+//    trajectory's rows; the aux streams go to global memory from the last
+//    layer's epilogue, coalesced and evict-first;
+//  * every sum of the forward starts at its bias (K5's first layer: at its
+//    addend ct = b0 + tail @ w0_tail) and adds k = 0, 1, ... in order, one FMA
+//    a step, as the backward's recomputation (dense_t) does: no split of k
+//    over lanes and no bias added after the sum, so the backward recomputes
+//    the forward's stages bit for bit and a state freezes at the same stage
+//    in both (the freeze bounds make a float32 trajectory discontinuous);
+//  * the frozen tail's first-layer term is computed once (K5);
 //  * the backward reads transposed copies of the weights ((out, in)), so the
 //    threads of a warp read consecutive addresses in both directions;
 //  * the statistics are accumulated per thread over the whole trajectory and
@@ -66,11 +85,10 @@
 // E = 4(T-1), evaluation e = 4 * step + stage, to global memory (the rates
 // before the freeze mask and for frozen rows too), and the backward reads
 // their cotangents, a tile an evaluation, where stats mode rebuilds them from
-// the sums' cotangents; tmask is the loss's.  The aux lives in shared memory
-// feature-major ([feature][16 rows]) and a tile's 16 rows are one contiguous
-// run of global memory, so the stores and loads are coalesced in global memory
-// and strided by 16 floats in shared memory (bank conflicts, as the
-// trajectory's own stores).
+// the sums' cotangents; tmask is the loss's.  The forward stores each
+// output from the thread that formed it (a warp's lanes on consecutive
+// columns of a row: coalesced); the backward loads a tile's 16 rows, one
+// contiguous run of global memory, into shared memory feature-major.
 //
 // K8 and K9, the Bayes families' training trajectory, are the same kernels
 // under the compile-time switch kBayes.  They replace
@@ -85,6 +103,8 @@
 // kBayes:
 //  * the frozen tail's first-layer term is recomputed on every evaluation
 //    (the first layer is resampled), so the tail keeps its own shared buffer;
+//    K8's first pass runs over [tail | head], DT + 3R deep from the bias,
+//    the rows of w0_tail then w0_head: the sums of ct, then h0, in one chain;
 //  * the sweep adds the tail's cotangent into the rows the block owns on
 //    every evaluation, with that evaluation's weights;
 //  * the contraction forms each evaluation's cotangents G(e) = X(e)^T D(e)
@@ -99,6 +119,11 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+// The forward's dynamic shared memory, named at file scope so that every
+// access through it compiles to a shared-memory instruction.
+extern __shared__ __align__(16) unsigned char fwd_smem[];
 
 namespace {
 
@@ -171,7 +196,12 @@ struct Stash {
   Acts fp, aug;
 };
 
-__device__ __forceinline__ float eluf(float x) { return x > 0.f ? x : expm1f(x); }
+// ELU without a branch (the same values, -0 and NaN included): every lane
+// evaluates expm1f, so a tile's values do not diverge one by one.
+__device__ __forceinline__ float eluf(float x) {
+  const float em = expm1f(x > 0.f ? 0.f : x);
+  return x > 0.f ? x : em;
+}
 
 // d/dh elu(h) as the JAX kernel writes it (pallas_train.py:100-102)
 __device__ __forceinline__ float elu_grad(float h) { return h > 0.f ? 1.f : expf(fminf(h, 0.f)); }
@@ -186,30 +216,7 @@ __device__ __forceinline__ void fma4(float4& acc, const float4& x, float w) {
   acc.x += x.x * w; acc.y += x.y * w; acc.z += x.z * w; acc.w += x.w * w;
 }
 
-// pre = in @ W + (addend ? addend : bias); post (if given) = ELU(pre) on the
-// columns < split when act_lo and >= split when act_hi, pre elsewhere.
-// Ends with a barrier.
-__device__ void dense(const float* __restrict__ W, const float* __restrict__ bias,
-                      const float4* addend, const float4* in, int K, int N,
-                      float4* pre, float4* post, int split, bool act_lo, bool act_hi) {
-  for (int it = threadIdx.x; it < N * kG; it += blockDim.x) {
-    const int j = it % N, g = it / N;
-    float4 acc = addend ? addend[j * kG + g] : splat(__ldg(bias + j));
-    const float4* x4 = in + g;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) fma4(acc, x4[k * kG], __ldg(W + (size_t)k * N + j));
-    pre[j * kG + g] = acc;
-    if (post) {
-      if (j < split ? act_lo : act_hi) {
-        acc.x = eluf(acc.x); acc.y = eluf(acc.y); acc.z = eluf(acc.z); acc.w = eluf(acc.w);
-      }
-      post[j * kG + g] = acc;
-    }
-  }
-  __syncthreads();
-}
-
-// ---- the backward's products (K5/K8 keep dense above) -------------------------
+// ---- the backward's products (and K5's ct, once a launch) ---------------------
 //
 // A product out[col][rows] = sum_k x[k][rows] * W[k * ldw + col] over the
 // tile's 16 rows: a thread an output column of 4 rows (one weight and one
@@ -226,11 +233,11 @@ __device__ void dense(const float* __restrict__ W, const float* __restrict__ bia
 template <bool kBayes>
 constexpr int kAheadFor = kBayes ? 1 : 8;
 
-// Column col's sum for the 4 rows of group g starts at init(col, g), as
-// dense's starts at its bias or addend: with the same FMAs in the same order,
-// the backward's recomputed stages are the forward's bit for bit, so a state
-// freezes at the same stage in both.  `epi(col, g, v)` gets the 4 sums.  No
-// barrier.
+// Column col's sum for the 4 rows of group g starts at init(col, g), as the
+// forward's sums start at their bias or addend: with the same FMAs in the same
+// order (k = 0, 1, ...), the backward's recomputed stages are the forward's
+// bit for bit, so a state freezes at the same stage in both.  `epi(col, g, v)`
+// gets the 4 sums.  No barrier.
 template <int kAhead, class Init, class Epi>
 __device__ __forceinline__ void product(const float4* x, const float* __restrict__ W, int ldw,
                                         int K, int N, Init init, Epi epi) {
@@ -259,7 +266,9 @@ __device__ __forceinline__ float4 elu4(float4 v) {
   return make_float4(eluf(v.x), eluf(v.y), eluf(v.z), eluf(v.w));
 }
 
-// dense's function with the backward's products.  Ends with a barrier.
+// pre = in @ W + (addend ? addend : bias); post (if given) = ELU(pre) on the
+// columns < split when act_lo and >= split when act_hi, pre elsewhere.  Ends
+// with a barrier.
 template <int kAhead>
 __device__ void dense_t(const float* __restrict__ W, const float* __restrict__ bias,
                         const float4* addend, const float4* in, int K, int N, float4* pre,
@@ -310,64 +319,38 @@ __device__ void dense_back_rows_t(const float* __restrict__ Wt, const float4* de
 }
 
 // A net's layers after the first, reading `in` (width K), pre/post-activations
-// into `acts`.  Layer d's output is ELU'd for layer d+1 when d < n-2.  With
-// kBackward the products are the backward's (kAhead steps of loads ahead).
-template <bool kBackward, int kAhead>
+// into `acts`.  Layer d's output is ELU'd for layer d+1 when d < n-2.
+template <int kAhead>
 __device__ void net_forward(const Net& net, size_t woff, const float4* in, int K,
                             const Acts& acts) {
   for (int d = 0; d < net.n; ++d) {
     const bool last = d == net.n - 1;
-    if constexpr (kBackward)
-      dense_t<kAhead>(net.w[d] + woff, net.b[d] + woff, nullptr, in, K, net.out[d], acts.pre[d],
-                      last ? nullptr : acts.post[d], net.out[d], d < net.n - 2, false);
-    else
-      dense(net.w[d] + woff, net.b[d] + woff, nullptr, in, K, net.out[d], acts.pre[d],
-            last ? nullptr : acts.post[d], net.out[d], d < net.n - 2, false);
+    dense_t<kAhead>(net.w[d] + woff, net.b[d] + woff, nullptr, in, K, net.out[d], acts.pre[d],
+                    last ? nullptr : acts.post[d], net.out[d], d < net.n - 2, false);
     in = acts.post[d];
     K = net.out[d];
   }
 }
 
-__device__ void store_tile(const float4* src, int B, int W, int row0, float* __restrict__ dst,
-                           bool aux = false, bool absval = false);
-
-// One RHS evaluation at zs, keeping every activation in `st`.  With `field`,
-// also writes the field; with `stats`, adds this evaluation's statistics
-// (weight m, tile rows < valid) to the thread's accumulators.  `e` is the
+// The backward's recomputation of one RHS evaluation at zs, keeping every
+// activation in `st`; with `field`, also writes the field.  `e` is the
 // evaluation's index: with kBayes its weights, and the tail's first-layer
-// term recomputed from them.  Where the aux streams are given (the forward
-// in aux-streaming mode) the evaluation's |rates| and Fa go to their rows
-// row0.. of slot e: the rates before the freeze mask, for frozen rows too.
-// kBackward (the backward's recomputation) takes the backward's products.
-template <bool kBayes, bool kBackward>
+// term recomputed from them.  Ends with a barrier.
+template <bool kBayes>
 __device__ void rhs_eval(const Args& a, const Stash& st, const float4* zs, float4* field,
-                         float fa_w, float m, int valid, float* stats, int e, int row0) {
+                         float fa_w, int e) {
   const bool mech = a.n0_fp > 0, has_aug = a.aug.n > 0;
   const size_t woff = kBayes ? a.P * (size_t)e : 0;
   constexpr int kAhead = kAheadFor<kBayes>;
-  if constexpr (kBackward) {
-    if (kBayes)
-      dense_t<kAhead>(a.w0t + woff, a.b0 + woff, nullptr, st.tail, a.DT, a.N0, st.ct, nullptr, 0,
-                      false, false);
-    dense_t<kAhead>(a.w0h + woff, nullptr, st.ct, zs, 3 * a.R, a.N0, st.h0pre, st.h0post,
-                    a.n0_fp, a.fp.n >= 2, a.aug.n >= 2);
-  } else {
-    if (kBayes)
-      dense(a.w0t + woff, a.b0 + woff, nullptr, st.tail, a.DT, a.N0, st.ct, nullptr, 0, false,
-            false);
-    dense(a.w0h + woff, nullptr, st.ct, zs, 3 * a.R, a.N0, st.h0pre, st.h0post, a.n0_fp,
-          a.fp.n >= 2, a.aug.n >= 2);
-  }
-  if (mech) net_forward<kBackward, kAhead>(a.fp, woff, st.h0post, a.n0_fp, st.fp);
+  if (kBayes)
+    dense_t<kAhead>(a.w0t + woff, a.b0 + woff, nullptr, st.tail, a.DT, a.N0, st.ct, nullptr, 0,
+                    false, false);
+  dense_t<kAhead>(a.w0h + woff, nullptr, st.ct, zs, 3 * a.R, a.N0, st.h0pre, st.h0post,
+                  a.n0_fp, a.fp.n >= 2, a.aug.n >= 2);
+  if (mech) net_forward<kAhead>(a.fp, woff, st.h0post, a.n0_fp, st.fp);
   if (has_aug)
-    net_forward<kBackward, kAhead>(a.aug, woff, st.h0post + a.n0_fp * kG, a.N0 - a.n0_fp, st.aug);
-  if (mech && a.rates_out != nullptr)
-    store_tile(st.fp.pre[a.fp.n - 1], a.B, 2 * a.R, row0,
-               a.rates_out + (size_t)e * a.B * 2 * a.R, true, true);
-  if (has_aug && a.fa_out != nullptr)
-    store_tile(st.aug.pre[a.aug.n - 1], a.B, 3 * a.R, row0,
-               a.fa_out + (size_t)e * a.B * 3 * a.R, true);
-  if (field == nullptr && stats == nullptr) return;
+    net_forward<kAhead>(a.aug, woff, st.h0post + a.n0_fp * kG, a.N0 - a.n0_fp, st.aug);
+  if (field == nullptr) return;
 
   const float* z = reinterpret_cast<const float*>(zs);
   const float* rp = mech ? reinterpret_cast<const float*>(st.fp.pre[a.fp.n - 1]) : nullptr;
@@ -381,18 +364,6 @@ __device__ void rhs_eval(const Args& a, const Stash& st, const float4* zs, float
       beta = fabsf(rp[(2 * r) * kTile + row]);
       gamma = fabsf(rp[(2 * r + 1) * kTile + row]);
     }
-    if (stats != nullptr && row < valid) {
-      if (mech) {
-        const float db = beta - kShiftBeta, dg = gamma - kShiftGamma;
-        stats[0] += m * db;
-        stats[1] += m * dg;
-        stats[2] += m * (db * db);
-        stats[3] += m * (dg * dg);
-      }
-      if (has_aug)
-        stats[4] += m * (fa[iS] * fa[iS] + fa[iI] * fa[iI] + fa[iR] * fa[iR]);
-    }
-    if (f == nullptr) continue;
     float f0, f1, f2;
     if (mech) {
       const float plus_i = beta * z[iS] * z[iI];
@@ -452,23 +423,12 @@ __device__ void load_tile(const float* __restrict__ src, int B, int W, int row0,
   }
 }
 
-// Store a [W][kTile] buffer (its absolute values with absval) into rows row0..
-// of a (B, W) matrix, none past B.  The aux streams (aux) are written once and
-// read by no block: they take the evict-first store, so that their 56 MB a
-// trajectory do not push the evaluations' weights out of the 50 MB L2 (with
-// plain stores the Bayes forward, whose blocks re-read 8 MB of drawn weights
-// from L2, measured 1.5x its stats-mode time).
-__device__ void store_tile(const float4* src, int B, int W, int row0, float* __restrict__ dst,
-                           bool aux, bool absval) {
+// Store a [W][kTile] buffer into rows row0.. of a (B, W) matrix, none past B.
+__device__ void store_tile(const float4* src, int B, int W, int row0, float* __restrict__ dst) {
   const float* s = reinterpret_cast<const float*>(src);
   for (int idx = threadIdx.x; idx < kTile * W; idx += blockDim.x) {
     const int row = idx / W, c = idx % W;
-    float v = s[c * kTile + row];
-    if (absval) v = fabsf(v);
-    if (row0 + row >= B) continue;
-    float* out = dst + (size_t)(row0 + row) * W + c;
-    if (aux) __stcs(out, v);
-    else *out = v;
+    if (row0 + row < B) dst[(size_t)(row0 + row) * W + c] = s[c * kTile + row];
   }
 }
 
@@ -487,68 +447,418 @@ __device__ void block_sum(const float* v, int nv, float* buf, float* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// K5: forward.  Shared memory: zh, zs, k1..k4 ([3R][kTile] each; the tail is
-// staged over the stages first), then the stash.
+// K5 / K8: the forward (ops/fused_train.py::forward_plan, read by
+// read_forward_plan).  A block of kFThreads threads takes kTile rows; an RHS
+// evaluation runs as passes (the first layer, then layer d of both nets on
+// threads of their own), then the SIR combine fused with the stage update.
+// Every sum starts at its bias (K5's first layer: at its addend ct) and adds
+// k = 0, 1, .. in order with one FMA a step, as dense_t's do: the backward
+// recomputes these stages bit for bit.  The weights are read from shared
+// memory only, streamed through two stages: a pass's rows in chunks, the next
+// chunk's cp.async copies issued after the barrier that frees its stage.
 // ---------------------------------------------------------------------------
-template <bool kBayes>
-__global__ void __launch_bounds__(kThreads)
-train_forward_kernel(const float* __restrict__ zh0, const float* __restrict__ ztail,
-                     Args a, float* __restrict__ traj, float* __restrict__ stats_out) {
-  extern __shared__ float4 smem[];
-  const int W3 = 3 * a.R, B = a.B;
-  const int row0 = blockIdx.x * kTile;
-  const int valid = min(kTile, B - row0);
-  float4* p = smem;
-  float4* zh = p; p += W3 * kG;
-  float4* zs = p; p += W3 * kG;
-  float4* k[4];
-  float4* stages = p;
-  for (int q = 0; q < 4; ++q) { k[q] = p; p += W3 * kG; }
-  float4* tail = stages;
-  if (kBayes) { tail = p; p += a.DT * kG; }
-  else if (a.DT > 4 * W3) p = stages + a.DT * kG;
-  Stash st;
-  carve_stash(a, p, st);
-  st.tail = tail;
-  const float fa_w = *a.fa_w;
+constexpr int kFThreads = 512;
+constexpr int kFMaxSteps = kMaxDeep + 1;
+constexpr int kFMaxChunks = 32;
+constexpr int kFArgsBytes = 3072;   // the plan and the arguments, copied ahead of the tile
+enum FwdKind { kFFirst, kFFp, kFAug };
 
-  load_tile(zh0, B, W3, row0, zh);
-  load_tile(ztail, B, a.DT, row0, tail);
+struct FJob { int kind, layer, K, N, cols, t0, nt, ldw; };
+struct FStep { int n_jobs; FJob job[2]; };
+struct FChunk { int step, k0[2], k1[2], off[2], boff[2]; };   // boff: a bias row, or -1
+struct FPlan {        // only ints: copied into shared memory word by word
+  int smem, stage_bytes;
+  int zh, tail, zs, kbuf, ct, h0, fpb, augb, rates, fa, wts;   // byte offsets
+  int n_steps, n_chunks;
+  int fph, augh;                // bytes of a ping-pong half (derived from the widths)
+  FStep step[kFMaxSteps];
+  FChunk chunk[kFMaxChunks];
+  int chunk0[kFMaxSteps + 1];   // an evaluation's first chunk of each pass (derived)
+};
+static_assert(sizeof(FPlan) % 16 == 0 && sizeof(Args) % 4 == 0 &&
+              sizeof(FPlan) + sizeof(Args) <= kFArgsBytes, "kFArgsBytes");
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A row's `bytes` from `s` to `d` by one warp in units of kUnit bytes; the
+// last unit may reach past the row's last byte (up to the next kUnit boundary).
+template <int kUnit>
+__device__ __forceinline__ void copy_units(unsigned char* d, const unsigned char* s, int bytes,
+                                           int lane) {
+  for (int i = lane * kUnit; i < bytes; i += 32 * kUnit) cp_async(d + i, s + i, kUnit);
+}
+
+// One float row of n floats from global `src` to shared `dst` by one warp, in
+// the widest of 16-, 8- and 4-byte units the row's address allows; a
+// matrix's last row (`last`) in 4-byte units, so that no copy reads past it.
+__device__ __forceinline__ void copy_row(unsigned char* dst, const float* src, int n, bool last,
+                                         int lane) {
+  const uintptr_t a = (uintptr_t)src;
+  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
+  if ((a & 15) == 0 && !last)
+    copy_units<16>(dst, s, 4 * n, lane);
+  else if ((a & 7) == 0 && !last)
+    copy_units<8>(dst, s, 4 * n, lane);
+  else
+    copy_units<4>(dst, s, 4 * n, lane);
+}
+
+template <bool kBayes>
+struct Fwd {
+  const Args& a;
+  const FPlan& p;
+  int row0, B, valid;
+
+  __device__ float4* buf(int off) const { return reinterpret_cast<float4*>(fwd_smem + off); }
+
+  __device__ const Net& net(int kind) const { return kind == kFFp ? a.fp : a.aug; }
+
+  __device__ unsigned char* stage(int g) const { return fwd_smem + p.wts + (g & 1) * p.stage_bytes; }
+
+  // Row k of job j's weights for evaluation e (K8: P * e floats further on;
+  // its first layer's rows are w0_tail's, then w0_head's); `last` when it is
+  // its matrix's last row.
+  __device__ const float* weight_row(const FJob& j, int e, int k, bool& last) const {
+    const size_t woff = kBayes ? a.P * (size_t)e : 0;
+    if (j.kind == kFFirst) {
+      if (kBayes && k < a.DT) {
+        last = k == a.DT - 1;
+        return a.w0t + woff + (size_t)k * j.N;
+      }
+      const int kh = kBayes ? k - a.DT : k;
+      last = k == j.K - 1;
+      return a.w0h + woff + (size_t)kh * j.N;
+    }
+    last = k == j.K - 1;
+    return net(j.kind).w[j.layer] + woff + (size_t)k * j.N;
+  }
+
+  // Issue the copies of chunk c of evaluation e into the stage of global chunk
+  // g: one warp a row; a pass's first chunk also holds its products' bias rows.
+  __device__ void copy_chunk(int c, int e, int g) const {
+    const FChunk& ch = p.chunk[c];
+    const FStep& sp = p.step[ch.step];
+    unsigned char* base = stage(g);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    int r = warp;
+    for (int jx = 0; jx < sp.n_jobs; ++jx) {
+      const FJob& j = sp.job[jx];
+      const int n = ch.k1[jx] - ch.k0[jx];
+      for (; r < n; r += kFThreads / 32) {
+        bool last;
+        const float* src = weight_row(j, e, ch.k0[jx] + r, last);
+        copy_row(base + ch.off[jx] + (size_t)r * j.ldw * 4, src, j.N, last, lane);
+      }
+      r -= n;
+      if (ch.boff[jx] >= 0 && warp == kFThreads / 32 - 1 - jx)
+        copy_row(base + ch.boff[jx], bias(j, e), j.N, true, lane);
+    }
+  }
+
+  // Job j's bias for evaluation e (K8: P * e floats further on).
+  __device__ const float* bias(const FJob& j, int e) const {
+    const size_t woff = kBayes ? a.P * (size_t)e : 0;
+    return (j.kind == kFFirst ? a.b0 : net(j.kind).b[j.layer]) + woff;
+  }
+
+  // The input activations of a job ([K][4 row groups] float4s).
+  __device__ const float4* input(const FJob& j) const {
+    if (j.kind == kFFirst) return buf(kBayes ? p.tail : p.zs);
+    if (j.layer == 0) return buf(p.h0) + (j.kind == kFFp ? 0 : a.n0_fp * kG);
+    return half(j.kind, j.layer - 1);
+  }
+
+  // The ping-pong half that layer d of a net writes (when not its last) and
+  // layer d + 1 reads.
+  __device__ float4* half(int kind, int d) const {
+    return buf(kind == kFFp ? p.fpb + (d & 1) * p.fph : p.augb + (d & 1) * p.augh);
+  }
+
+  // acc[r][q] += x[k] (row 4 rg + r) * W[k][c0 + q] for k in [kb, ke), one
+  // FMA a step in k's order, kUnroll steps' loads issued before their FMAs.
+  // W's row k at w + (k - kb) * ldw floats.
+  template <int kC>
+  __device__ __forceinline__ static void accumulate(float (&acc)[4][8], const float4* x,
+                                                    const float* w, int ldw, int kb, int ke) {
+    constexpr int kUnroll = 4;
+    int k = kb;
+    for (; k + kUnroll <= ke; k += kUnroll) {
+      float4 xv[kUnroll];
+      float wv[kUnroll][kC];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        xv[u] = x[(k + u) * kG];
+        load_cols<kC>(wv[u], w + (size_t)(k + u - kb) * ldw);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) fma_tile<kC>(acc, xv[u], wv[u]);
+    }
+    for (; k < ke; ++k) {
+      float wv[kC];
+      load_cols<kC>(wv, w + (size_t)(k - kb) * ldw);
+      fma_tile<kC>(acc, x[k * kG], wv);
+    }
+  }
+
+  template <int kC>
+  __device__ __forceinline__ static void load_cols(float (&wv)[kC], const float* w) {
+    if constexpr (kC == 1) {
+      wv[0] = w[0];
+    } else if constexpr (kC == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(w);
+      wv[0] = v.x; wv[1] = v.y;
+    } else {
+#pragma unroll
+      for (int q = 0; q < kC; q += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(w + q);
+        wv[q] = v.x; wv[q + 1] = v.y; wv[q + 2] = v.z; wv[q + 3] = v.w;
+      }
+    }
+  }
+
+  template <int kC>
+  __device__ __forceinline__ static void fma_tile(float (&acc)[4][8], const float4& x,
+                                                  const float (&wv)[kC]) {
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < kC; ++q) acc[r][q] = fmaf(xs[r], wv[q], acc[r][q]);
+  }
+
+  // One pass (step s of evaluation e, its chunks from global chunk g on):
+  // every chunk starts with a barrier, after which the next chunk's copies go
+  // to the other stage.  Returns the global chunk count after the pass.
+  __device__ int run_pass(int s, int e, int E, int g) const {
+    const FStep& sp = p.step[s];
+    const int t = threadIdx.x;
+    int jx = -1;
+    for (int j = 0; j < sp.n_jobs; ++j)
+      if (t >= sp.job[j].t0 && t < sp.job[j].t0 + sp.job[j].nt) jx = j;
+    const FJob* j = jx >= 0 ? &sp.job[jx] : nullptr;
+    int C = 1, rg = 0, c0 = 0;
+    bool active = false;
+    if (j != nullptr) {
+      C = j->cols;
+      const int ncg = (j->N + C - 1) / C, item = t - j->t0;
+      active = item < 4 * ncg;
+      rg = item / ncg;
+      c0 = (item % ncg) * C;
+    }
+    float acc[4][8];
+    const int c_end = p.chunk0[s + 1];
+    for (int ci = p.chunk0[s]; ci < c_end; ++ci, ++g) {
+      cp_async_wait_all();
+      __syncthreads();
+      {     // the next chunk: this evaluation's next, or the next one's first
+        const int nc = ci + 1 < p.n_chunks ? ci + 1 : 0, ne = ci + 1 < p.n_chunks ? e : e + 1;
+        if (ne < E) copy_chunk(nc, ne, g + 1);
+      }
+      if (!active) continue;
+      const FChunk& ch = p.chunk[ci];
+      if (ci == p.chunk0[s]) {   // each sum starts at its bias (K5's first layer: its addend)
+        const float4* ct = buf(p.ct);
+        const float* b = reinterpret_cast<const float*>(stage(g) + ch.boff[jx]);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int col = c0 + q < j->N ? c0 + q : j->N - 1;
+          const float4 v = j->kind == kFFirst && !kBayes ? ct[col * kG + rg] : splat(b[col]);
+          acc[0][q] = v.x; acc[1][q] = v.y; acc[2][q] = v.z; acc[3][q] = v.w;
+        }
+      }
+      const float4* x = input(*j) + rg;
+      const float* w = reinterpret_cast<const float*>(stage(g) + ch.off[jx]) + c0;
+      const int kb = ch.k0[jx], ke = ch.k1[jx];
+      switch (C) {
+        case 1: accumulate<1>(acc, x, w, j->ldw, kb, ke); break;
+        case 2: accumulate<2>(acc, x, w, j->ldw, kb, ke); break;
+        case 4: accumulate<4>(acc, x, w, j->ldw, kb, ke); break;
+        default: accumulate<8>(acc, x, w, j->ldw, kb, ke); break;
+      }
+    }
+    if (active) finish(*j, acc, rg, c0, e);
+    return g;
+  }
+
+  // A tile's outputs: ELU'd where the next layer wants them (as dense_t's
+  // post), a net's last layer's pre-activations to the rates / Fa buffer and,
+  // in aux-streaming mode, straight to their global rows (|rates| before the
+  // freeze mask, and for frozen rows too), evict-first.
+  __device__ void finish(const FJob& j, const float (&acc)[4][8], int rg, int c0, int e) const {
+    const bool first = j.kind == kFFirst;
+    const Net& n = net(j.kind);
+    const bool last = !first && j.layer == n.n - 1;
+    float4* dst = first ? buf(p.h0)
+                  : last ? buf(j.kind == kFFp ? p.rates : p.fa) : half(j.kind, j.layer);
+    float* aux = last ? (j.kind == kFFp ? a.rates_out : a.fa_out) : nullptr;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = c0 + q;
+      if (q >= j.cols || col >= j.N) break;
+      const float4 v = make_float4(acc[0][q], acc[1][q], acc[2][q], acc[3][q]);
+      const bool act = first ? (col < a.n0_fp ? a.fp.n >= 2 : a.aug.n >= 2)
+                             : !last && j.layer < n.n - 2;
+      dst[col * kG + rg] = act ? elu4(v) : v;
+      if (aux != nullptr) {
+        const float vs[4] = {v.x, v.y, v.z, v.w};
+        const bool absval = j.kind == kFFp;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = row0 + 4 * rg + r;
+          if (row < B) __stcs(aux + ((size_t)e * B + row) * j.N + col, absval ? fabsf(vs[r]) : vs[r]);
+        }
+      }
+    }
+  }
+
+  // The field at this stage's input zs from the rates and Fa just computed
+  // (rhs_eval's arithmetic), the freeze mask, the statistics (stats mode:
+  // weight m, rows < valid), and the Kutta 3/8 stage update in the forward's
+  // order: k_stage, the next stage's input zs and, at stage 3, the new state,
+  // also written to its row of the trajectory.  A thread a (region, group of
+  // 4 rows).
+  __device__ void combine(int stage_, int i, float dt, float m, float fa_w, float* stats,
+                          float* __restrict__ traj) const {
+    const bool mech = a.n0_fp > 0, has_aug = a.aug.n > 0;
+    const int W3 = 3 * a.R;
+    float* zh = reinterpret_cast<float*>(buf(p.zh));
+    float* zs = reinterpret_cast<float*>(buf(p.zs));
+    float* k1 = reinterpret_cast<float*>(buf(p.kbuf));
+    float* k2 = k1 + W3 * kTile;
+    float* k3 = k2 + W3 * kTile;
+    const float* rp = reinterpret_cast<const float*>(buf(p.rates));
+    const float* fa = reinterpret_cast<const float*>(buf(p.fa));
+    const float third = 1.f / 3.f;
+    for (int idx = threadIdx.x; idx < a.R * kTile; idx += kFThreads) {
+      const int r = idx / kTile, row = idx % kTile;
+      const int iS = (3 * r) * kTile + row, iI = iS + kTile, iR = iI + kTile;
+      const float z[3] = {zs[iS], zs[iI], zs[iR]};
+      float beta = 0.f, gamma = 0.f;
+      if (mech) {
+        beta = fabsf(rp[(2 * r) * kTile + row]);
+        gamma = fabsf(rp[(2 * r + 1) * kTile + row]);
+      }
+      if (stats != nullptr && row < valid) {
+        if (mech) {
+          const float db = beta - kShiftBeta, dg = gamma - kShiftGamma;
+          stats[0] += m * db;
+          stats[1] += m * dg;
+          stats[2] += m * (db * db);
+          stats[3] += m * (dg * dg);
+        }
+        if (has_aug)
+          stats[4] += m * (fa[iS] * fa[iS] + fa[iI] * fa[iI] + fa[iR] * fa[iR]);
+      }
+      float f0, f1, f2;
+      if (mech) {
+        const float plus_i = beta * z[0] * z[1];
+        const float minus_i = gamma * z[1];
+        f0 = -plus_i;
+        f1 = plus_i - minus_i;
+        f2 = minus_i;
+        if (has_aug) {
+          f0 += fa_w * fa[iS];
+          f1 += fa_w * fa[iI];
+          f2 += fa_w * fa[iR];
+        }
+      } else {
+        f0 = fa[iS]; f1 = fa[iI]; f2 = fa[iR];
+      }
+      const float f[3] = {frozen(z[0]) ? 0.f : f0, frozen(z[1]) ? 0.f : f1,
+                          frozen(z[2]) ? 0.f : f2};
+      const int ix[3] = {iS, iI, iR};
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int o = ix[q];
+        if (stage_ == 0) {
+          k1[o] = f[q];
+          zs[o] = zh[o] + dt * f[q] * third;
+        } else if (stage_ == 1) {
+          k2[o] = f[q];
+          zs[o] = zh[o] + dt * (f[q] - k1[o] * third);
+        } else if (stage_ == 2) {
+          k3[o] = f[q];
+          zs[o] = zh[o] + dt * (k1[o] - k2[o] + f[q]);
+        } else {
+          const float nz = zh[o] + dt * (k1[o] + 3.f * (k2[o] + k3[o]) + f[q]) * 0.125f;
+          zh[o] = nz;
+          zs[o] = nz;
+          if (row0 + row < B) traj[((size_t)(i + 1) * B + row0 + row) * W3 + 3 * r + q] = nz;
+        }
+      }
+    }
+  }
+};
+
+template <bool kBayes>
+__global__ void __launch_bounds__(kFThreads, 1)
+train_forward_kernel(const float* __restrict__ zh0, const float* __restrict__ ztail,
+                     const __grid_constant__ Args args, const __grid_constant__ FPlan plan,
+                     float* __restrict__ traj, float* __restrict__ stats_out) {
+  unsigned char* sm = fwd_smem;
+  // the plan and the arguments into shared memory (the first kFArgsBytes):
+  // read there, an index into them is a shared load
+  {
+    const int* from[2] = {reinterpret_cast<const int*>(&plan), reinterpret_cast<const int*>(&args)};
+    int* to[2] = {reinterpret_cast<int*>(sm), reinterpret_cast<int*>(sm + sizeof(FPlan))};
+    const int n[2] = {(int)(sizeof(FPlan) / 4), (int)(sizeof(Args) / 4)};
+    for (int h = 0; h < 2; ++h)
+      for (int i = threadIdx.x; i < n[h]; i += kFThreads) to[h][i] = from[h][i];
+    __syncthreads();
+  }
+  const FPlan& p = *reinterpret_cast<const FPlan*>(sm);
+  const Args& a = *reinterpret_cast<const Args*>(sm + sizeof(FPlan));
+  const int W3 = 3 * a.R, B = a.B, row0 = blockIdx.x * kTile;
+  const Fwd<kBayes> f{a, p, row0, B, min(kTile, B - row0)};
+  float* zh = reinterpret_cast<float*>(sm + p.zh);
+  float* zs = reinterpret_cast<float*>(sm + p.zs);
+  float* tail = reinterpret_cast<float*>(sm + p.tail);
+  for (int idx = threadIdx.x; idx < kTile * W3; idx += kFThreads) {
+    const int row = idx / W3, c = idx % W3;
+    const bool in = row0 + row < B;
+    const float v = in ? zh0[(size_t)(row0 + row) * W3 + c] : 0.f;
+    zh[c * kTile + row] = v;
+    zs[c * kTile + row] = v;
+    if (in) traj[(size_t)(row0 + row) * W3 + c] = v;
+  }
+  for (int idx = threadIdx.x; idx < kTile * a.DT; idx += kFThreads) {
+    const int row = idx / a.DT, c = idx % a.DT;
+    tail[c * kTile + row] = row0 + row < B ? ztail[(size_t)(row0 + row) * a.DT + c] : 0.f;
+  }
+  const int E = 4 * (a.T - 1);
+  if (E > 0) f.copy_chunk(0, 0, 0);
   __syncthreads();
-  if (!kBayes) dense(a.w0t, a.b0, nullptr, tail, a.DT, a.N0, st.ct, nullptr, 0, false, false);
-  store_tile(zh, B, W3, row0, traj);
+  if (!kBayes)     // K5's addend ct = b0 + tail @ w0_tail, once, as the backward forms it
+    dense_t<kAheadFor<false>>(a.w0t, a.b0, nullptr, reinterpret_cast<const float4*>(tail), a.DT,
+                              a.N0, reinterpret_cast<float4*>(sm + p.ct), nullptr, 0, false,
+                              false);
 
   float acc[kStats] = {};
   float* stats = a.stream_aux ? nullptr : acc;
-  const int n = W3 * kTile;
-  float* zhf = reinterpret_cast<float*>(zh);
-  float* zsf = reinterpret_cast<float*>(zs);
-  const float* k1 = reinterpret_cast<const float*>(k[0]);
-  const float* k2 = reinterpret_cast<const float*>(k[1]);
-  const float* k3 = reinterpret_cast<const float*>(k[2]);
-  const float* k4 = reinterpret_cast<const float*>(k[3]);
-  const float third = 1.f / 3.f;
-  for (int i = 0; i + 1 < a.T; ++i) {
-    const float dt = a.dts[i], m = a.stream_aux ? 1.f : a.tmask[i];
-    rhs_eval<kBayes, false>(a, st, zh, k[0], fa_w, m, valid, stats, 4 * i + 0, row0);
-    for (int e = threadIdx.x; e < n; e += blockDim.x) zsf[e] = zhf[e] + dt * k1[e] * third;
+  const float fa_w = *a.fa_w;
+  int g = 0;
+  for (int e = 0; e < E; ++e) {
+    const int i = e >> 2;
+    for (int s = 0; s < p.n_steps; ++s) g = f.run_pass(s, e, E, g);
     __syncthreads();
-    rhs_eval<kBayes, false>(a, st, zs, k[1], fa_w, m, valid, stats, 4 * i + 1, row0);
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-      zsf[e] = zhf[e] + dt * (k2[e] - k1[e] * third);
-    __syncthreads();
-    rhs_eval<kBayes, false>(a, st, zs, k[2], fa_w, m, valid, stats, 4 * i + 2, row0);
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-      zsf[e] = zhf[e] + dt * (k1[e] - k2[e] + k3[e]);
-    __syncthreads();
-    rhs_eval<kBayes, false>(a, st, zs, k[3], fa_w, m, valid, stats, 4 * i + 3, row0);
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-      zhf[e] = zhf[e] + dt * (k1[e] + 3.f * (k2[e] + k3[e]) + k4[e]) * 0.125f;
-    __syncthreads();
-    store_tile(zh, B, W3, row0, traj + (size_t)(i + 1) * B * W3);
+    f.combine(e & 3, i, a.dts[i], a.stream_aux ? 1.f : a.tmask[i], fa_w, stats, traj);
   }
-  if (!a.stream_aux)
-    block_sum(acc, 5, reinterpret_cast<float*>(stages), stats_out + (size_t)blockIdx.x * kStats);
+  if (!a.stream_aux) {
+    __syncthreads();      // the last combine done; the stages are free (no copy in flight)
+    block_sum(acc, 5, reinterpret_cast<float*>(sm + p.wts), stats_out + (size_t)blockIdx.x * kStats);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -630,7 +940,7 @@ __device__ void rhs_vjp(const Args& a, const Stash& st, const Grad& g, const flo
   const bool aux_fa = a.stream_aux && has_aug && a.g_fa != nullptr;
   if (aux_rates) load_tile(a.g_rates + (size_t)e * a.B * 2 * a.R, a.B, 2 * a.R, row0, g.da);
   if (aux_fa) load_tile(a.g_fa + (size_t)e * a.B * 3 * a.R, a.B, 3 * a.R, row0, g.dc);
-  rhs_eval<kBayes, true>(a, st, u, nullptr, fa_w, m, valid, nullptr, e, row0);  // ends in a barrier
+  rhs_eval<kBayes>(a, st, u, nullptr, fa_w, e);  // ends in a barrier
 
   // the layer inputs: the state, the first layer's output (each net's part),
   // each inner layer's
@@ -791,13 +1101,13 @@ train_backward_kernel(const float* __restrict__ traj, const float* __restrict__ 
     load_tile(traj + (size_t)i * B * W3, B, W3, row0, g.zh);
     __syncthreads();
     // the stages, recomputed from the stored state (k1..k3 in gk1..gk3)
-    rhs_eval<kBayes, true>(a, st, g.zh, g.gk1, fa_w, m, valid, nullptr, 4 * i, row0);
+    rhs_eval<kBayes>(a, st, g.zh, g.gk1, fa_w, 4 * i);
     for (int e = tid; e < n; e += blockDim.x) u2[e] = zh[e] + dt * gk1[e] * third;
     __syncthreads();
-    rhs_eval<kBayes, true>(a, st, g.u2, g.gk2, fa_w, m, valid, nullptr, 4 * i + 1, row0);
+    rhs_eval<kBayes>(a, st, g.u2, g.gk2, fa_w, 4 * i + 1);
     for (int e = tid; e < n; e += blockDim.x) u3[e] = zh[e] + dt * (gk2[e] - gk1[e] * third);
     __syncthreads();
-    rhs_eval<kBayes, true>(a, st, g.u3, g.gk3, fa_w, m, valid, nullptr, 4 * i + 2, row0);
+    rhs_eval<kBayes>(a, st, g.u3, g.gk3, fa_w, 4 * i + 2);
     for (int e = tid; e < n; e += blockDim.x) {
       u4[e] = zh[e] + dt * (gk1[e] - gk2[e] + gk3[e]);
       const float c = gz[e];
@@ -1110,20 +1420,188 @@ void stream_aux(Args& a, float* rates_out, float* fa_out, const float* g_rates,
   a.g_rates = g_rates; a.g_fa = g_fa;
 }
 
+// ---- the forward's plan -------------------------------------------------------
+//
+// ops/fused_train.py::forward_plan makes it, the only planner.  The launchers
+// read its ints (64-bit, ForwardPlan.flat()) and check what the kernel relies
+// on; they refuse any other plan.  In order:
+//   rows, threads, cluster, B, T, bayes, stream_aux, blocks, partials,
+//   smem_bytes, stages, stage_bytes, the byte offsets of zh, tail, zs, kbuf,
+//   ct, h0, fpb, augb, rates, fa, wts;
+//   n, then n passes (n_jobs, then each job's kind, layer, K, N, cols, t0,
+//     nt, ldw);
+//   n, then n chunks (step, k0[2], k1[2], off[2], boff[2]).
+constexpr long long kSmemLimit = 232448;         // dynamic shared memory a block can use
+constexpr long long kMaxOffset = 1LL << 50;      // floats: any offset or size of the plan
+constexpr long long kMaxWidth = 1 << 16;         // floats: a width, a row stride
+
+// The ints of a plan, read in order; `ok` turns false on reading past the
+// end or on a value outside [-1, kMaxOffset).
+struct Longs {
+  const long long* v;
+  int n, i;
+  bool ok;
+  long long get() {
+    const long long x = i < n ? v[i++] : -2;
+    ok = ok && x >= -1 && x < kMaxOffset;
+    return x;
+  }
+};
+
+// Reads the plan of n ints at v into p and checks what the kernel relies on,
+// for these widths (a) and mode: its rows, threads and cluster (1); its batch,
+// points, blocks and statistics rows; each buffer 16-byte aligned, as large
+// as the kernel uses it, in the layout's order (K8: the tail just before zs),
+// all below the two stages and those inside smem_bytes <= kSmemLimit, with
+// room in the stages for the statistics' block sum; every pass's products
+// those of these widths in the kernel's order, each on warps of its own with
+// a thread for every tile and a row stride that holds its tiles' columns;
+// and each pass's weight rows covered in order by its chunks, a chunk's rows
+// inside its stage.  Fills the derived fields.
+bool read_forward_plan(const long long* v, int n, const Args& a, bool bayes, FPlan& p) {
+  if (v == nullptr) return false;
+  p = FPlan{};
+  Longs in{v, n, 0, true};
+  long long h[12];
+  for (long long& x : h) x = in.get();
+  const long long blocks = ((long long)a.B + kTile - 1) / kTile;
+  if (!in.ok || h[0] != kTile || h[1] != kFThreads || h[2] != 1 || h[3] != a.B ||
+      h[4] != a.T || h[5] != (bayes ? 1 : 0) || h[6] != a.stream_aux || h[7] != blocks ||
+      h[8] != (a.stream_aux ? 0 : blocks) || h[9] < 1 || h[9] > kSmemLimit || h[10] != 2 ||
+      h[11] < 16 || h[11] % 16 || 2 * h[11] < 5 * 4 * kFThreads)
+    return false;
+  p.smem = (int)h[9];
+  p.stage_bytes = (int)h[11];
+  int* offs[11] = {&p.zh, &p.tail, &p.zs, &p.kbuf, &p.ct, &p.h0, &p.fpb, &p.augb, &p.rates,
+                   &p.fa, &p.wts};
+  for (int* o : offs) {
+    const long long x = in.get();
+    if (!in.ok || x < kFArgsBytes || x > kSmemLimit || x % 16) return false;
+    *o = (int)x;
+  }
+  const int W3 = 3 * a.R, row = kTile * 4;
+  int wf = 0, wa = 0;
+  for (int d = 0; d + 1 < a.fp.n; ++d) wf = a.fp.out[d] > wf ? a.fp.out[d] : wf;
+  for (int d = 0; d + 1 < a.aug.n; ++d) wa = a.aug.out[d] > wa ? a.aug.out[d] : wa;
+  p.fph = wf * row;
+  p.augh = wa * row;
+  const long long sizes[10] = {(long long)W3 * row, (long long)a.DT * row, (long long)W3 * row,
+                               3LL * W3 * row, bayes ? 0 : (long long)a.N0 * row,
+                               (long long)a.N0 * row, 2LL * p.fph, 2LL * p.augh,
+                               a.fp.n ? 2LL * a.R * row : 0, a.aug.n ? (long long)W3 * row : 0};
+  for (int b = 0; b < 10; ++b)
+    if (*offs[b] + sizes[b] > *offs[b + 1]) return false;
+  if ((bayes && p.tail + sizes[1] != p.zs) || (long long)p.wts + 2LL * p.stage_bytes > p.smem)
+    return false;
+
+  // the passes: the first layer (K8: over [tail | head]), then layer d of the
+  // rates net and of the Fa net
+  const int depth = a.fp.n > a.aug.n ? a.fp.n : a.aug.n;
+  p.n_steps = (int)in.get();
+  if (!in.ok || p.n_steps != depth + 1 || p.n_steps > kFMaxSteps) return false;
+  for (int s = 0; s < p.n_steps; ++s) {
+    FStep& sp = p.step[s];
+    sp.n_jobs = (int)in.get();
+    int kinds[2], layers[2], want = 0;
+    if (s == 0) { kinds[want] = kFFirst; layers[want++] = 0; }
+    if (s > 0 && s - 1 < a.fp.n) { kinds[want] = kFFp; layers[want++] = s - 1; }
+    if (s > 0 && s - 1 < a.aug.n) { kinds[want] = kFAug; layers[want++] = s - 1; }
+    if (!in.ok || sp.n_jobs != want) return false;
+    int t = 0;
+    for (int j = 0; j < want; ++j) {
+      long long f[8];
+      for (long long& x : f) x = in.get();
+      const int kind = kinds[j], d = layers[j];
+      long long K, N;
+      if (kind == kFFirst) {
+        K = bayes ? W3 + a.DT : W3;
+        N = a.N0;
+      } else {
+        const Net& net = kind == kFFp ? a.fp : a.aug;
+        K = d ? net.out[d - 1] : (kind == kFFp ? a.n0_fp : a.N0 - a.n0_fp);
+        N = net.out[d];
+      }
+      const long long C = f[4], tiles = 4 * ((N + C - 1) / (C > 0 ? C : 1));
+      if (!in.ok || f[0] != kind || f[1] != d || f[2] != K || f[3] != N ||
+          (C != 1 && C != 2 && C != 4 && C != 8) || f[5] != t || f[6] % 32 || f[6] < tiles ||
+          f[5] + f[6] > kFThreads || f[7] % 4 || f[7] < (N + C - 1) / C * C || f[7] > kMaxWidth)
+        return false;
+      sp.job[j] = FJob{kind, d, (int)K, (int)N, (int)C, (int)f[5], (int)f[6], (int)f[7]};
+      t = (int)(f[5] + f[6]);
+    }
+  }
+
+  // the weights: each pass's rows in order over its chunks, inside their stage
+  p.n_chunks = (int)in.get();
+  if (!in.ok || p.n_chunks < 1 || p.n_chunks > kFMaxChunks) return false;
+  int next_k[2] = {0, 0};
+  for (int c = 0; c < p.n_chunks; ++c) {
+    FChunk& ch = p.chunk[c];
+    long long f[9];
+    for (long long& x : f) x = in.get();
+    const int prev = c ? p.chunk[c - 1].step : 0;
+    if (!in.ok || f[0] < prev || f[0] > prev + (c ? 1 : 0) || f[0] >= p.n_steps) return false;
+    ch.step = (int)f[0];
+    const bool first = c == 0 || ch.step != prev;
+    if (c && ch.step != prev) {
+      const FStep& ps = p.step[prev];
+      for (int j = 0; j < ps.n_jobs; ++j)
+        if (next_k[j] != ps.job[j].K) return false;
+      next_k[0] = next_k[1] = 0;
+    }
+    const FStep& sp = p.step[ch.step];
+    long long end = 0;
+    for (int j = 0; j < 2; ++j) {
+      ch.k0[j] = (int)f[1 + j];
+      ch.k1[j] = (int)f[3 + j];
+      ch.off[j] = (int)f[5 + j];
+      ch.boff[j] = (int)f[7 + j];
+      if (j >= sp.n_jobs) continue;
+      if (f[1 + j] != next_k[j] || f[3 + j] <= f[1 + j] || f[3 + j] > sp.job[j].K ||
+          f[5 + j] % 16 || f[5 + j] < end)
+        return false;
+      end = f[5 + j] + (f[3 + j] - f[1 + j]) * sp.job[j].ldw * 4;
+      if (end > p.stage_bytes) return false;
+      next_k[j] = ch.k1[j];
+    }
+    // a pass's first chunk holds a bias row for each product that starts at
+    // one (all but K5's first layer), after the weight rows; no other chunk
+    for (int j = 0; j < sp.n_jobs; ++j) {
+      const bool wants = first && !(sp.job[j].kind == kFFirst && !bayes);
+      if (!wants) {
+        if (f[7 + j] != -1) return false;
+        continue;
+      }
+      if (f[7 + j] % 16 || f[7 + j] < end) return false;
+      end = f[7 + j] + 4LL * ((sp.job[j].N + 3) / 4 * 4);
+      if (end > p.stage_bytes) return false;
+    }
+  }
+  const FStep& last = p.step[p.n_steps - 1];
+  if (in.i != n || p.chunk[p.n_chunks - 1].step != p.n_steps - 1) return false;
+  for (int j = 0; j < last.n_jobs; ++j)
+    if (next_k[j] != last.job[j].K) return false;
+  for (int c = 0, s = 0; s <= p.n_steps; ++s) {
+    while (c < p.n_chunks && p.chunk[c].step < s) ++c;
+    p.chunk0[s] = c;
+  }
+  return true;
+}
+
+// Launch on `stream` with the plan of plan_len ints; refuse a plan
+// read_forward_plan does not take.
 template <bool kBayes>
 int launch_forward(const float* zh0, const float* ztail, const Args& a, float* traj,
-                   float* stats, void* stream) {
-  const size_t W3 = 3 * (size_t)a.R, DT = a.DT;
-  const size_t stages = kBayes ? 4 * W3 + DT : DT > 4 * W3 ? DT : 4 * W3;
-  size_t feats = 2 * W3 + stages + stash_features(a);
-  const size_t red = (5 * kThreads + kTile - 1) / kTile;   // block_sum's buffer
-  if (stages < red) feats += red - stages;
-  const size_t smem = feats * kTile * sizeof(float);
+                   float* stats, const long long* plan, int plan_len, void* stream) {
+  FPlan p;
+  if (!read_forward_plan(plan, plan_len, a, kBayes, p) || (!a.stream_aux && stats == nullptr))
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(train_forward_kernel<kBayes>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return e;
-  train_forward_kernel<kBayes><<<(a.B + kTile - 1) / kTile, kThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(zh0, ztail, a, traj, stats);
+  train_forward_kernel<kBayes><<<(a.B + kTile - 1) / kTile, kFThreads, p.smem,
+                                 static_cast<cudaStream_t>(stream)>>>(zh0, ztail, a, p, traj,
+                                                                      stats);
   return cudaGetLastError();
 }
 
@@ -1139,9 +1617,6 @@ int launch_forward(const float* zh0, const float* ztail, const Args& a, float* t
 //     n_eval, kt, nt, cta0, part, bpart, gw, gb).
 enum SegKind { kSU, kSH0Fp, kSH0Aug, kSFpPost, kSAugPost, kSD0, kSFpD, kSAugD };
 constexpr int kMaxSegs = 4 + 4 * kMaxDeep;
-constexpr long long kSmemLimit = 232448;         // dynamic shared memory a block can use
-constexpr long long kMaxOffset = 1LL << 50;      // floats: any offset or size of the plan
-constexpr long long kMaxWidth = 1 << 16;         // floats: a width, a row stride
 static_assert(kCRows == kTile, "the contraction steps through a block's rows");
 
 struct PlanHead {
@@ -1149,19 +1624,6 @@ struct PlanHead {
       part_total, P, grad_floats;
 };
 struct Seg { long long kind, layer, off, width; };
-
-// The ints of a plan, read in order; `ok` turns false on reading past the
-// end or on a value outside [-1, kMaxOffset).
-struct Longs {
-  const long long* v;
-  int n, i;
-  bool ok;
-  long long get() {
-    const long long x = i < n ? v[i++] : -2;
-    ok = ok && x >= -1 && x < kMaxOffset;
-    return x;
-  }
-};
 
 long long round4(long long n) { return (n + 3) / 4 * 4; }
 
@@ -1353,15 +1815,15 @@ int launch_contract(const Contract& c, const float* ws, const float* ztail, cons
 
 extern "C" {
 
-int fused_train_blocks(int B) { return (B + kTile - 1) / kTile; }
-
 // K5.  zh0 (B, 3R) region-major head; ztail (B, DT); dts, tmask (T-1) and
 // fa_w (scalar) on the device; weights (in, out).  Writes traj (T, B, 3R) and
 // stats (blocks, 8): per block sum(beta - 0.8), sum(gamma - 0.55), the two
 // sums of squares, sum(Fa^2).  With aux_mode != 0 (aux-streaming) tmask and
 // stats are not read or written (null), and every evaluation's |rates| go to
 // rates (4(T-1), B, 2R) and its Fa to fa (4(T-1), B, 3R), each null for a
-// family without that net.  Launches on `stream`; returns
+// family without that net.  The plan of plan_len ints
+// (ops/fused_train.py::forward_plan, refused unless read_forward_plan takes it
+// for these widths and mode).  Launches on `stream`; returns
 // cudaGetLastError().
 int fused_train_forward(const float* zh0, const float* ztail, int B, int T,
                         const float* dts, const float* tmask, const float* fa_w, int R,
@@ -1370,13 +1832,14 @@ int fused_train_forward(const float* zh0, const float* ztail, int B, int T,
                         const void* const* fp_w, const void* const* fp_b, int n_aug,
                         const int* aug_out, const void* const* aug_w,
                         const void* const* aug_b, float* traj, float* stats,
-                        int aux_mode, float* rates, float* fa, void* stream) {
+                        int aux_mode, float* rates, float* fa, const long long* plan,
+                        int plan_len, void* stream) {
   Args a;
   int err = fill_args(a, B, T, dts, tmask, fa_w, R, DT, N0, n0_fp, w0h, w0t, b0, n_fp,
                       fp_out, fp_w, nullptr, fp_b, n_aug, aug_out, aug_w, nullptr, aug_b);
   if (err != cudaSuccess) return err;
   if (aux_mode) stream_aux(a, rates, fa, nullptr, nullptr);
-  return launch_forward<false>(zh0, ztail, a, traj, stats, stream);
+  return launch_forward<false>(zh0, ztail, a, traj, stats, plan, plan_len, stream);
 }
 
 // K6's reverse sweep.  traj (T, B, 3R) from K5, gtraj its cotangent, ztail
@@ -1414,14 +1877,14 @@ int fused_train_backward(const float* traj, const float* gtraj, const float* zta
 // K8.  As fused_train_forward, with the weights of evaluation e = 4 * step +
 // stage read from weff (4(T-1), P), fused_bayes_draw's output: each
 // evaluation's packed arrays (w0_head, w0_tail, b0, then each later (w, b) of
-// the rates net, then of the Fa net; (in, out) weights).  aux_mode, rates and
-// fa as in fused_train_forward.
+// the rates net, then of the Fa net; (in, out) weights).  aux_mode, rates, fa
+// and the plan (forward_plan with bayes) as in fused_train_forward.
 int fused_bayes_train_forward(const float* zh0, const float* ztail, int B, int T,
                               const float* dts, const float* tmask, const float* fa_w, int R,
                               int DT, int N0, int n0_fp, const float* weff, long long P,
                               int n_fp, const int* fp_out, int n_aug, const int* aug_out,
                               float* traj, float* stats, int aux_mode, float* rates,
-                              float* fa, void* stream) {
+                              float* fa, const long long* plan, int plan_len, void* stream) {
   Args a;
   int err = fill_args(a, B, T, dts, tmask, fa_w, R, DT, N0, n0_fp, nullptr, nullptr, nullptr,
                       n_fp, fp_out, nullptr, nullptr, nullptr, n_aug, aug_out, nullptr, nullptr,
@@ -1430,7 +1893,7 @@ int fused_bayes_train_forward(const float* zh0, const float* ztail, int B, int T
   if ((long long)a.P != P) return cudaErrorInvalidValue;
   point_at(a, weff, nullptr);
   if (aux_mode) stream_aux(a, rates, fa, nullptr, nullptr);
-  return launch_forward<true>(zh0, ztail, a, traj, stats, stream);
+  return launch_forward<true>(zh0, ztail, a, traj, stats, plan, plan_len, stream);
 }
 
 // K9's reverse sweep.  As fused_train_backward, with weff and wteff (each

@@ -45,7 +45,7 @@ from fiude_tpu_torch.ops.fused_bayes import (
 )
 from fiude_tpu_torch.ops.fused_train import (
     RATE_SHIFT, _check_field, aux_buffers, check_aux_cotangents, contiguous_or_none,
-    cotangent_contraction, count_launch, field_plan, plan_ints,
+    cotangent_contraction, count_launch, field_forward_plan, field_plan, plan_ints,
 )
 from fiude_tpu_torch.ops.fused_ude import FieldWeights
 
@@ -115,14 +115,13 @@ def _launchers():
     ptr, ints, i, ll = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                         ctypes.c_longlong)
     lib.fused_bayes_train_forward.argtypes = [ptr, ptr, i, i, ptr, ptr, ptr, i, i, i, i, ptr, ll,
-                                              i, ints, i, ints, ptr, ptr, i, ptr, ptr, ptr]
+                                              i, ints, i, ints, ptr, ptr, i, ptr, ptr,
+                                              ctypes.POINTER(ll), i, ptr]
     lib.fused_bayes_train_forward.restype = ctypes.c_int
     lib.fused_bayes_train_backward.argtypes = [ptr, ptr, ptr, i, i, ptr, ptr, ptr, ptr, i, i, i,
                                                i, ptr, ptr, ll, i, ints, i, ints, ptr, ptr, i,
                                                ptr, ptr, ctypes.POINTER(ll), i, ptr, ptr, ptr]
     lib.fused_bayes_train_backward.restype = ctypes.c_int
-    lib.fused_train_blocks.argtypes = [i]
-    lib.fused_train_blocks.restype = ctypes.c_int
     return lib
 
 
@@ -160,11 +159,12 @@ def bayes_train_forward_cuda(z_head, z_tail, like: FieldWeights, weff, fa_w, dts
     P = _check_cuda(z_head, z_tail, like, fa_w, dts, tmask, [weff])
     B, R, DT, T = z_head.shape[0], z_head.shape[1] // 3, z_tail.shape[1], dts.shape[0] + 1
     lib = _launchers()
+    plan = field_forward_plan(B, T, like, bayes=True, stream_aux=not stats_mode)
+    ints, n = plan_ints(plan)
     traj = torch.empty(T, B, 3 * R, device=z_head.device, dtype=torch.float32)
     stats = rates = fa = None
     if stats_mode:
-        stats = torch.empty(lib.fused_train_blocks(B), 8, device=z_head.device,
-                            dtype=torch.float32)
+        stats = torch.empty(plan.partials, 8, device=z_head.device, dtype=torch.float32)
     else:
         rates, fa = aux_buffers(T, B, R, bool(like.fp), bool(like.aug), z_head.device)
     with torch.cuda.device(z_head.device):
@@ -173,7 +173,7 @@ def bayes_train_forward_cuda(z_head, z_tail, like: FieldWeights, weff, fa_w, dts
             z_head.data_ptr(), z_tail.data_ptr(), B, T, dts.data_ptr(), _build.ptr(tmask),
             fa_w.data_ptr(), R, DT, like.w0_head.shape[1], like.n0_fp, weff.data_ptr(), P,
             *_net_outs(like), traj.data_ptr(), _build.ptr(stats), int(not stats_mode),
-            _build.ptr(rates), _build.ptr(fa), stream)
+            _build.ptr(rates), _build.ptr(fa), ints, n, stream)
     _build.check(code, "fused_bayes_train_forward")
     count_launch(bayes_train_forward_cuda, stats_mode)
     if not stats_mode:

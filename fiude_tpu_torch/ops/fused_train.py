@@ -40,7 +40,10 @@ version :func:`cotangent_contraction_plain` on a CPU one, which
 :func:`backward_workspace_plain` builds from the twin's records).
 :func:`backward_plan` lays out both, from the widths and the batch, and is
 the only planner: the launchers check what the kernels rely on and refuse
-the rest.
+the rest.  K5 (and K8) runs on :func:`forward_plan`'s plan (512 threads, a
+thread a tile of 4 rows x ``cols`` columns, the weights streamed through
+two shared-memory stages in chunks, every sum in the recomputation's order),
+likewise the only planner of the forward.
 
 :func:`train_trajectory` dispatches strictly on the state's device: a CPU
 tensor takes :func:`train_trajectory_plain`, a CUDA tensor launches K5 and,
@@ -54,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -184,10 +188,10 @@ def _launchers():
     ptr, ptrs, ints, i = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
                           ctypes.POINTER(ctypes.c_int), ctypes.c_int)
     fwd = lib.fused_train_forward
-    fwd.argtypes = [ptr, ptr, i, i, ptr, ptr, ptr, i, i, i, i, ptr, ptr, ptr,
-                    i, ints, ptrs, ptrs, i, ints, ptrs, ptrs, ptr, ptr, i, ptr, ptr, ptr]
-    fwd.restype = ctypes.c_int
     longs = ctypes.POINTER(ctypes.c_longlong)
+    fwd.argtypes = [ptr, ptr, i, i, ptr, ptr, ptr, i, i, i, i, ptr, ptr, ptr,
+                    i, ints, ptrs, ptrs, i, ints, ptrs, ptrs, ptr, ptr, i, ptr, ptr, longs, i, ptr]
+    fwd.restype = ctypes.c_int
     bwd = lib.fused_train_backward
     bwd.argtypes = [ptr, ptr, ptr, i, i, ptr, ptr, ptr, ptr, i, i, i, i,
                     ptr, ptr, ptr, ptr, ptr, i, ints, ptrs, ptrs, ptrs,
@@ -196,16 +200,246 @@ def _launchers():
     con = lib.fused_train_contract
     con.argtypes = [i, longs, i, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
     con.restype = ctypes.c_int
-    lib.fused_train_blocks.argtypes = [i]
-    lib.fused_train_blocks.restype = ctypes.c_int
     return lib
 
-
-# ---- K6 / K9's plan -----------------------------------------------------------
 
 ROWS, THREADS = 16, 256       # kTile, kThreads in csrc/fused_train.cu
 CONTRACT_TILE = 64            # kCT: a contraction CTA's 64 x 64 outputs
 SMEM_LIMIT = 232448           # dynamic shared memory a block can use
+
+# ---- K5 / K8's plan -----------------------------------------------------------
+
+FWD_THREADS = 512             # kFThreads: the forward's block
+FWD_ARGS_BYTES = 3072         # kFArgsBytes: the plan and arguments, copied ahead of the tile
+FWD_MAX_CHUNKS = 32           # kFMaxChunks
+FWD_COLS = (1, 2, 4, 8)       # the columns a thread's tile may take (x 4 rows)
+FIRST, FP, AUG = 0, 1, 2      # a product's kind: the first layer, a later layer of a net
+FWD_UNROLL, FWD_LATENCY = 4, 32   # k-steps whose loads go ahead; cycles a group waits
+FWD_BUFFERS = ("zh", "tail", "zs", "kbuf", "ct", "h0", "fpb", "augb", "rates", "fa", "wts")
+
+
+class FwdJob(NamedTuple):
+    """One product of a pass: outputs (4 rows x ``cols`` columns a thread)
+    on threads ``[t0, t0 + nt)``, a warp's worth at a time; the weights' row
+    stride ``ldw`` floats in a chunk."""
+    kind: int
+    layer: int
+    K: int
+    N: int
+    cols: int
+    t0: int
+    nt: int
+    ldw: int
+
+
+class FwdChunk(NamedTuple):
+    """Rows ``[k0[j], k1[j])`` of each product j of pass ``step``, at byte
+    ``off[j]`` of a stage; in a pass's first chunk, product j's bias row at
+    byte ``boff[j]`` (-1: none; K5's first layer starts at its addend ct)."""
+    step: int
+    k0: Tuple[int, int]
+    k1: Tuple[int, int]
+    off: Tuple[int, int]
+    boff: Tuple[int, int]
+
+
+class ForwardPlan(NamedTuple):
+    """How K5 (K8 with ``bayes``) is launched (:func:`forward_plan`): blocks of
+    ``rows`` rows on ``threads`` threads in clusters of ``cluster``, the tile's
+    buffers at their byte offsets (``offsets``, in :data:`FWD_BUFFERS` order,
+    an absent one empty), the weights streamed through ``stages`` stages of
+    ``stage_bytes``, an evaluation's passes (``steps``: the first layer, then
+    layer d of each net) and its weight chunks, and ``partials`` rows of
+    statistics (a block's each; none in aux-streaming mode)."""
+    rows: int
+    threads: int
+    cluster: int
+    B: int
+    T: int
+    bayes: bool
+    stream_aux: bool
+    blocks: int
+    partials: int
+    smem_bytes: int
+    stages: int
+    stage_bytes: int
+    offsets: Tuple[int, ...]
+    steps: Tuple[Tuple[FwdJob, ...], ...]
+    chunks: Tuple[FwdChunk, ...]
+    widths: Tuple         # (R, DT, N0, n0_fp, fp_out, aug_out): not part of flat()
+
+    def flat(self) -> Tuple[int, ...]:
+        """The plan as the C launchers read it (``read_forward_plan`` in
+        ``csrc/fused_train.cu``)."""
+        out = [self.rows, self.threads, self.cluster, self.B, self.T, int(self.bayes),
+               int(self.stream_aux), self.blocks, self.partials, self.smem_bytes, self.stages,
+               self.stage_bytes, *self.offsets, len(self.steps)]
+        for step in self.steps:
+            out.append(len(step))
+            for job in step:
+                out.extend(job)
+        out.append(len(self.chunks))
+        for ch in self.chunks:
+            out.extend([ch.step, *ch.k0, *ch.k1, *ch.off, *ch.boff])
+        return tuple(out)
+
+    def offset(self, name: str) -> int:
+        return self.offsets[FWD_BUFFERS.index(name)]
+
+
+def _fwd_cost(jobs, cols) -> int:
+    """Cycles a pass's products take on one SM, as modelled: warps laid out
+    from warp 0 in job order (warp w on scheduler w % 4), a thread a tile; the
+    larger of the busiest scheduler (the instructions its warps issue, and no
+    less than its longest warp's chain, which waits FWD_LATENCY cycles for
+    every FWD_UNROLL k-steps' loads) and the shared memory's wavefronts (one
+    for the activations, ``cols`` for the weights; 8 columns read with a
+    2-way conflict)."""
+    sched = [[0, 0] for _ in range(4)]
+    wavefronts, w = 0, 0
+    for (K, N), C in zip(jobs, cols):
+        instr = 4 * C + (3 if C == 8 else 2)
+        for _ in range(_fwd_warps(N, C)):
+            s = sched[w % 4]
+            s[0] += K * instr
+            s[1] = max(s[1], K * instr + -(-K // FWD_UNROLL) * FWD_LATENCY)
+            wavefronts += K * (1 + (2 * C if C == 8 else C))
+            w += 1
+    return max(max(max(s) for s in sched), wavefronts)
+
+
+def _fwd_warps(N: int, C: int) -> int:
+    """Warps of a product with tiles of 4 rows x C columns: one thread a tile."""
+    return -(-4 * -(-N // C) // 32)
+
+
+def _fwd_ldw(N: int, C: int) -> int:
+    """A weight row's stride in a chunk: whole tiles, 16-byte rows."""
+    return -(-N // max(4, C)) * max(4, C)
+
+
+def fwd_assign(jobs: Sequence[Tuple[int, int]], kinds: Sequence[Tuple[int, int]]):
+    """Columns a tile and threads for the products ``(K, N)`` of one pass:
+    the least modelled cost (:func:`_fwd_cost`), then the most threads, with
+    every tile on a thread of its own."""
+    best = None
+    for cols in itertools.product(FWD_COLS, repeat=len(jobs)):
+        warps = [_fwd_warps(N, C) for (K, N), C in zip(jobs, cols)]
+        if sum(warps) > FWD_THREADS // 32:
+            continue
+        key = (_fwd_cost(jobs, cols), -sum(warps))
+        if best is None or key < best[0]:
+            best = (key, cols, warps)
+    if best is None:
+        raise ValueError(f"the products {tuple(jobs)} take more tiles than the forward's "
+                         f"{FWD_THREADS} threads")
+    _, cols, warps = best
+    out, t0 = [], 0
+    for (K, N), C, w, (kind, layer) in zip(jobs, cols, warps, kinds):
+        out.append(FwdJob(kind, layer, K, N, C, t0, 32 * w, _fwd_ldw(N, C)))
+        t0 += 32 * w
+    return tuple(out)
+
+
+def forward_plan(B: int, T: int, R: int, DT: int, N0: int, n0_fp: int, fp_out: Sequence[int],
+                 aug_out: Sequence[int], *, bayes: bool, stream_aux: bool) -> ForwardPlan:
+    """K5's (``bayes``: K8's) plan for B rows, T points and these widths (the
+    first layer's N0 columns, ``n0_fp`` of them the rates net's; each net's
+    later layers' widths, empty for a net the family lacks), in stats mode or
+    (``stream_aux``) aux-streaming mode.
+
+    A block takes 16 rows on 512 threads.  An RHS evaluation runs as passes:
+    the first layer (K8: over [tail | head], DT + 3R deep from the bias, which
+    is K5's addend ct = b0 + tail @ w0_tail, formed once a launch, followed
+    by the head's rows), then layer d of the rates net and of the Fa net on
+    threads of their own, then the SIR combine fused with the stage update.
+    A thread owns a tile of 4 rows x ``cols`` columns of one product and adds
+    its k in order from the bias, as the backward's recomputation does.  The
+    weights stream through two stages of shared memory: a pass's rows split
+    into chunks that fit a stage, the next chunk copied while the current one
+    is used.  Raises ``ValueError`` for widths no plan takes."""
+    fp_out, aug_out = tuple(fp_out), tuple(aug_out)
+    n_fp, n_aug = len(fp_out), len(aug_out)
+    if B < 1 or T < 1 or R < 1 or DT < 0 or N0 < 1 or (n_fp > 0) != (n0_fp > 0) \
+            or (n_aug > 0) != (N0 > n0_fp) or max(n_fp, n_aug) > 8 or (n_fp == 0 and n_aug == 0):
+        raise ValueError(f"no forward plan for B={B}, T={T}, R={R}, DT={DT}, N0={N0}, "
+                         f"n0_fp={n0_fp}, nets {fp_out} {aug_out}")
+    W3 = 3 * R
+    row = ROWS * 4
+    passes = [[(W3 + DT if bayes else W3, N0, FIRST, 0)]]
+    for d in range(max(n_fp, n_aug)):
+        step = []
+        if d < n_fp:
+            step.append((n0_fp if d == 0 else fp_out[d - 1], fp_out[d], FP, d))
+        if d < n_aug:
+            step.append((N0 - n0_fp if d == 0 else aug_out[d - 1], aug_out[d], AUG, d))
+        passes.append(step)
+    steps = tuple(fwd_assign([(K, N) for K, N, _, _ in p], [(k, d) for _, _, k, d in p])
+                  for p in passes)
+
+    # the tile, feature-major [feature][16 rows] floats; the tail just before
+    # zs, so that K8's first product reads [tail | head] as one input
+    wf, wa = max(fp_out[:-1], default=0), max(aug_out[:-1], default=0)
+    sizes = {"zh": W3, "tail": DT, "zs": W3, "kbuf": 3 * W3, "ct": 0 if bayes else N0,
+             "h0": N0, "fpb": 2 * wf, "augb": 2 * wa, "rates": 2 * R if n_fp else 0,
+             "fa": W3 if n_aug else 0}
+    offsets, off = {}, FWD_ARGS_BYTES
+    for name in FWD_BUFFERS[:-1]:
+        offsets[name] = off
+        off += sizes[name] * row
+    offsets["wts"] = off
+
+    pass_bytes = [sum(j.K * j.ldw * 4 for j in p) for p in steps]
+    stage = min((SMEM_LIMIT - off) // 2 // 16 * 16, -(-max(pass_bytes) // 16) * 16)
+    stage = max(stage, -(-FWD_THREADS * 5 * 4 // 2 // 16) * 16)   # room for the stats' sum
+    smem = off + 2 * stage
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the forward's block needs {smem} B of shared memory, over "
+                         f"{SMEM_LIMIT}")
+    chunks = []
+    for i, p in enumerate(steps):
+        # the pass's bias rows, after its first chunk's weight rows
+        biases = [0 if j.kind == FIRST and not bayes else -(-j.N // 4) * 16 for j in p]
+        for n in range(1, min(j.K for j in p) + 1):          # at least a row of each a chunk
+            rows = [[(c * j.K // n, (c + 1) * j.K // n) for j in p] for c in range(n)]
+            if max(sum((b - a) * j.ldw * 4 for (a, b), j in zip(r, p)) + (sum(biases) if not c
+                                                                         else 0)
+                   for c, r in enumerate(rows)) <= stage:
+                break
+        else:
+            raise ValueError(f"a row of pass {i} exceeds a stage of {stage} bytes")
+        pad = lambda v, x=0: tuple(v) + (x,) * (2 - len(v))     # noqa: E731
+        for c, r in enumerate(rows):
+            ends = [sum((b - a) * j.ldw * 4 for (a, b), j in zip(r[:k], p))
+                    for k in range(len(p) + 1)]
+            boff = [-1 if c or not nb else ends[-1] + sum(biases[:k]) for k, nb in
+                    enumerate(biases)]
+            chunks.append(FwdChunk(i, pad([a for a, _ in r]), pad([b for _, b in r]),
+                                   pad(ends[:-1]), pad(boff, -1)))
+    if len(chunks) > FWD_MAX_CHUNKS:
+        raise ValueError(f"{len(chunks)} weight chunks an evaluation; at most {FWD_MAX_CHUNKS}")
+    blocks = -(-B // ROWS)
+    return ForwardPlan(ROWS, FWD_THREADS, 1, B, T, bool(bayes), bool(stream_aux), blocks,
+                       0 if stream_aux else blocks, smem, 2, stage,
+                       tuple(offsets[k] for k in FWD_BUFFERS), steps, tuple(chunks),
+                       (R, DT, N0, n0_fp, fp_out, aug_out))
+
+
+def field_forward_plan(B: int, T: int, w: FieldWeights, *, bayes: bool,
+                       stream_aux: bool) -> ForwardPlan:
+    """:func:`forward_plan` for a field in the kernels' layout."""
+    return _forward_plan(B, T, w.w0_head.shape[0] // 3, w.w0_tail.shape[0], w.w0_head.shape[1],
+                         w.n0_fp, tuple(wl.shape[1] for wl, _ in w.fp),
+                         tuple(wl.shape[1] for wl, _ in w.aug), bayes, stream_aux)
+
+
+@functools.lru_cache(maxsize=64)
+def _forward_plan(B, T, R, DT, N0, n0_fp, fp_out, aug_out, bayes, stream_aux) -> ForwardPlan:
+    return forward_plan(B, T, R, DT, N0, n0_fp, fp_out, aug_out, bayes=bayes,
+                        stream_aux=stream_aux)
+
+
+# ---- K6 / K9's plan -----------------------------------------------------------
 SEGMENT_KINDS = ("u", "h0_fp", "h0_aug", "fp_post", "aug_post", "d0", "fp_delta",
                  "aug_delta")
 
@@ -386,10 +620,11 @@ def backward_plan(B: int, T: int, R: int, DT: int, N0: int, n0_fp: int, fp_out: 
 
 
 @functools.lru_cache(maxsize=64)
-def plan_ints(plan: BackwardPlan):
-    """``plan.flat()`` as the C array the launchers take: 64-bit ints, since
-    the workspace passes 2^31 floats at E x Bp x F > 2^31 (e.g. the daily
-    shape's E = 336 at 6,600 rows)."""
+def plan_ints(plan):
+    """``plan.flat()`` (a :class:`BackwardPlan` or :class:`ForwardPlan`) as
+    the C array the launchers take: 64-bit ints, since the workspace passes
+    2^31 floats at E x Bp x F > 2^31 (e.g. the daily shape's E = 336 at 6,600
+    rows)."""
     flat = plan.flat()
     return (ctypes.c_longlong * len(flat))(*flat), len(flat)
 
@@ -565,10 +800,12 @@ def train_forward_cuda(z_head, z_tail, w: FieldWeights, fa_w, dts, tmask=None, *
     B, DT, T = z_head.shape[0], z_tail.shape[1], dts.shape[0] + 1
     lib = _launchers()
     dev = z_head.device
+    plan = field_forward_plan(B, T, w, bayes=False, stream_aux=not stats_mode)
+    ints, n = plan_ints(plan)
     traj = torch.empty(T, B, 3 * R, device=dev, dtype=torch.float32)
     stats = rates = fa = None
     if stats_mode:
-        stats = torch.empty(lib.fused_train_blocks(B), 8, device=dev, dtype=torch.float32)
+        stats = torch.empty(plan.partials, 8, device=dev, dtype=torch.float32)
     else:
         rates, fa = aux_buffers(T, B, R, w.n0_fp > 0, N0 > w.n0_fp, dev)
     with torch.cuda.device(dev):
@@ -578,7 +815,7 @@ def train_forward_cuda(z_head, z_tail, w: FieldWeights, fa_w, dts, tmask=None, *
             fa_w.data_ptr(), R, DT, N0, w.n0_fp, w.w0_head.data_ptr(),
             w.w0_tail.data_ptr(), w.b0.data_ptr(), *_net_args(w.fp),
             *_net_args(w.aug), traj.data_ptr(), _build.ptr(stats), int(not stats_mode),
-            _build.ptr(rates), _build.ptr(fa), stream)
+            _build.ptr(rates), _build.ptr(fa), ints, n, stream)
     _build.check(code, "fused_train_forward")
     count_launch(train_forward_cuda, stats_mode)
     if not stats_mode:

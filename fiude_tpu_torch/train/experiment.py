@@ -59,7 +59,7 @@ def _build_data(cfg: ExperimentConfig, data_root: Optional[str], synthetic: bool
             seed=seed + cfg.num + season_shift)
     raise NotImplementedError(
         "real data needs DataConstructor and the reference's Data/ tree, which are not "
-        "ported yet (ROADMAP.md, queue A, item 4 'Host-side data'); pass synthetic=True")
+        "ported yet (ROADMAP.md, queue A, item 3); pass synthetic=True")
 
 
 def daily_grid(cfg: ExperimentConfig) -> np.ndarray:

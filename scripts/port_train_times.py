@@ -20,26 +20,28 @@ trace recorded).  The shape is ``chip_smoke.py``'s training shape:
 padded curriculum's first mask; weights random from seed 0.  Name the roots
 parent, change, change, parent to compare two trees.
 
+Each root's first process also keeps one call's outputs of every launch, at
+the `state` shape and at a ragged batch of 37 rows: K5/K8's trajectory, five
+sums and aux streams, and K6/K9's cotangents, each backward fed its own
+root's forward.  After the last root, one line a root holds its outputs
+against the first root's bit for bit (the five sums within rel 1e-6: a
+change of the blocks' partials may change their last bits).
+
 With ``--probe``, each ROOT's ``csrc/fused_train.cu`` is also rewritten by
 text replacement (the script fails if a replaced line is gone) into copies
 built apart into ``fiude_tpu_torch/_build/probe`` (git-ignored, rebuilt every
-run).  A backward whose sweep forms no weight cotangent gets one copy whose
-sweep records ``clock64()`` in thread 0 of block 0 around every product (from
-its start to the barrier after it) and around the whole sweep; one K6 and one
-K9 call in stats mode then print, by product (forward or backward, depth,
-outputs), the launches, the median cycles and their share of the sweep.  A
-backward that still contracts its weight cotangents in the sweep (with
-``weight_grad``) gets two copies, each timed like the original:
+run), each recording ``clock64()`` in thread 0 of block 0:
 
-* ``no contraction``: ``weight_grad`` returns at once and the block's slice is
-  not zeroed: the sweep alone (products, stages, cotangents of the state);
-* ``shared sink``: ``weight_grad`` does its products and adds them into a
-  block-local 4 KB shared buffer instead of the block's global slice: the
-  sweep and the contraction's arithmetic, without the cotangents' global
-  read-modify-writes.
-
-The differences split K6's and K9's time into the sweep, the contraction's
-arithmetic and its global traffic.
+* ``products``: around every product of K6/K9's sweep (from its start to the
+  barrier after it) and around the whole sweep; one K6 and one K9 call in
+  stats mode then print, by product (forward or backward, depth, outputs),
+  the launches, the median cycles and their share of the sweep;
+* ``forward`` (a tree whose forward runs passes over weight chunks): at each
+  chunk's start, after its copy wait and barrier, before and after each
+  pass's epilogue and around the combine; one K5 and one K8 call in stats
+  mode then print the median cycles of an evaluation and, by chunk, its wait
+  (copy and barrier: the slowest warp of the previous chunk) and thread 0's
+  work, each pass's epilogue and the way to the next pass, the combine.
 
 Imports no JAX; needs one card and nvcc.
 """
@@ -59,29 +61,9 @@ STATE = dict(n_regions=49, latent_dim=8, n_qs=8,
                          "SIR_scaler": [0.1, 0.05, 1.0]},
              ode_params={"net_sizes": (64, 64, 32), "aug_net_sizes": (64, 64)})
 B, WEEKS = 2048, 8
+RAGGED = 37           # the bit check's second batch: its last block holds 5 rows
 E = 4 * (WEEKS - 1)
 TMASK = [1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0]
-
-# the slice's zeroing, common to both probes
-_ZERO = "  for (size_t e = tid; e < a.n_grad; e += blockDim.x) slice[e] = 0.f;\n"
-PROBE_EDITS = {
-    "no contraction": [
-        (_ZERO, ""),
-        ("                            size_t P) {\n  for (int it = threadIdx.x; it < K * N;",
-         "                            size_t P) {\n  return;\n  for (int it = threadIdx.x; "
-         "it < K * N;"),
-    ],
-    "shared sink": [
-        (_ZERO, ""),
-        ("                            size_t P) {\n  for (int it = threadIdx.x; it < K * N;",
-         "                            size_t P) {\n  __shared__ float sink[1024];\n"
-         "  for (int it = threadIdx.x; it < K * N;"),
-        ("    gw[it] += s;\n    if (kBayes) gw[P + it] += s * __ldg(zw + it);\n",
-         "    sink[it & 1023] += s;\n    if (kBayes) sink[it & 1023] += s * __ldg(zw + it);\n"),
-        ("      gb[j] += s;\n      if (kBayes) gb[P + j] += s * __ldg(zb + j);\n",
-         "      sink[j & 1023] += s;\n      if (kBayes) sink[j & 1023] += s * __ldg(zb + j);\n"),
-    ],
-}
 
 _SYNC_END = "  });\n  __syncthreads();\n}\n"
 PRODUCT_PROBE = [
@@ -112,6 +94,30 @@ PRODUCT_PROBE = [
      "kStats);\n  if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
      "    g_probe_span[0] = t_start;\n    g_probe_span[1] = clock64();\n  }\n}\n"),
 ]
+FORWARD_PROBE = [
+    ("namespace {\n\nconstexpr int kMaxDeep = 8;",
+     "namespace {\n\n__device__ long long g_fprobe[16384][4];\n__device__ int g_fprobe_n;\n"
+     "__device__ void fprobe(int tag, int idx, int e) {\n"
+     "  if (threadIdx.x == 0 && blockIdx.x == 0) {\n    const int i = g_fprobe_n++;\n"
+     "    if (i < 16384) {\n      g_fprobe[i][0] = tag; g_fprobe[i][1] = idx;\n"
+     "      g_fprobe[i][2] = e; g_fprobe[i][3] = clock64();\n    }\n  }\n}\n"
+     "constexpr int kMaxDeep = 8;"),
+    ("      cp_async_wait_all();\n      __syncthreads();\n      {     // the next chunk",
+     "      fprobe(1, ci, e);\n      cp_async_wait_all();\n      __syncthreads();\n"
+     "      fprobe(2, ci, e);\n      {     // the next chunk"),
+    ("    if (active) finish(*j, acc, rg, c0, e);\n    return g;",
+     "    fprobe(6, s, e);\n    if (active) finish(*j, acc, rg, c0, e);\n    fprobe(3, s, e);\n"
+     "    return g;"),
+    ("    __syncthreads();\n    f.combine(e & 3, i, a.dts[i], a.stream_aux ? 1.f : a.tmask[i], "
+     "fa_w, stats, traj);\n",
+     "    __syncthreads();\n    fprobe(4, 0, e);\n    f.combine(e & 3, i, a.dts[i], "
+     "a.stream_aux ? 1.f : a.tmask[i], fa_w, stats, traj);\n    fprobe(5, 0, e);\n"),
+]
+FORWARD_READ = ('\nextern "C" int fused_train_fprobe(long long* events, int* n) {\n'
+                "  int err = cudaMemcpyFromSymbol(events, g_fprobe, sizeof(g_fprobe));\n"
+                "  if (!err) err = cudaMemcpyFromSymbol(n, g_fprobe_n, sizeof(int));\n"
+                "  const int zero = 0;\n"
+                "  return err ? err : cudaMemcpyToSymbol(g_fprobe_n, &zero, sizeof(int));\n}\n")
 PROBE_READ = ('\nextern "C" int fused_train_probe(long long* events, int* n, long long* span) {\n'
               "  int err = cudaMemcpyFromSymbol(events, g_probe, sizeof(g_probe));\n"
               "  if (!err) err = cudaMemcpyFromSymbol(n, g_probe_n, sizeof(int));\n"
@@ -139,14 +145,15 @@ def probe_build(root: Path, variant: str) -> None:
     if variant == "products":
         cu.write_text(replaced(PRODUCT_PROBE, cu.read_text()) + PROBE_READ)
     else:
-        cu.write_text(replaced(PROBE_EDITS[variant], cu.read_text()))
+        cu.write_text(replaced(FORWARD_PROBE, cu.read_text()) + FORWARD_READ)
     _build.CSRC = src
     _build.BUILD_DIR = root / "fiude_tpu_torch" / "_build" / "probe"
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
 
 
-def inputs(dev):
-    """Zero-argument launches {name: fn} of K5, K6, K8, K9 in both modes."""
+def inputs(dev, B=B):
+    """Zero-argument launches {name: fn} of K5, K6, K8, K9 in both modes, at
+    B rows (the backward's launches on their own mode's forward)."""
     import numpy as np
     import torch
 
@@ -178,7 +185,7 @@ def inputs(dev):
     btraj = fused_bayes_train.bayes_train_forward_cuda(head, tail, like, weff, fa_w, dts, tm,
                                                        stats_mode=True)[0]
     _, brates, bfa = fused_bayes_train.bayes_train_forward_cuda(head, tail, like, weff, fa_w, dts)
-    g = torch.ones_like(traj)
+    g = torch.tensor(rng.standard_normal(tuple(traj.shape)), dtype=torch.float32, device=dev)
     g_rates, g_fa = torch.ones_like(rates), torch.ones_like(fa)
     return {
         "K5 stats": lambda: fused_train.train_forward_cuda(head, tail, w, fa_w, dts, tm,
@@ -198,6 +205,45 @@ def inputs(dev):
             btraj, g, tail, like, weff, wteff, z, fa_w, dts, g_rates=torch.ones_like(brates),
             g_fa=torch.ones_like(bfa)),
     }
+
+
+def outputs(fns) -> dict:
+    """{name: [tensors]} of one call of every launch: K5/K8's trajectory,
+    statistics and aux streams, K6/K9's cotangents (flattened)."""
+    import torch
+    out = {}
+    for name, fn in fns.items():
+        got, flat = fn(), []
+        for t in got:
+            flat.extend(t if isinstance(t, (list, tuple)) else [t])
+        out[name] = [None if t is None else t.detach().cpu().clone() for t in flat]
+    torch.cuda.synchronize()
+    return out
+
+
+def bit_check(first: str, other: str, a: dict, b: dict) -> str:
+    """One line: each launch's outputs in ``b`` against ``a``'s, bit for bit,
+    the five sums at rel 1e-6 (their blocks' partials may be summed in
+    another order)."""
+    import torch
+    parts, ok = [], True
+    for shape, runs in a.items():
+        for name, ts in runs.items():
+            us = b[shape][name]
+            sums = name.endswith("stats") and name[:2] in ("K5", "K8")
+            for i, (x, y) in enumerate(zip(ts, us)):
+                if x is None or y is None:
+                    good = x is None and y is None
+                elif sums and i > 0:
+                    good = torch.allclose(x, y, rtol=1e-6, atol=0.0)
+                else:
+                    good = torch.equal(x, y)
+                if not good:
+                    ok = False
+                    d = "None" if x is None or y is None else f"{(x - y).abs().max().item():.3e}"
+                    parts.append(f"{shape} {name} output {i} differs (max |d| {d})")
+    verdict = "equal bit for bit (sums within rel 1e-6)" if ok else "; ".join(parts)
+    return f"bit check {other} against {first}: {verdict}"
 
 
 def cuda_ms(fn, n: int = 10) -> float:
@@ -271,13 +317,55 @@ def product_probe(fns, smi: str) -> None:
               + f" [{smi}]", flush=True)
 
 
+def forward_probe(fns, smi: str) -> None:
+    """Run one K5 and one K8 call in the probed build; print block 0's
+    evaluation split (medians over evaluations 1 on)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from fiude_tpu_torch.ops import _build
+    lib = _build.library()
+    ev, n = np.zeros((16384, 4), np.int64), ctypes.c_int(0)
+    read = lambda: lib.fused_train_fprobe(ev.ctypes.data_as(ctypes.c_void_p),   # noqa: E731
+                                          ctypes.byref(n))
+    for name in ("K5 stats", "K8 stats"):
+        fns[name]()
+        torch.cuda.synchronize()
+        read()                                                  # the warm-up's
+        fns[name]()
+        torch.cuda.synchronize()
+        if read() != 0:
+            raise RuntimeError("probe read failed")
+        rows = ev[:min(n.value, 16384)]
+        by_e = {}
+        for tag, idx, e, t in rows:
+            by_e.setdefault(int(e), []).append((int(tag), int(idx), int(t)))
+        split = {}
+        for e, marks in by_e.items():
+            if e == 0 or len(marks) < 3:
+                continue
+            for (tag, idx, t), (tag2, idx2, t2) in zip(marks, marks[1:]):
+                key = {(1, 2): f"chunk {idx} wait", (2, 1): f"chunk {idx} work",
+                       (2, 6): f"chunk {idx} work", (6, 3): f"pass {idx} epilogue",
+                       (3, 1): f"pass {idx} to the next", (3, 4): "barrier before the combine",
+                       (4, 5): "combine", (5, 1): "to the next evaluation"}.get(
+                           (tag, tag2), f"{tag}->{tag2}")
+                split.setdefault(key, []).append(t2 - t)
+            split.setdefault("evaluation", []).append(marks[-1][2] - marks[0][2])
+        parts = "; ".join(f"{k} {np.median(v):.0f}" for k, v in split.items())
+        print(f"  probe {name} (block 0, thread 0; median cycles over evaluations 1-): {parts} "
+              f"[{smi}]", flush=True)
+
+
 def smi_line() -> str:
     return subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
 
 
-def measure(root: str, variant: str = "") -> int:
+def measure(root: str, variant: str = "", save: str = "") -> int:
     sys.path.insert(0, root)
     import torch
 
@@ -289,40 +377,56 @@ def measure(root: str, variant: str = "") -> int:
         probe_build(Path(root), variant)
     from fiude_tpu_torch.ops import _build
     _build.library()
-    fns = inputs(torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    fns = inputs(dev)
+    if save:
+        torch.save({f"B={n}": outputs(fns if n == B else inputs(dev, n)) for n in (B, RAGGED)},
+                   save)
     if variant == "products":
         product_probe(fns, smi_line())
         return 0
+    if variant == "forward":
+        forward_probe(fns, smi_line())
+        return 0
     times = {name: min(cuda_ms(fn) for _ in range(3)) for name, fn in fns.items()}
-    tag = f"{root}" + (f" [probe: {variant}]" if variant else "")
     smi = smi_line()
-    print(f"{tag}: " + "; ".join(f"{name} {ms:.4f} ms" for name, ms in times.items())
+    print(f"{root}: " + "; ".join(f"{name} {ms:.4f} ms" for name, ms in times.items())
           + f" [{smi}]", flush=True)
-    if not variant:
-        for name in ("K6 stats", "K6 aux", "K9 stats", "K9 aux"):
-            split = device_ms_by_kernel(fns[name])
-            print(f"  {name} by kernel (torch.profiler, 5 calls; ms a launch, launches "
-                  "traced): " + ("; ".join(f"{k} {ms:.4f} ms x{n}" for k, (ms, n) in
-                                          sorted(split.items(), key=lambda kv: -kv[1][0]))
-                                 or "no device time (not measured)") + f" [{smi}]", flush=True)
+    for name in ("K6 stats", "K6 aux", "K9 stats", "K9 aux"):
+        split = device_ms_by_kernel(fns[name])
+        print(f"  {name} by kernel (torch.profiler, 5 calls; ms a launch, launches "
+              "traced): " + ("; ".join(f"{k} {ms:.4f} ms x{n}" for k, (ms, n) in
+                                      sorted(split.items(), key=lambda kv: -kv[1][0]))
+                             or "no device time (not measured)") + f" [{smi}]", flush=True)
     return 0
 
 
 def main() -> int:
-    if len(sys.argv) in (3, 4) and sys.argv[1] == "--measure":
-        return measure(sys.argv[2], sys.argv[3] if len(sys.argv) == 4 else "")
+    if len(sys.argv) == 5 and sys.argv[1] == "--measure":
+        return measure(sys.argv[2], sys.argv[3], sys.argv[4])
     probe = sys.argv[1:2] == ["--probe"]
     roots = sys.argv[1 + probe:] or [str(ROOT)]
     code = 0
-    for root in roots:
-        root = str(Path(root).resolve())
-        variants = list(PROBE_EDITS) if probe else []
-        if probe and "weight_grad" not in \
-                (Path(root) / "fiude_tpu_torch" / "csrc" / "fused_train.cu").read_text():
-            variants = ["products"]
-        for variant in [""] + variants:
-            code |= subprocess.run([sys.executable, __file__, "--measure", root]
-                                   + ([variant] if variant else [])).returncode
+    saved = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for n, root in enumerate(roots):
+            root = str(Path(root).resolve())
+            variants = []
+            if probe:
+                cu = (Path(root) / "fiude_tpu_torch" / "csrc" / "fused_train.cu").read_text()
+                variants = ["products"] + (["forward"] if "run_pass" in cu else [])
+            for variant in [""] + variants:
+                save = "" if variant or root in saved else f"{tmp}/{n}.pt"
+                code |= subprocess.run([sys.executable, __file__, "--measure", root, variant,
+                                        save]).returncode
+                if save and Path(save).exists():
+                    saved[root] = save
+        if len(saved) > 1:
+            import torch
+            first, *others = saved
+            ref = torch.load(saved[first])
+            for other in others:
+                print(bit_check(first, other, ref, torch.load(saved[other])), flush=True)
     return code
 
 

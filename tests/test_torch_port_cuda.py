@@ -1065,3 +1065,111 @@ def test_plans_the_kernel_cannot_run_are_refused(dev, kernel, monkeypatch):
             launch(z0, "float32")
     monkeypatch.setattr(module, "plan_for", lambda *args, **kw: plan)
     assert torch.isfinite(launch(z0, "float32")).all()        # the plan itself runs
+
+
+# -- K5/K8, the training forward (forward_plan) ---------------------------------------
+
+FAMILIES = ["UONN", "CONN", "SONN", "UONNb", "CONNb", "SONNb"]
+
+
+@pytest.mark.parametrize("stats", [True, False], ids=["stats", "aux"])
+@pytest.mark.parametrize("B", [1, 17, 37])
+@pytest.mark.parametrize("ode_name", FAMILIES)
+def test_train_forward_matches_the_twin(dev, ode_name, B, stats):
+    """K5 (K8 for a Bayes family, on injected noise) in either mode against
+    its twin at ragged batches (B not a multiple of the 16 rows a block) and
+    ragged widths: the trajectory, the five sums or the aux streams."""
+    from fiude_tpu_torch.ops.fused_ude import pack_field
+    model = build(dev, ode_name, R=3, L=6, net=(16, 16, 8), aug=(16, 16))
+    rng = np.random.default_rng(11)
+    z = on(dev, rng.uniform(0.0, 0.6, (B, 3, 6)))
+    head, tail = z[..., :3].reshape(B, -1).contiguous(), z[..., 3:].reshape(B, -1).contiguous()
+    dts, tm = on(dev, [0.5, 0.25, 0.5]), on(dev, [1.0, 0.5, 0.0])
+    kw = dict(fa_w=0.7, dts=dts, tmask=tm, stats_mode=stats)
+    with torch.no_grad():
+        if ode_name.endswith("b"):
+            bw = fused_bayes.pack_bayes_field(model.ode)
+            kw["noise"] = injected_noise(dev, bw.mean, 12)
+            got = fused_bayes_train.bayes_train_trajectory(head, tail, bw, **kw)
+            want = fused_bayes_train.bayes_train_trajectory_plain(head, tail, bw, **kw)
+        else:
+            w = pack_field(model.ode)
+            got = fused_train.train_trajectory(head, tail, w, **kw)
+            want = fused_train.train_trajectory_plain(head, tail, w, **kw)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+def state_forward(dev, kernel):
+    """K5 or K8 at the `state` widths as ``launch(head, tail, stats) -> outputs``
+    (K8 on one draw of 28 evaluations, shared by every call)."""
+    from fiude_tpu_torch.ops.fused_ude import pack_field
+    model = build(dev, "UONN" if kernel == "K5" else "UONNb", R=49, L=8, q=(16,), ff=(8,),
+                  net=(64, 64, 32), aug=(64, 64))
+    fa_w, dts = on(dev, 1.0), on(dev, [1.0] * 7)
+    tm = on(dev, [1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0])
+    if kernel == "K5":
+        w = pack_field(model.ode)
+        return lambda h, t, stats: fused_train.train_forward_cuda(
+            h, t, w, fa_w, dts, tm if stats else None, stats_mode=stats)
+    bw = fused_bayes.pack_bayes_field(model.ode)
+    weff, _, _ = fused_bayes.bayes_draw_cuda(fused_bayes.flatten_field(bw.mean),
+                                             fused_bayes.flatten_field(bw.std), bw.mean, 28,
+                                             seed=3)
+    return lambda h, t, stats: fused_bayes_train.bayes_train_forward_cuda(
+        h, t, bw.mean, weff, fa_w, dts, tm if stats else None, stats_mode=stats)
+
+
+@pytest.mark.parametrize("stats", [True, False], ids=["stats", "aux"])
+@pytest.mark.parametrize("kernel", ["K5", "K8"])
+def test_train_forward_repeats_and_a_row_does_not_depend_on_the_batch(dev, kernel, stats):
+    """At the `state` widths: two launches equal bit for bit, and rows
+    1000-1036 of a batch of 2048 the same bits (trajectory and aux) as the
+    same rows alone in a batch of 37, at other places in their blocks."""
+    launch = state_forward(dev, kernel)
+    z = on(dev, np.random.default_rng(12).uniform(0.0, 0.6, (2048, 49, 8)))
+    head, tail = z[..., :3].reshape(2048, -1).contiguous(), z[..., 3:].reshape(2048, -1).contiguous()
+    big = launch(head, tail, stats)
+    again = launch(head, tail, stats)
+    small = launch(head[1000:1037].contiguous(), tail[1000:1037].contiguous(), stats)
+    torch.cuda.synchronize()
+    for a, b in zip(big, again):
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+    per_row = [0] if stats else [0, 1, 2]          # the trajectory; with the aux, its streams
+    for i in per_row:
+        assert torch.equal(big[i][:, 1000:1037], small[i])
+    assert torch.isfinite(big[0]).all()
+
+
+def test_forward_plans_the_kernel_cannot_run_are_refused(dev, monkeypatch):
+    """The launchers read the plan ``forward_plan`` made and refuse one the
+    kernel cannot run: a cluster (the kernel has none), other threads, more
+    shared memory than a block has, a stage past the block's shared memory,
+    K8's tail apart from the stage input, a tile of 3 columns, a thread short
+    for a job's tiles, a pass's chunk dropped, another batch's plan."""
+    from fiude_tpu_torch.ops.fused_train import FWD_BUFFERS, SMEM_LIMIT
+    launch = state_forward(dev, "K8")
+    z = on(dev, np.random.default_rng(13).uniform(0.0, 0.6, (20, 49, 8)))
+    head, tail = z[..., :3].reshape(20, -1).contiguous(), z[..., 3:].reshape(20, -1).contiguous()
+    plan = fused_train.forward_plan(20, 8, 49, 245, 128, 64, (64, 32, 98), (64, 147),
+                                    bayes=True, stream_aux=False)
+    offsets = list(plan.offsets)
+    offsets[FWD_BUFFERS.index("zs")] += 16
+    first = plan.steps[0][0]
+    bad = [plan._replace(cluster=2), plan._replace(threads=256),
+           plan._replace(smem_bytes=SMEM_LIMIT + 16),
+           plan._replace(stage_bytes=plan.stage_bytes + 16),
+           plan._replace(offsets=tuple(offsets)),
+           plan._replace(steps=((first._replace(cols=3),),) + plan.steps[1:]),
+           plan._replace(steps=((first._replace(nt=first.nt - 32),),) + plan.steps[1:]),
+           plan._replace(chunks=plan.chunks[1:]),
+           fused_train.forward_plan(21, 8, 49, 245, 128, 64, (64, 32, 98), (64, 147),
+                                    bayes=True, stream_aux=False)]
+    for p in bad:
+        monkeypatch.setattr(fused_bayes_train, "field_forward_plan", lambda *a, p=p, **k: p)
+        with pytest.raises(RuntimeError):
+            launch(head, tail, True)
+    monkeypatch.setattr(fused_bayes_train, "field_forward_plan", lambda *a, **k: plan)
+    assert torch.isfinite(launch(head, tail, True)[0]).all()        # the plan itself runs

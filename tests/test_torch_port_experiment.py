@@ -297,6 +297,16 @@ def test_real_data_waits_for_the_data_constructor(tmp_path):
         experiment.run_experiment(tiny_cfg(), data_root=str(tmp_path), device="cpu")
 
 
+def test_real_data_names_the_roadmap_item_that_ports_it(tmp_path):
+    """Asked for real data (synthetic=False and a data root),
+    ``run_experiment`` raises before anything is built and sends the caller
+    to queue A, item 3 ('Host-side data'), the item that ports
+    DataConstructor."""
+    with pytest.raises(NotImplementedError, match=r"queue A, item 3\)"):
+        experiment.run_experiment(tiny_cfg(), data_root=str(tmp_path), synthetic=False,
+                                  device="cpu")
+
+
 def test_daily_grid_is_float64_and_uniform():
     t = experiment.daily_grid(tiny_cfg())
     assert t.dtype == np.float64 and len(t) == 36 and t[7] == 1.0
