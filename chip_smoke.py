@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving and training paths on one NVIDIA GPU:
 the deterministic families (phases 2-7), the Bayes families (phases 8-12), the
-kernels' other modes (phases 13-15) and the experiment recipes (phase 16).
+kernels' other modes (phases 13-15), the experiment recipes (phase 16) and the
+device-resident training epoch (phase 17).
 
     python3 chip_smoke.py
 
@@ -36,9 +37,11 @@ no result, when there is no card.  Phases, each printing its lines:
    padded-curriculum ``tmask`` and under all-ones;
 6. training end to end: ``Trainer(fused_train=True, fused_stats=True).
    train_curriculum_padded`` over the weekly grid (7 stages x 1 epoch x 2
-   batches = 14 steps) with the launch counters of K3-K6 read around it, a
-   checkpoint round trip, and its first step (the seeded weights) held
-   against the same step with ``fused_train=False``;
+   batches = 14 steps, on the device-resident epoch path, as phases 11, 14
+   and 16 train too) with the launch counters of K3-K6 read around it, a
+   checkpoint round trip (the deferred best-epoch checkpoint included), and
+   its first step (the seeded weights, ``Trainer.train_step``) held against
+   the same step with ``fused_train=False``;
 7. times of K3-K6 against their twins (CUDA events; K6 also split by the
    profiler into its reverse sweep and its contraction, with its plan, and
    the contraction alone held to its plain version on a random workspace of
@@ -102,7 +105,17 @@ no result, when there is no card.  Phases, each printing its lines:
     results table (one row a config with the reference's columns; a second
     run of a config updates its row), then ``run_transfer`` CONN -> UONN (the
     CONN checkpoint's ``Fp_net`` at the first step, ``fa_w`` ramped to 1.0),
-    each with the launch counters of K3-K6 against the steps taken.
+    each with the launch counters of K3-K6 against the steps taken;
+17. the device-resident epoch (``Trainer._run_epoch``), UONN in stats mode
+    then UONNb: ``train_curriculum_padded`` from one state and seed on the
+    epoch path and on the per-step loop (``FIUDE_NO_EPOCH_SCAN=1``), every
+    step's metrics held at rel 2e-4 and the parameters at rtol 1e-4, atol
+    1e-6, and checked bit for bit; the synchronising CUDA runtime calls
+    (``cudaStreamSynchronize`` and the like) and ``Memcpy DtoH`` in each
+    epoch's profiler span, at 2 and 9 steps an epoch (the run fails if the
+    epoch path's count passes 3 or grows with the steps); the host clock a
+    step of both paths in turns, device-busy a step and the idle share inside
+    the epochs, and the host's operators by self time.
 
 Every kernel's line carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -158,6 +171,7 @@ raises.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -1955,6 +1969,186 @@ def experiment_runs(dev, smi):
         hold_launches("run_transfer", launches, steps, forwards=0)
     return out_launches
 
+
+def epoch_spans(prof, span_name):
+    """Per epoch of a ``torch.profiler`` trace: (the span's host us, its
+    synchronising runtime calls, its device-to-host copies, its device-busy
+    us), from the events that start inside the ``span_name`` ranges."""
+    import torch
+    from fiude_tpu_torch.utils.profiler import host_syncs
+    events = prof.events()
+    out = []
+    # the host's ranges (the trace also mirrors them on the device's timeline)
+    for span in (e for e in events if e.name == span_name
+                 and e.device_type == torch.autograd.DeviceType.CPU):
+        start, end = span.time_range.start, span.time_range.end
+        syncs = host_syncs(events, start, end)
+        busy = sum(e.time_range.elapsed_us() for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and start <= e.time_range.start < end)
+        out.append((end - start, syncs["calls"], syncs["dtoh"], busy))
+    return out
+
+
+def host_breakdown(prof, span_name: str, n_steps: int, span_us: float, top: int = 12) -> None:
+    """The host's side of a traced run: the self CPU time a step of the
+    operators and runtime calls (dispatch and launch), of the epochs' spans
+    outside them (Python and autograd's engine), and the largest operators."""
+    rows = [r for r in prof.key_averages() if r.self_cpu_time_total > 0]
+    outside = sum(r.self_cpu_time_total for r in rows if r.key == span_name)
+    rows = [r for r in rows if r.key != span_name]
+    total = sum(r.self_cpu_time_total for r in rows)
+    log(f"    host, traced: operators and runtime calls {total / 1e3 / n_steps:.4f} ms a step, "
+        f"the spans' own {outside / 1e3 / n_steps:.4f} ms a step (Python between operators, "
+        f"and the wait on autograd's device thread in backward), of a "
+        f"{span_us / 1e3 / n_steps:.4f} ms span; the largest, self ms a step (calls a step):")
+    for r in sorted(rows, key=lambda r: -r.self_cpu_time_total)[:top]:
+        log(f"      {r.self_cpu_time_total / 1e3 / n_steps:8.4f} ({r.count / n_steps:6.1f})  "
+            f"{r.key[:80]}")
+
+
+EPOCH_WINDOWS = 8 * BATCH + 7   # phase 17's longer loader: 9 steps an epoch, the last a tail of 7
+
+
+def curriculum_runner(ode_name, rng, tracer=None):
+    """Phase 17's workload: ``ode_name`` (UONN or UONNb) with ``fused_train``
+    and ``fused_stats`` at the ``state`` width, its weights from one seed and
+    ``EPOCH_WINDOWS`` windows of data from ``rng``.  Returns ``run(path,
+    windows, profile=False) -> (trainer, host seconds, profiler or None)``: a
+    fresh trainer from that state and seed, one ``train_curriculum_padded``
+    call over the weekly grid (7 stages of one epoch) on the first
+    ``windows`` windows, on the trainer's default path ("epoch") or with
+    ``FIUDE_NO_EPOCH_SCAN=1`` ("loop"), under ``tracer()`` when ``profile``.
+    Uses only what every tree of the port has, so a script can drive another
+    checkout's package through it."""
+    import os
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.data import ArrayLoader
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.train import TRAINING_INFO, Trainer
+    grid = np.arange(WEEKS, dtype=np.float64)
+    bayes = ode_name.endswith("b")
+
+    def build():
+        return UDEForecaster.build(ode_name=ode_name, fused_train=True, fused_stats=True,
+                                   generator=torch.Generator().manual_seed(SEED + 5), **STATE)
+
+    initial = {k: v.clone() for k, v in build().state_dict().items()}
+    x_all, y_all = training_inputs(build(), rng, EPOCH_WINDOWS)
+
+    def run(path, windows, profile=False):
+        model = build()
+        model.load_state_dict(initial)
+        tr = Trainer(model, loss_cfg=TRAINING_INFO[ode_name], seed=SEED,
+                     **({"ode_kl_w": ODE_KL_W} if bayes else {}))
+        tr.setup_training(lr=LR)
+        loader = ArrayLoader(x_all[:windows], y_all[:windows], batch_size=BATCH, seed=SEED)
+        if path == "loop":
+            os.environ["FIUDE_NO_EPOCH_SCAN"] = "1"
+        prof = None
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (tracer() if profile else contextlib.nullcontext()) as prof:
+                tr.train_curriculum_padded(loader, grid, np.arange(WEEKS), 1,
+                                           grad_lim=5000.0, n_samples=SAMPLES)
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            os.environ.pop("FIUDE_NO_EPOCH_SCAN", None)
+        return tr, seconds, prof
+
+    return run
+
+
+def epoch_runs(dev, rng, smi):
+    """Phase 17: the device-resident epoch.  For UONN (``fused_train`` +
+    ``fused_stats``) and UONNb: ``curriculum_runner``'s call from one initial
+    state and seed, on the epoch path and with ``FIUDE_NO_EPOCH_SCAN=1`` (the
+    per-step loop), held within the step tolerance (every step's metrics at
+    rel 2e-4, the parameters at rtol 1e-4, atol 1e-6) and checked bit for
+    bit; the synchronising CUDA runtime calls and device-to-host copies an
+    epoch from a ``torch.profiler`` trace of the epoch path at 2 and at 9
+    steps an epoch (raising if the count grows with the steps or passes 3)
+    and of the loop at 2; the host clock a step of each path in turns, and
+    device-busy a step and the idle share inside the epochs' spans.
+    Returns {family: {path: ms a step}}."""
+    import torch
+    from fiude_tpu_torch.train.trainer import EPOCH_SPAN
+    from fiude_tpu_torch.utils.profiler import trace
+    out = {}
+    for ode_name in ("UONN", "UONNb"):
+        run = curriculum_runner(ode_name, rng, tracer=trace)
+
+        # the two paths from one state and seed
+        a, _, _ = run("epoch", WINDOWS)
+        b, _, _ = run("loop", WINDOWS)
+        steps_a = [m for epoch in a.history.batch_history for m in epoch]
+        steps_b = [m for epoch in b.history.batch_history for m in epoch]
+        if len(steps_a) != len(steps_b) or len(steps_a) != (WEEKS - 1) * WINDOWS // BATCH:
+            raise RuntimeError(f"{ode_name}: {len(steps_a)} and {len(steps_b)} steps")
+        worst = max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30)
+                    for ma, mb in zip(steps_a, steps_b) for k in mb)
+        bits = steps_a == steps_b and a.batch_grad_norms == b.batch_grad_norms
+        p_err = 0.0
+        for (name, pa), pb in zip(a.model.named_parameters(), b.model.parameters()):
+            bits = bits and torch.equal(pa, pb)
+            d = (pa - pb).abs()
+            if (d > 1e-6 + 1e-4 * pb.abs()).any():
+                raise RuntimeError(f"{ode_name}: the epoch path's {name} disagrees with the "
+                                   f"per-step loop's beyond rtol 1e-4, atol 1e-6")
+            p_err = max(p_err, d.max().item())
+        log(f"  {ode_name}: {len(steps_a)} steps ({WEEKS - 1} epochs of {WINDOWS // BATCH}); "
+            f"epoch path against the per-step loop: metrics max rel {worst:.3g}, parameters max "
+            f"abs {p_err:.3g}; bit for bit: {'yes' if bits else 'no'}")
+        if worst > 2e-4:
+            raise RuntimeError(f"{ode_name}: a step's metric on the epoch path disagrees with "
+                               f"the per-step loop's beyond rel 2e-4")
+
+        # synchronisations an epoch, and the time inside the epochs, from traces
+        counts = {}
+        for path, windows in (("epoch", WINDOWS), ("epoch", EPOCH_WINDOWS), ("loop", WINDOWS)):
+            tr, seconds, prof = run(path, windows, profile=True)
+            spans = epoch_spans(prof, EPOCH_SPAN)
+            n_steps = -(-windows // BATCH)
+            if len(spans) != WEEKS - 1:
+                raise RuntimeError(f"{ode_name}: the trace holds {len(spans)} epoch spans")
+            calls = [s[1] for s in spans]
+            dtoh = [s[2] for s in spans]
+            counts[(path, windows)] = calls
+            span_us = sum(s[0] for s in spans)
+            busy_us = sum(s[3] for s in spans)
+            log(f"  {ode_name} {path} path, {n_steps} steps an epoch: synchronising runtime "
+                f"calls by epoch {calls}, Memcpy DtoH by epoch {dtoh}; inside the epochs, "
+                f"host {span_us / 1e3 / len(spans) / n_steps:.4f} ms a step, device busy "
+                f"{busy_us / 1e3 / len(spans) / n_steps:.4f} ms a step, idle share "
+                f"{1.0 - busy_us / span_us:.1%} (traced) [{smi}]")
+            if (path, windows) == ("epoch", EPOCH_WINDOWS):
+                host_breakdown(prof, EPOCH_SPAN, len(spans) * n_steps, span_us)
+        if not any(counts[("loop", WINDOWS)]):
+            raise RuntimeError("the trace shows no synchronising runtime call on the per-step "
+                               "loop: the count cannot be read (not measured)")
+        short, long = counts[("epoch", WINDOWS)], counts[("epoch", EPOCH_WINDOWS)]
+        if max(short + long) > 3 or max(long) > max(short):
+            raise RuntimeError(f"{ode_name}: the epoch path synchronises {short} times an epoch "
+                               f"at 2 steps and {long} at 9: more than 3, or growing with "
+                               "the steps")
+
+        # host clock a step, the paths in turns (loop, epoch, epoch, loop)
+        n_steps = (WEEKS - 1) * -(-EPOCH_WINDOWS // BATCH)
+        ms = {"loop": [], "epoch": []}
+        for path in ("loop", "epoch", "epoch", "loop"):
+            ms[path].append(run(path, EPOCH_WINDOWS)[1] * 1e3 / n_steps)
+        out[ode_name] = {p: sum(v) / len(v) for p, v in ms.items()}
+        log(f"  {ode_name} host clock a step ({n_steps} steps of {BATCH} windows x {SAMPLES} "
+            f"samples, {WEEKS} weekly points, staging included; in turns): epoch path "
+            f"{ms['epoch'][0]:.4f} / {ms['epoch'][1]:.4f} ms, per-step loop "
+            f"{ms['loop'][0]:.4f} / {ms['loop'][1]:.4f} ms [{smi}]")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2281,6 +2475,11 @@ def main() -> int:
         "curriculum, fused_train) and run_transfer CONN -> UONN, to the results table")
     x_launches = experiment_runs(dev, smi)
     log(f"  run_experiment's UONN run launched {x_launches}")
+
+    # -- 17. the device-resident epoch ---------------------------------------------------
+    log(f"phase 17: the device-resident epoch against the per-step loop (FIUDE_NO_EPOCH_SCAN=1), "
+        f"UONN (stats mode) then UONNb, train_curriculum_padded over {WEEKS} weekly points")
+    epoch_runs(dev, rng, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None,
               **extra):

@@ -71,6 +71,15 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def grid_steps(t, device, dtype) -> torch.Tensor:
+    """The steps of the grid ``t``, taken in float64 on the host and cast to
+    ``dtype`` on ``device``: the ``dts`` of the fused training trajectory.  A
+    caller that runs many forwards on one grid makes them once and passes them
+    as ``forward(dts=)`` (the trainer does, once a call)."""
+    grid = torch.as_tensor(t).detach().to("cpu", torch.float64)
+    return (grid[1:] - grid[:-1]).to(device, dtype)
+
+
 def reparam(eps: torch.Tensor, std: Optional[torch.Tensor], mean: torch.Tensor,
             *, uncertainty: bool = True) -> torch.Tensor:
     """Sample latent ICs and project (S, I) onto the SIR simplex.
@@ -89,9 +98,11 @@ def reparam(eps: torch.Tensor, std: Optional[torch.Tensor], mean: torch.Tensor,
 def make_prior(mean: torch.Tensor, *, latent_dim: int, z_prior=(0.1, 0.01)):
     """Latent IC prior: S, I anchored at the encoder mean with tight stds,
     the other dims standard normal (reference ``lib/models.py:9-14``).
-    Returns ``(prior_mean, prior_std)`` shaped like ``mean``."""
+    ``z_prior``: the S and I stds, a pair or a tensor on ``mean``'s device
+    (then no copy from the host).  Returns ``(prior_mean, prior_std)`` shaped
+    like ``mean``."""
     prior_mean = torch.cat([mean[..., :2], torch.zeros_like(mean[..., 2:])], dim=-1)
-    std = torch.cat([torch.tensor(z_prior, dtype=mean.dtype, device=mean.device),
+    std = torch.cat([torch.as_tensor(z_prior, dtype=mean.dtype, device=mean.device),
                      torch.ones(latent_dim - len(z_prior) - 1, dtype=mean.dtype,
                                 device=mean.device)])
     return prior_mean, torch.abs(std).expand(prior_mean.shape)
@@ -205,10 +216,11 @@ class UDEForecaster(nn.Module):
             return encode_train(x, self.encoder)
         return self.encoder(x)
 
-    def _fused_trajectory(self, z: torch.Tensor, t, fa_w, time_mask, noise_seed):
+    def _fused_trajectory(self, z: torch.Tensor, t, fa_w, time_mask, noise_seed, dts=None):
         """K5/K6, K8/K9 for a Bayes family: the latent trajectory and the aux,
         streamed in the ``odeint_grid`` layout or, with ``fused_stats``, as the
-        masked statistics (``fiude_tpu/models/vae.py:292-360``)."""
+        masked statistics (``fiude_tpu/models/vae.py:292-360``).  ``dts``:
+        the grid's steps on ``z``'s device, made from ``t`` when None."""
         from fiude_tpu_torch.ops.fused_bayes import pack_bayes_field
         from fiude_tpu_torch.ops.fused_bayes_train import bayes_train_trajectory
         from fiude_tpu_torch.ops.fused_train import (
@@ -216,8 +228,8 @@ class UDEForecaster(nn.Module):
         )
         from fiude_tpu_torch.ops.fused_ude import pack_field
         batch, n_regions, latent_dim = z.shape
-        grid = torch.as_tensor(t).detach().to("cpu", torch.float64)
-        dts = (grid[1:] - grid[:-1]).to(z.device, z.dtype)
+        if dts is None:
+            dts = grid_steps(t, z.device, z.dtype)
         if time_mask is None:
             tmask = torch.ones_like(dts)
         else:
@@ -234,7 +246,7 @@ class UDEForecaster(nn.Module):
             traj, *rest = train_trajectory(head, tail, w, **kw)
         latent = traj_to_model_layout(traj, tail, n_regions, latent_dim)
         if not self.fused_stats:     # the mask is then the loss's
-            return latent, aux_to_model_layout(*rest, grid.shape[0], n_regions)
+            return latent, aux_to_model_layout(*rest, dts.shape[0] + 1, n_regions)
         r1, r2, f2 = rest
         aux = {}
         if w.n0_fp:
@@ -244,13 +256,17 @@ class UDEForecaster(nn.Module):
         return latent, aux
 
     def forward(self, x: torch.Tensor, t, eps: torch.Tensor, *,
-                fa_w: float = 1.0, time_mask=None, noise_seed: Optional[int] = None):
+                fa_w: float = 1.0, time_mask=None, noise_seed: Optional[int] = None,
+                dts: Optional[torch.Tensor] = None):
         """x: (B, T_in, F) window; t: (T,) grid; eps: (S, B, R, Le);
         ``time_mask``: optional (T-1,) per-interval loss weights of the padded
         curriculum, read only by the fused stats path (every other path
         applies it in the loss).  ``noise_seed``: the weight-noise seed of a
         Bayes family (0 when None, as the JAX package defaults its key);
         evaluation ``e = 4*i + stage`` draws from ``(noise_seed, e)``.
+        ``dts``: the steps of ``t`` on the model's device (:func:`grid_steps`),
+        read by the fused path only, which otherwise makes them from ``t``
+        every call; the plain integrator steps from ``t`` on the host.
 
         Returns ``(y_pred (B, S, T, R), ForwardExtras)``.
         """
@@ -263,7 +279,7 @@ class UDEForecaster(nn.Module):
         if self.is_bayes and noise_seed is None:
             noise_seed = 0
         if self.fused_train:
-            latent, aux = self._fused_trajectory(z, t, fa_w, time_mask, noise_seed)
+            latent, aux = self._fused_trajectory(z, t, fa_w, time_mask, noise_seed, dts)
         else:
             latent, aux = odeint_grid(self.rhs_fn(fa_w), z, t, method=self.method,
                                       substeps=self.substeps,

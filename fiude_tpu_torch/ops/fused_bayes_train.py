@@ -44,8 +44,9 @@ from fiude_tpu_torch.ops.fused_bayes import (
     field_eval, flatten_field, noise_matrix, unflatten_field,
 )
 from fiude_tpu_torch.ops.fused_train import (
-    RATE_SHIFT, _check_field, aux_buffers, check_aux_cotangents, contiguous_or_none,
-    cotangent_contraction, count_launch, field_forward_plan, field_plan, plan_ints,
+    _check_field, aux_buffers, check_aux_cotangents, contiguous_or_none,
+    cotangent_contraction, count_launch, device_scalar, field_forward_plan, field_plan,
+    plan_ints, shift_rates,
 )
 from fiude_tpu_torch.ops.fused_ude import FieldWeights
 
@@ -71,7 +72,6 @@ def bayes_train_trajectory_plain(z_head: torch.Tensor, z_tail: torch.Tensor, bw:
         tmask = torch.ones_like(dts)
     draw = _Noise(bw.mean, 4 * n_steps, seed, noise)
     mean_flat, std_flat = flatten_field(bw.mean), flatten_field(bw.std)
-    shift = torch.tensor(RATE_SHIFT, dtype=z_head.dtype, device=z_head.device)
     r1, r2, f2 = z_head.new_zeros(2), z_head.new_zeros(2), z_head.new_zeros(())
     rates_seq, fa_seq = [], []
 
@@ -86,7 +86,7 @@ def bayes_train_trajectory_plain(z_head: torch.Tensor, z_tail: torch.Tensor, bw:
                 fa_seq.append(fa.reshape(B, -1))
             return f
         if rates is not None:
-            d = rates - shift
+            d = shift_rates(rates)
             r1 = r1 + m * d.sum(dim=(0, 1))
             r2 = r2 + m * (d * d).sum(dim=(0, 1))
         if fa is not None:
@@ -309,7 +309,7 @@ def bayes_train_trajectory(z_head: torch.Tensor, z_tail: torch.Tensor, bw: Bayes
         if (seed is None) == (noise is None):
             raise ValueError("pass exactly one of seed= and noise=")
         check_bayes_field(bw, z_head.shape[1] // 3, z_tail.shape[1])
-        fa_w = torch.as_tensor(fa_w, dtype=z_head.dtype, device=z_head.device).reshape(())
+        fa_w = device_scalar(fa_w, z_head)
         like = unflatten_field(flatten_field(bw.mean).detach(), bw.mean)
         if noise is not None:
             noise = noise_matrix(noise, like, 4 * dts.shape[0]).contiguous()

@@ -74,6 +74,20 @@ RATE_SHIFT = (0.8, 0.55)
 _THIRD = 1.0 / 3.0
 
 
+def shift_rates(rates: torch.Tensor) -> torch.Tensor:
+    """``rates - RATE_SHIFT`` over the last axis (beta, gamma), the shift
+    taken as Python scalars: nothing is copied from the host to the card."""
+    return torch.stack([rates[..., k] - s for k, s in enumerate(RATE_SHIFT)], dim=-1)
+
+
+def device_scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a 0-d tensor in ``like``'s dtype on its device; a Python
+    number is filled in on the device rather than copied from the host."""
+    if torch.is_tensor(v):
+        return v.to(like.device, like.dtype).reshape(())
+    return torch.full((), float(v), dtype=like.dtype, device=like.device)
+
+
 def _check_field(w: FieldWeights) -> None:
     n_fp = len(w.fp) + 1 if w.n0_fp else 0
     n_aug = len(w.aug) + 1 if w.w0_head.shape[1] > w.n0_fp else 0
@@ -99,7 +113,6 @@ def train_trajectory_plain(z_head: torch.Tensor, z_tail: torch.Tensor, w: FieldW
     mech = w.n0_fp > 0
     has_aug = w.w0_head.shape[1] > w.n0_fp
     ct = z_tail @ w.w0_tail + w.b0
-    shift = torch.tensor(RATE_SHIFT, dtype=z_head.dtype, device=z_head.device)
     zero = z_head.new_zeros(())
     r1, r2, f2 = z_head.new_zeros(2), z_head.new_zeros(2), zero
     rates_seq, fa_seq = [], []
@@ -114,7 +127,7 @@ def train_trajectory_plain(z_head: torch.Tensor, z_tail: torch.Tensor, w: FieldW
         if mech:
             rates = _later_layers(h0[:, : w.n0_fp], w.fp, keep=rec.fp).abs().reshape(B, R, 2)
             if stats_mode:
-                d = rates - shift
+                d = shift_rates(rates)
                 r1 = r1 + m * d.sum(dim=(0, 1))
                 r2 = r2 + m * (d * d).sum(dim=(0, 1))
             else:
@@ -962,7 +975,7 @@ def train_trajectory(z_head: torch.Tensor, z_tail: torch.Tensor, w: FieldWeights
         return train_trajectory_plain(z_head, z_tail, w, fa_w=fa_w, dts=dts, tmask=tmask,
                                       stats_mode=stats_mode)
     if z_head.device.type == "cuda":
-        fa_w = torch.as_tensor(fa_w, dtype=z_head.dtype, device=z_head.device).reshape(())
+        fa_w = device_scalar(fa_w, z_head)
         if not stats_mode:
             return _TrainTrajectoryStream.apply(
                 z_head.contiguous(), z_tail.contiguous(), fa_w, dts.contiguous(), w.n0_fp,

@@ -20,7 +20,7 @@ in the JAX package.
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +75,19 @@ def flat_from_module(model: nn.Module, part: str) -> Dict[str, np.ndarray]:
     """One part's parameters as JAX-keyed (in, out)-layout numpy arrays."""
     return {key: (p.detach().T if transposed else p.detach()).cpu().numpy()
             for key, p, transposed in param_map(model, part)}
+
+
+def flat_from_buffer(model: nn.Module, part: str, buffer: np.ndarray,
+                     offset: Callable[[torch.Tensor], int]) -> Dict[str, np.ndarray]:
+    """:func:`flat_from_module`'s arrays read from ``buffer``, a host copy of
+    the flat buffer whose views ``model``'s parameters are; ``offset(p)`` is
+    where ``p`` starts in it."""
+    out = {}
+    for key, p, transposed in param_map(model, part):
+        o = offset(p)
+        a = buffer[o:o + p.numel()].reshape(tuple(p.shape))
+        out[key] = a.T if transposed else a
+    return out
 
 
 @torch.no_grad()

@@ -17,6 +17,11 @@ as the reference's ``training_info`` dicts do (``run_ode.py:71-78``):
   trajectory;
 * the cyclical KL-annealing weight (reference ``lib/train_functions.py:17-44``).
 
+The constant vectors (the rate prior's means and stds, KL_z's prior stds)
+reach the terms as tensors of :class:`LossConstants`: made
+from the host by :func:`loss_constants`, which the trainer calls once a
+training call, so that a step copies nothing from the host to the card.
+
 ``compute_loss_sharded`` waits for the multi-device slice (``ROADMAP.md``,
 queue A, "Multi-device").
 """
@@ -25,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -63,6 +68,29 @@ TRAINING_INFO = {
     "SONNb": LossConfig(nll=True, mse=False, kl_z=True, kl_p=False,
                         fa_norm=0.0, reg_loss=False, anneal=True),
 }
+
+
+#: KL_z's prior stds of the S and I dimensions (reference lib/models.py:9-14).
+Z_PRIOR = (0.1, 0.01)
+
+
+class LossConstants(NamedTuple):
+    """The loss's constant vectors as tensors on the loss's device."""
+    prior_means: torch.Tensor
+    prior_stds: torch.Tensor
+    z_prior: torch.Tensor
+
+
+def loss_constants(prior_params: Optional[Dict[str, Any]] = None,
+                   dtype: torch.dtype = torch.float32, device=None) -> LossConstants:
+    """:class:`LossConstants` for the rate prior ``prior_params`` ({"means",
+    "stds"}; the reference's when None), in ``dtype`` on ``device``."""
+    prior_params = prior_params or {"means": [0.8, 0.55], "stds": [0.2, 0.2]}
+
+    def vec(v):
+        return torch.as_tensor(v, dtype=dtype, device=device)
+
+    return LossConstants(vec(prior_params["means"]), vec(prior_params["stds"]), vec(Z_PRIOR))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +163,7 @@ def mse_loss(y_pred, y, eval_mask=None):
                                                    se.shape[1], se.shape[3])
 
 
-def kl_z_loss(mean, std, *, latent_dim: int, len_tr: int, z_prior=(0.1, 0.01)):
+def kl_z_loss(mean, std, *, latent_dim: int, len_tr: int, z_prior=Z_PRIOR):
     """KL(IC prior || encoder posterior) (reference lib/VAE.py:167)."""
     pm, ps = make_prior(mean, latent_dim=latent_dim, z_prior=z_prior)
     return torch.mean(torch.sum(kl_normal(pm, ps, mean, std), dim=-1)) / len_tr
@@ -155,8 +183,8 @@ def kl_params_loss(rates_aux, *, prior_means=(0.8, 0.55), prior_stds=(0.2, 0.2),
     else:
         m = _broadcast_mask(mask.to(rates_aux.dtype), rates_aux).reshape(-1, 2)
         post_mean, post_std = masked_mean_std(rates_aux.reshape(-1, 2), m, axis=0)
-    pm = torch.tensor(prior_means, dtype=rates_aux.dtype, device=rates_aux.device)
-    ps = torch.tensor(prior_stds, dtype=rates_aux.dtype, device=rates_aux.device)
+    pm = torch.as_tensor(prior_means, dtype=rates_aux.dtype, device=rates_aux.device)
+    ps = torch.as_tensor(prior_stds, dtype=rates_aux.dtype, device=rates_aux.device)
     return torch.mean(kl_normal(pm, ps, post_mean, post_std))
 
 
@@ -169,12 +197,12 @@ def kl_params_from_stats(r1, r2, count, *, prior_means=(0.8, 0.55),
     :func:`masked_mean_std` (ddof 1) computed another way."""
     count = torch.as_tensor(count, dtype=r1.dtype, device=r1.device)
     cnt = torch.clamp(count, min=1.0)
-    shift = torch.tensor(RATE_SHIFT, dtype=r1.dtype, device=r1.device)
-    post_mean = shift + r1 / cnt
+    mean = r1 / cnt
+    post_mean = torch.stack([s + mean[..., k] for k, s in enumerate(RATE_SHIFT)], dim=-1)
     sq = r2 - torch.square(r1) / cnt
     post_std = torch.sqrt(torch.clamp(sq, min=0.0) / torch.clamp(count - 1.0, min=1.0))
-    pm = torch.tensor(prior_means, dtype=r1.dtype, device=r1.device)
-    ps = torch.tensor(prior_stds, dtype=r1.dtype, device=r1.device)
+    pm = torch.as_tensor(prior_means, dtype=r1.dtype, device=r1.device)
+    ps = torch.as_tensor(prior_stds, dtype=r1.dtype, device=r1.device)
     return torch.mean(kl_normal(pm, ps, post_mean, post_std))
 
 
@@ -199,7 +227,8 @@ def latent_init_loss(x, mask=None):
 def compute_loss(loss_cfg: LossConfig, y_pred, y_true, extras, *, kl_w,
                  latent_dim: int, len_tr: int,
                  prior_params: Optional[Dict[str, Any]] = None,
-                 time_mask=None, eval_mask=None, ode_kl=None
+                 time_mask=None, eval_mask=None, ode_kl=None,
+                 consts: Optional[LossConstants] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The gated loss: ``(scalar loss, metrics)``.
 
@@ -210,8 +239,11 @@ def compute_loss(loss_cfg: LossConfig, y_pred, y_true, extras, *, kl_w,
     path, ``extras.aux`` holds ``rate_stats`` / ``fa_sq`` already masked.
     ``ode_kl``: the variational layers' KL of a Bayes RHS
     (``models.bayes.variational_kl``), weighted by ``loss_cfg.ode_kl_w``.
+    ``consts``: the constants on ``y_pred``'s device (:func:`loss_constants`
+    of ``prior_params``), made here when None.
     """
-    prior_params = prior_params or {"means": [0.8, 0.55], "stds": [0.2, 0.2]}
+    if consts is None:
+        consts = loss_constants(prior_params, y_pred.dtype, y_pred.device)
     loss = torch.zeros((), dtype=y_pred.dtype, device=y_pred.device)
     metrics: Dict[str, torch.Tensor] = {}
     aux = extras.aux if isinstance(extras.aux, dict) else {}
@@ -226,17 +258,16 @@ def compute_loss(loss_cfg: LossConfig, y_pred, y_true, extras, *, kl_w,
         metrics["nll"] = nll_loss(y_pred, y_true, eval_mask=eval_mask)
         loss = loss + metrics["nll"]
     if loss_cfg.kl_z:
-        metrics["kl_latent"] = kl_w * kl_z_loss(extras.mean, extras.std,
-                                                latent_dim=latent_dim, len_tr=len_tr)
+        metrics["kl_latent"] = kl_w * kl_z_loss(extras.mean, extras.std, latent_dim=latent_dim,
+                                                len_tr=len_tr, z_prior=consts.z_prior)
         loss = loss + metrics["kl_latent"]
     if loss_cfg.kl_p:
         if "rate_stats" in aux:
-            klp = kl_params_from_stats(*aux["rate_stats"],
-                                       prior_means=prior_params["means"],
-                                       prior_stds=prior_params["stds"])
+            klp = kl_params_from_stats(*aux["rate_stats"], prior_means=consts.prior_means,
+                                       prior_stds=consts.prior_stds)
         else:
-            klp = kl_params_loss(aux["rates"], prior_means=prior_params["means"],
-                                 prior_stds=prior_params["stds"], mask=time_mask)
+            klp = kl_params_loss(aux["rates"], prior_means=consts.prior_means,
+                                 prior_stds=consts.prior_stds, mask=time_mask)
         metrics["kl_params"] = klp
         loss = loss + klp
     if loss_cfg.fa_norm and loss_cfg.fa_norm > 0:

@@ -330,11 +330,12 @@ class TestTrainStep:
                           torch.from_numpy(eps), epoch=5, grad_lim=1e-6)
             assert (pt.state.tr_step, pt.state.skip_count) == (n, n)
             assert all(torch.equal(v, before[k]) for k, v in pt.model.state_dict().items())
-            assert not pt.opt.state       # no moments, no step count
+            # no moments, no step count
+            assert int(pt.opt.count) == 0 and not pt.opt.mu.any() and not pt.opt.nu.any()
         m5 = pt.train_step(torch.from_numpy(x), torch.from_numpy(y), t,
                            torch.from_numpy(eps), epoch=5, grad_lim=1e-6)
         assert (pt.state.tr_step, pt.state.skip_count) == (5, 0)
-        assert all(int(s["step"]) == 1 for s in pt.opt.state.values())
+        assert int(pt.opt.count) == 1
         for _ in range(5):
             m_j = jax_step(jt, x, y, t, eps, epoch=5, grad_lim=1e-6)
         assert int(jt.state.skip_count) == 0
