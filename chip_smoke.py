@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving and training paths on one NVIDIA GPU:
 the deterministic families (phases 2-7), the Bayes families (phases 8-12), the
-kernels' other modes (phases 13-15), the experiment recipes (phase 16) and the
-device-resident training epoch (phase 17).
+kernels' other modes (phases 13-15), the experiment recipes (phase 16), the
+device-resident training epoch (phase 17) and real data through the recipes
+with ``fused_train`` on the plain solver (phase 18).
 
     python3 chip_smoke.py
 
@@ -115,7 +116,25 @@ no result, when there is no card.  Phases, each printing its lines:
     epoch's profiler span, at 2 and 9 steps an epoch (the run fails if the
     epoch path's count passes 3 or grows with the steps); the host clock a
     step of both paths in turns, device-busy a step and the idle share inside
-    the epochs, and the host's operators by self time.
+    the epochs, and the host's operators by self time;
+18. a ``Data/`` tree from the port's writer (470 weeks from 2010-10-01, 12
+    queries: the reference's layout) in a temporary directory, then
+    ``run_experiment(data_root=)`` for the ``state`` UONN config (``epochs=2``,
+    i.e. 1 epoch a stage over 4 stages, 264 steps; window 28, gamma 28, padded
+    curriculum, ``fused_train``; the whole train split of season 2016, 66
+    steps an epoch) with ``fill_1`` off and
+    on: a finite history and metrics, one results row a run with the
+    reference's columns, the launch counters of K3-K6 against the steps and
+    the test forecast, and the seconds of the tree write, the
+    ``DataConstructor``, training, the test forecast and the row write; then
+    one ``Trainer`` step with ``fused_train`` and ``method="euler"`` and one
+    with ``substeps=2`` (the encoder through K3/K4, the trajectory on the
+    plain solver, as the JAX package routes them): K3/K4 launch once, K5/K6
+    never, and the step holds to the plain step at the step tolerances (the
+    encoder's gradients and grad_norm, ill-conditioned in float32 under KL_z,
+    in a second pair of steps whose loss leaves KL_z out, as in phase 11, and
+    under the full loss against the float64 step, within twice the plain
+    step's own distance from it plus the step tolerance).
 
 Every kernel's line carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -174,6 +193,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -264,15 +284,16 @@ def watch_margin(rhs, n_rows, device, ignore=None):
     return watched, lambda: margin[0]
 
 
-def held_rows(rhs, z0, t, noise_seed=None, margin=None):
+def held_rows(rhs, z0, t, noise_seed=None, margin=None, **solver):
     """Rows of z0 (B, R, L) whose every RHS evaluation along the plain
-    integration on grid t keeps its S, I, R state FREEZE_MARGIN from a bound;
+    integration on grid t (``solver``: ``odeint_grid``'s method and substeps)
+    keeps its S, I, R state FREEZE_MARGIN from a bound;
     a Bayes ``rhs`` is integrated under ``noise_seed``, each evaluation with
     its own weights, and held BAYES_FREEZE_MARGIN from the bounds; ``margin``
     overrides either."""
     from fiude_tpu_torch.ops.integrate import odeint_grid
     watched, least = watch_margin(rhs, z0.shape[0], z0.device)
-    odeint_grid(watched, z0, t, noise_seed=noise_seed)
+    odeint_grid(watched, z0, t, noise_seed=noise_seed, **solver)
     if margin is None:
         margin = FREEZE_MARGIN if noise_seed is None else BAYES_FREEZE_MARGIN
     return least() >= margin
@@ -571,8 +592,8 @@ def training_inputs(model, rng, windows=WINDOWS):
 
 def held_eps(model, x, rng, noise_seed=None):
     """eps (S, B, R, Le) whose every folded row stays FREEZE_MARGIN from the
-    freeze bounds along the plain integration (a Bayes model's under
-    ``noise_seed``), redrawing from ``rng``."""
+    freeze bounds along the plain integration with the model's solver (a
+    Bayes model's under ``noise_seed``), redrawing from ``rng``."""
     import numpy as np
     import torch
     from fiude_tpu_torch.models.vae import reparam
@@ -585,7 +606,8 @@ def held_eps(model, x, rng, noise_seed=None):
             mean, std = model.encoder(x)
             e = torch.tensor(eps, device=x.device)
             z = reparam(e, std, mean) + model.ic_jitter
-            held = held_rows(model.rhs_fn(1.0), z, grid, noise_seed=noise_seed)
+            held = held_rows(model.rhs_fn(1.0), z, grid, noise_seed=noise_seed,
+                             method=model.method, substeps=model.substeps)
             held = held.reshape(SAMPLES, -1).cpu().numpy()
         if first is None:
             first = int((~held).sum())
@@ -1867,38 +1889,41 @@ def bf16_serving(dev, model, bayes, z0, grid, rng, smi):
     return out
 
 
+def counted(run):
+    """``run()`` with K3-K6's launch counters set to 0 just before it and read
+    just after: (result, launches, seconds)."""
+    import torch
+    from fiude_tpu_torch.ops import fused_gru_train, fused_train
+    counters = {"K3": fused_gru_train.encoder_forward_cuda,
+                "K4": fused_gru_train.encoder_backward_cuda,
+                "K5": fused_train.train_forward_cuda, "K6": fused_train.train_backward_cuda}
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    result = run()
+    torch.cuda.synchronize()
+    return result, {k: c.launches for k, c in counters.items()}, time.perf_counter() - t0
+
+
+def hold_launches(tag, launches, steps, forwards):
+    """K4 and K6 once a step; K3 and K5 also once for each forward without a
+    backward (the test forecast runs the model's own forward)."""
+    want = {"K3": steps + forwards, "K4": steps, "K5": steps + forwards, "K6": steps}
+    if launches != want:
+        raise RuntimeError(f"{tag}: launches {launches} for {steps} steps, expected {want}")
+
+
 def experiment_runs(dev, smi):
     """Phase 16: ``run_experiment`` for a `state` CONN and UONN config and the
     CONN -> UONN ``run_transfer``, through the kernels, to the results table.
     Returns the launch counters of the UONN config's run."""
     import numpy as np
-    import torch
-    from fiude_tpu_torch.ops import fused_gru_train, fused_train
     from fiude_tpu_torch.train import experiment
     from fiude_tpu_torch.train.checkpoint import flat_from_module, load_flat
     from fiude_tpu_torch.train.trainer import Trainer
     from fiude_tpu_torch.utils.config import ExperimentConfig
     from fiude_tpu_torch.utils.results import read_table
-    counters = {"K3": fused_gru_train.encoder_forward_cuda,
-                "K4": fused_gru_train.encoder_backward_cuda,
-                "K5": fused_train.train_forward_cuda, "K6": fused_train.train_backward_cuda}
-
-    def counted(run):
-        """``run()`` with the counters read around it: (result, launches, seconds)."""
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
-        t0 = time.perf_counter()
-        result = run()
-        torch.cuda.synchronize()
-        return result, {k: c.launches for k, c in counters.items()}, time.perf_counter() - t0
-
-    def hold_launches(tag, launches, steps, forwards):
-        """K4 and K6 once a step; K3 and K5 also once for each forward without a
-        backward (the test forecast runs the model's own forward)."""
-        want = {"K3": steps + forwards, "K4": steps, "K5": steps + forwards, "K6": steps}
-        if launches != want:
-            raise RuntimeError(f"{tag}: launches {launches} for {steps} steps, expected {want}")
 
     cfgs = {name: ExperimentConfig(region="state", ode_name=name, epochs=4, window_size=28,
                                    gamma=28) for name in ("CONN", "UONN")}
@@ -2147,6 +2172,234 @@ def epoch_runs(dev, rng, smi):
             f"{ms['epoch'][0]:.4f} / {ms['epoch'][1]:.4f} ms, per-step loop "
             f"{ms['loop'][0]:.4f} / {ms['loop'][1]:.4f} ms [{smi}]")
     return out
+
+
+TREE = dict(n_weeks=470, start="2010-10-01", n_qs=12)   # the writer's defaults
+
+
+def data_tree_runs(dev, smi):
+    """Phase 18 (a, b): a ``Data/`` tree from the port's writer, then
+    ``run_experiment(data_root=)`` for the ``state`` UONN config with
+    ``fill_1`` both ways (the padded curriculum through K3-K6, the whole train
+    split of season 2016), each run's seconds split into the data build,
+    training, the test forecast and the row write."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.data import write_reference_data_tree
+    from fiude_tpu_torch.train import experiment
+    from fiude_tpu_torch.train.trainer import Trainer
+    from fiude_tpu_torch.utils import results
+    from fiude_tpu_torch.utils.config import ExperimentConfig
+    cfg = ExperimentConfig(region="state", ode_name="UONN", epochs=2, window_size=28, gamma=28)
+    split, shapes = {}, {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+            if name == "DataConstructor":
+                shapes.update(x_train=out[0].shape, x_test=out[2].shape, y_train=out[1].shape)
+            return out
+        return run
+
+    patches = [(experiment, "_build_data", "DataConstructor"),
+               (Trainer, "train_curriculum_padded", "training"),
+               (Trainer, "forecast", "test forecast"),
+               (results, "upsert_results_row", "row write")]
+    saved = [getattr(owner, attr) for owner, attr, _ in patches]
+    for (owner, attr, name), fn in zip(patches, saved):
+        setattr(owner, attr, timed(name, fn))
+    want_columns = ([f"{cfg.test_season} {g}" for g in (34, 41, 48, 55)]
+                    + [f"skill {cfg.test_season} {w}" for w in (7, 14, 21, 28)])
+    stages = len(np.linspace(0, cfg.gamma, int(cfg.gamma / 7) + 1)) - 1
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = f"{tmp}/Data"
+            t0 = time.perf_counter()
+            write_reference_data_tree(root, **TREE)
+            files = sum(len(f) for _, _, f in os.walk(root))
+            log(f"  wrote the Data/ tree ({TREE['n_weeks']} weeks from {TREE['start']}, "
+                f"{TREE['n_qs']} queries, {files} files) in {time.perf_counter() - t0:.2f} s "
+                f"[{smi}]")
+            for fill_1 in (False, True):
+                split.clear()
+                table = f"{tmp}/results_fill{int(fill_1)}"
+                out, launches, seconds = counted(lambda: experiment.run_experiment(
+                    cfg, data_root=root, fill_1=fill_1, padded_curriculum=True,
+                    fused_train=True, weights_root=tmp, results_file=table))
+                trainer = out["trainer"]
+                if next(trainer.model.parameters()).device != dev:
+                    raise RuntimeError("run_experiment(data_root=) without a device did not "
+                                       "run on the card")
+                steps = sum(len(epoch) for epoch in trainer.history.batch_history)
+                losses = [h["loss"] for h in out["history"]]
+                rest = seconds - sum(split.values())
+                log(f"  run_experiment({cfg.key}, fill_1={fill_1}): windows {shapes}, "
+                    f"{len(losses)} epochs, {steps} steps and the test forecast (128 samples) "
+                    f"in {seconds:.4f} s [{smi}]: "
+                    + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+                    + f", the rest {rest:.4f} s; epoch losses "
+                    f"{', '.join(f'{v:.4g}' for v in losses)}; launches {launches}")
+                if len(losses) != stages or not np.isfinite(losses).all():
+                    raise RuntimeError("run_experiment(data_root=): the history is not finite")
+                hold_launches(f"run_experiment(data_root=, fill_1={fill_1})", launches, steps,
+                              forwards=1)
+                if not np.isfinite(list(out["metrics"].values())).all():
+                    raise RuntimeError(f"run_experiment(data_root=): metrics {out['metrics']}")
+                _, _, rows = results.read_table(table + ".csv")
+                if len(rows) != 1 or any(c not in rows[0] or not np.isfinite(rows[0][c])
+                                         for c in want_columns):
+                    raise RuntimeError(f"the results table must hold one row with the "
+                                       f"reference's columns: {rows}")
+    finally:
+        for (owner, attr, _), fn in zip(patches, saved):
+            setattr(owner, attr, fn)
+
+
+def solver_steps(dev, rng, smi):
+    """Phase 18 (c): one ``Trainer`` step of the ``state`` UONN config with
+    ``fused_train`` and a solver that K5/K6 do not take (``euler``, and the
+    Kutta 3/8 rule at 2 sub-steps): K3/K4 launch once and K5/K6 not at all,
+    and the step holds to the plain step (``fused_train=False``) at the step
+    tolerances: metrics rel 2e-4 (kl_latent as in phase 6), gradients to the
+    gradient bound, post-Adam parameters rtol 1e-4, atol 1e-6.  KL_z's
+    gradient is ill-conditioned in float32 (its terms grow as 1/std^2): on
+    these inputs it moves the encoder's gradients and grad_norm, the plain
+    step's as much as the kernels', past their bounds from the float64 step,
+    which the log shows.  So, as for the Bayes step of phase 11, the full
+    step holds every other metric and gradient to the plain step, and a
+    second pair of steps whose loss leaves KL_z out holds them all.  Under the
+    full loss, grad_norm and the encoder's gradients are held to the float64
+    step instead: the kernels' distance from it within twice the plain
+    step's, plus rel 2e-4 (grad_norm) or the gradient bound (as
+    :func:`kl_latent_bound` does for kl_latent)."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.train import TRAINING_INFO, Trainer
+    grid = np.arange(WEEKS, dtype=np.float64)
+    tm = torch.tensor(TMASKS[0], device=dev)
+    em = torch.tensor([1.0] + TMASKS[0], device=dev)
+    losses = {"full": TRAINING_INFO["UONN"],
+              "without KL_z": dataclasses.replace(TRAINING_INFO["UONN"], kl_z=False)}
+
+    def worst_grad(a, b, names):
+        """The largest max|d| / bound over ``names``' gradients, and where."""
+        out = (0.0, None)
+        for (name, pa), pb in zip(a.model.named_parameters(), b.model.parameters()):
+            if name in names:
+                bound = GRAD_RTOL * pb.grad.abs().max().item() + GRAD_ATOL
+                ratio = (pa.grad.double() - pb.grad.double()).abs().max().item() / bound
+                out = max(out, (ratio, name), key=lambda r: r[0])
+        return out
+
+    for solver in ({"method": "euler"}, {"substeps": 2}):
+        def build(fused, solver=solver):
+            return UDEForecaster.build(ode_name="UONN", fused_train=fused, fused_stats=fused,
+                                       generator=torch.Generator().manual_seed(SEED + 7),
+                                       **solver, **STATE)
+        model = build(True)
+        if not model.fused_train or model.fused_trajectory:
+            raise RuntimeError(f"{solver}: the model should take K3/K4 and the plain solver")
+        initial = {k: v.clone() for k, v in model.state_dict().items()}
+        x, y = (torch.tensor(a, device=dev) for a in training_inputs(model, rng, BATCH))
+        eps = held_eps(model, x, rng)
+        runs = {}
+        for loss, cfg in losses.items():
+            for path in ("kernels", "plain") + (("float64",) if loss == "full" else ()):
+                m = build(path == "kernels")
+                m.load_state_dict(initial)
+                inputs = (x, y, eps, tm, em)
+                if path == "float64":
+                    m, inputs = m.double(), tuple(a.double() for a in inputs)
+                tr = Trainer(m, loss_cfg=cfg, seed=SEED)
+                tr.setup_training(lr=LR)
+                before = {n: p.detach().clone() for n, p in m.named_parameters()}
+                metrics, launches, seconds = counted(lambda: tr.train_step(
+                    inputs[0], inputs[1], grid, inputs[2], epoch=1, grad_lim=5000.0,
+                    time_mask=inputs[3], eval_mask=inputs[4]))
+                runs[loss, path] = (tr, metrics, before)
+                want = {"K3": 1, "K4": 1, "K5": 0, "K6": 0} if path == "kernels" else \
+                    {"K3": 0, "K4": 0, "K5": 0, "K6": 0}
+                if launches != want:
+                    raise RuntimeError(f"{solver}, {path}: launches {launches}, expected {want}")
+                if loss == "full" and path != "float64":
+                    log(f"  {solver}, {path}: one step in {seconds:.4f} s [{smi}]; launches "
+                        f"{launches}")
+        kl_bound = kl_latent_bound(build, initial, x, runs["full", "plain"][0].len_tr,
+                                   runs["full", "plain"][1]["kl_w"])
+        params = [n for n, _ in model.named_parameters()]
+        encoder = {n for n in params if n.startswith("encoder.")}
+        for loss in losses:
+            (tk, mk, _), (tp, mp, before) = runs[loss, "kernels"], runs[loss, "plain"]
+            rels = []
+            for k in sorted(mp):
+                rel = abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30)
+                rels.append(f"{k} {rel:.3g}")
+                if loss == "full" and k == "grad_norm":
+                    m64 = runs["full", "float64"][1][k]
+                    err, plain_err = abs(mk[k] - m64), abs(mp[k] - m64)
+                    bound = 2.0 * plain_err + 2e-4 * abs(m64)
+                    rels[-1] += (f" (from float64: kernels {err / abs(m64):.3g}, plain "
+                                 f"{plain_err / abs(m64):.3g}, bound {bound / abs(m64):.3g})")
+                    if err > bound:
+                        raise RuntimeError(f"{solver}: grad_norm is further from the float64 "
+                                           "step than twice the plain step's distance allows")
+                elif loss == "full" and k == "kl_latent" and rel > 2e-4:
+                    err, bound = kl_bound(mk[k])
+                    rels[-1] += f" (from float64 {err:.3g}, bound {bound:.3g})"
+                    if err > bound:
+                        raise RuntimeError(f"{solver}: kl_latent disagrees beyond what the "
+                                           "encoder outputs' deviation from float64 explains")
+                elif rel > 2e-4:
+                    raise RuntimeError(f"{solver}, loss {loss}: step metric {k} disagrees "
+                                       "beyond rel 2e-4")
+            held = set(params) - encoder if loss == "full" else set(params)
+            ratio, where = worst_grad(tk, tp, held)
+            for (name, pk), pp in zip(tk.model.named_parameters(), tp.model.parameters()):
+                if name not in held:
+                    continue
+                under = pp.grad.abs() <= GRAD_RTOL * pp.grad.abs().max() + GRAD_ATOL
+                tol = torch.where(under, torch.full_like(pp, 2 * LR),
+                                  1e-6 + 1e-4 * pp.detach().abs())
+                if ((pk.detach() - pp.detach()).abs() > tol).any():
+                    raise RuntimeError(f"{solver}, loss {loss}: post-Adam {name} disagrees")
+                if (pp.detach() == before[name]).all():
+                    raise RuntimeError(f"{solver}: the plain step left {name} unchanged")
+            log(f"  {solver}, loss {loss}: step metrics rel {', '.join(rels)}; "
+                f"{len(held)} gradients held, the worst at {ratio:.3g} of its bound ({where}); "
+                f"post-Adam parameters agree")
+            if ratio > 1.0:
+                raise RuntimeError(f"{solver}, loss {loss}: the gradient of {where} disagrees")
+            if loss == "full":
+                # the encoder's gradients against the float64 step's, each
+                # within twice the plain step's own distance from it plus the
+                # gradient bound
+                t64 = runs["full", "float64"][0]
+                worst = (0.0, None)
+                for (name, pk), pp, p64 in zip(tk.model.named_parameters(),
+                                               tp.model.parameters(), t64.model.parameters()):
+                    if name not in encoder:
+                        continue
+                    g64 = p64.grad
+                    err = (pk.grad.double() - g64).abs().max().item()
+                    bound = (2.0 * (pp.grad.double() - g64).abs().max().item()
+                             + GRAD_RTOL * g64.abs().max().item() + GRAD_ATOL)
+                    worst = max(worst, (err / bound, name), key=lambda r: r[0])
+                log("  the encoder's gradients under the full loss: from the plain step's the "
+                    "worst at {:.3g} of the gradient bound ({}); from the float64 step's, "
+                    "kernels {:.3g} ({}), plain {:.3g} ({}); held to the float64 step within "
+                    "twice the plain step's distance plus the gradient bound, the worst at "
+                    "{:.3g} of it ({})".format(
+                        *worst_grad(tk, tp, encoder), *worst_grad(tk, t64, encoder),
+                        *worst_grad(tp, t64, encoder), *worst))
+                if worst[0] > 1.0:
+                    raise RuntimeError(f"{solver}: the encoder's gradient of {worst[1]} is "
+                                       "further from the float64 step than twice the plain "
+                                       "step's distance allows")
 
 
 def main() -> int:
@@ -2480,6 +2733,12 @@ def main() -> int:
     log(f"phase 17: the device-resident epoch against the per-step loop (FIUDE_NO_EPOCH_SCAN=1), "
         f"UONN (stats mode) then UONNb, train_curriculum_padded over {WEEKS} weekly points")
     epoch_runs(dev, rng, smi)
+
+    # -- 18. real data through run_experiment, and fused_train with the plain solver --------
+    log("phase 18: a Data/ tree from the port's writer; run_experiment(data_root=) for the "
+        "state UONN config with fill_1 both ways; fused_train steps with euler and 2 sub-steps")
+    data_tree_runs(dev, smi)
+    solver_steps(dev, rng, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None,
               **extra):

@@ -7,17 +7,21 @@ Counterpart of ``fiude_tpu/models/vae.py`` (``reparam`` :37-51,
     eps ~ N(0,1)^(S,B,R,Le)            Le = latent_dim - 1
     mean, std = encoder(x)
     z = reparam(eps, std, mean) + 1e-5   simplex R := 1 - |S| - |I|; fold S into B
-    latent, aux = odeint_grid(ode, z, t) Kutta 3/8, stage-ordered aux
+    latent, aux = odeint_grid(ode, z, t) Kutta 3/8 (or ``method``), stage-ordered aux
     y = decoder(latent)                  -> (B, S, T, R)
 
 :meth:`UDEForecaster.forward` is the plain twin of the whole serving path
 that ``fiude_tpu_torch.ops.fused_ude.FusedForecaster`` runs through the two
 CUDA kernels.  With ``fused_train`` the same forward is the training path:
-the encoder runs through K3/K4 (``ops.fused_gru_train``) and the trajectory
-through K5/K6 (``ops.fused_train``), which stream every evaluation's rates
-and Fa as the aux or, with ``fused_stats`` (which
+the encoder runs through K3/K4 (``ops.fused_gru_train``) and, when the model
+takes one Kutta 3/8 step an interval (``method="rk4"``, ``substeps=1``), the
+trajectory through K5/K6 (``ops.fused_train``), which stream every
+evaluation's rates and Fa as the aux or, with ``fused_stats`` (which
 ``train.experiment.build_trainer`` sets with ``fused_train``, as the
 production sweeps do), reduce the loss's aux to five masked sums on the card.
+Any other fixed method or sub-stepping integrates on the plain
+``odeint_grid``, as the JAX package does (``fiude_tpu/models/vae.py:292-293,
+364-369``), with the full stage aux.
 
 The Bayes families (CONNb, SONNb, UONNb; ``models.bayes``) draw fresh weight
 noise on every RHS evaluation from ``(noise_seed, e)``; their serving twin is
@@ -113,7 +117,8 @@ class ForwardExtras(NamedTuple):
     std: Optional[torch.Tensor]
     latent: torch.Tensor
     aux: Any = None
-    """the stage-ordered RHS aux {"rates", "fa"} (T-1, 4, B, R, k), or with
+    """the stage-ordered RHS aux {"rates", "fa"} (T-1, stages, B, R, k), with
+    sub-steps (T-1, substeps, stages, B, R, k), or from K5/K6 (K8/K9) with
     ``fused_stats`` {"rate_stats": (r1, r2, count), "fa_sq": f2}"""
 
 
@@ -126,11 +131,6 @@ class UDEForecaster(nn.Module):
                  method: str = "rk4", substeps: int = 1, ic_jitter: float = 1e-5,
                  fused_train: bool = False, fused_stats: bool = False):
         super().__init__()
-        if fused_train and (method not in ("rk4", "rk4_38") or substeps != 1):
-            raise NotImplementedError(
-                "fused_train integrates with one Kutta 3/8 step an interval; other "
-                "methods and substeps are not ported yet (ROADMAP.md, queue A, "
-                "'Other solvers')")
         self.encoder, self.ode, self.decoder = encoder, ode, decoder
         self.latent_dim = latent_dim
         self.n_regions = n_regions
@@ -197,6 +197,14 @@ class UDEForecaster(nn.Module):
     def is_bayes(self) -> bool:
         return getattr(self.ode, "uncertainty", "none") == "bayes"
 
+    @property
+    def fused_trajectory(self) -> bool:
+        """Whether the trajectory runs through K5/K6 (K8/K9): exactly when the
+        JAX package takes its fused kernel, ``fused_train`` with one Kutta 3/8
+        step an interval.  ``rk4_38`` is the same rule but, as there, takes
+        the plain path."""
+        return self.fused_train and self.method == "rk4" and self.substeps == 1
+
     def rhs_fn(self, fa_w: float = 1.0):
         """Bind ``fa_w`` (read by the UDE families only) into ``(t, y) ->
         (dy, aux)``; a Bayes RHS also takes ``seed=`` and ``e=``, which
@@ -260,12 +268,13 @@ class UDEForecaster(nn.Module):
                 dts: Optional[torch.Tensor] = None):
         """x: (B, T_in, F) window; t: (T,) grid; eps: (S, B, R, Le);
         ``time_mask``: optional (T-1,) per-interval loss weights of the padded
-        curriculum, read only by the fused stats path (every other path
-        applies it in the loss).  ``noise_seed``: the weight-noise seed of a
+        curriculum, read only by K5/K6 (K8/K9) in stats mode (every other
+        path applies it in the loss).  ``noise_seed``: the weight-noise seed of a
         Bayes family (0 when None, as the JAX package defaults its key);
-        evaluation ``e = 4*i + stage`` draws from ``(noise_seed, e)``.
+        evaluation ``e`` draws from ``(noise_seed, e)``, ``e = 4*i + stage``
+        for one Kutta 3/8 step an interval (``ops.integrate`` for the others).
         ``dts``: the steps of ``t`` on the model's device (:func:`grid_steps`),
-        read by the fused path only, which otherwise makes them from ``t``
+        read by K5/K6 (K8/K9) only, which otherwise make them from ``t``
         every call; the plain integrator steps from ``t`` on the host.
 
         Returns ``(y_pred (B, S, T, R), ForwardExtras)``.
@@ -278,7 +287,7 @@ class UDEForecaster(nn.Module):
         z = z + self.ic_jitter
         if self.is_bayes and noise_seed is None:
             noise_seed = 0
-        if self.fused_train:
+        if self.fused_trajectory:
             latent, aux = self._fused_trajectory(z, t, fa_w, time_mask, noise_seed, dts)
         else:
             latent, aux = odeint_grid(self.rhs_fn(fa_w), z, t, method=self.method,

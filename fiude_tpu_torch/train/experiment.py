@@ -24,8 +24,12 @@ integrators take their steps from the grid in float64, so every step of a
 uniform grid gets the same float32 ``dt`` (the JAX package builds it in
 float32 and casts to the state's dtype, ``experiment.py:111``).
 
-Real data (a ``data_root``) waits for ``DataConstructor``; the tuning worker
-and ``rerun_best`` wait too (ROADMAP.md, queue A).
+Real data: with a ``data_root`` (and not ``synthetic``) the recipes read
+the reference's ``Data/`` tree through the port's ``DataConstructor``
+(``run_backward=True, no_qs_in_output=True``, ``fill_1`` as given), as the
+JAX package does; ``data.synthetic.write_reference_data_tree`` writes such a
+tree.  The tuning worker and ``rerun_best`` wait for a later slice
+(ROADMAP.md, queue A, item 4).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from fiude_tpu_torch.data.builder import DataConstructor
 from fiude_tpu_torch.data.loader import ArrayLoader
 from fiude_tpu_torch.data.synthetic import synthetic_dataset
 from fiude_tpu_torch.models.vae import UDEForecaster
@@ -57,9 +62,11 @@ def _build_data(cfg: ExperimentConfig, data_root: Optional[str], synthetic: bool
             n_regions=cfg.n_regions, n_qs=cfg.n_qs,
             window_size=cfg.window_size, gamma=cfg.gamma,
             seed=seed + cfg.num + season_shift)
-    raise NotImplementedError(
-        "real data needs DataConstructor and the reference's Data/ tree, which are not "
-        "ported yet (ROADMAP.md, queue A, item 3); pass synthetic=True")
+    dc = DataConstructor(test_season=cfg.test_season, region=cfg.region,
+                         n_queries=cfg.n_qs, gamma=cfg.gamma,
+                         window_size=cfg.window_size, fill_1=fill_1,
+                         root=data_root)
+    return dc(run_backward=True, no_qs_in_output=True)
 
 
 def daily_grid(cfg: ExperimentConfig) -> np.ndarray:

@@ -12,6 +12,9 @@ row of the results table.
   other reads, matches rows in and updates (the port without pandas and
   ``filelock``); a killed writer leaves the old table
   (mirrors ``tests/test_experiment.py::TestAtomicCSV``);
+* real data: ``_build_data`` for a ``Data/`` tree (the port's writer, ``hhs``,
+  ``fill_1`` both ways) equal bit for bit to the JAX package's, and
+  ``run_experiment(data_root=)`` trained to a results row on the CPU;
 * the schedule: the calls ``run_experiment`` and ``run_transfer`` make to
   ``Trainer.train`` / ``train_curriculum_padded`` (grids, ``eval_pts``, epochs a
   stage, ``grad_lim``, ``fa_w``) equal the JAX functions', by recording them in
@@ -292,19 +295,47 @@ def test_build_trainer_settings_equal_jax(tmp_path):
         assert pt.loss_cfg.ode_kl_w == jt.loss_cfg.ode_kl_w
 
 
-def test_real_data_waits_for_the_data_constructor(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        experiment.run_experiment(tiny_cfg(), data_root=str(tmp_path), device="cpu")
+@pytest.fixture(scope="module")
+def hhs_tree(tmp_path_factory):
+    """A ``Data/`` tree from the port's writer, with the 15 queries the ``hhs``
+    preset selects and one more (300 weeks: seasons 2012-2015 in Dates.csv)."""
+    root = str(tmp_path_factory.mktemp("Data"))
+    synthetic.write_reference_data_tree(root, n_qs=16, seed=0, n_weeks=300)
+    return root
 
 
-def test_real_data_names_the_roadmap_item_that_ports_it(tmp_path):
-    """Asked for real data (synthetic=False and a data root),
-    ``run_experiment`` raises before anything is built and sends the caller
-    to queue A, item 3 ('Host-side data'), the item that ports
-    DataConstructor."""
-    with pytest.raises(NotImplementedError, match=r"queue A, item 3\)"):
-        experiment.run_experiment(tiny_cfg(), data_root=str(tmp_path), synthetic=False,
-                                  device="cpu")
+@pytest.mark.parametrize("fill_1", [False, True])
+def test_real_data_builds_the_jax_arrays(hhs_tree, fill_1):
+    """``_build_data`` for a ``Data/`` tree (``synthetic=False``): the port's
+    ``DataConstructor`` under the reference's arguments, bit for bit the
+    arrays of the JAX package's ``_build_data``."""
+    kw = dict(region="hhs", ode_name="UONN", test_season=2014, window_size=28, gamma=28)
+    got = experiment._build_data(config.ExperimentConfig(**kw), hhs_tree, False, fill_1)
+    want = jax_experiment._build_data(jax_config.ExperimentConfig(**kw), hhs_tree, False, fill_1)
+    assert got[0].shape[1:] == (42, 10 * 16) and got[1].shape[1:] == (57, 10)
+    for a, b in zip(got[:4], want[:4]):
+        assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b)
+    assert np.array_equal(got[4], want[4].to_numpy())
+
+
+def test_run_experiment_trains_on_a_data_tree(hhs_tree, tmp_path, monkeypatch):
+    """``run_experiment(data_root=)`` end to end on the CPU, ``fill_1`` and the
+    sweeps' mode (padded curriculum, ``fused_train``): the whole data path at
+    the ``hhs`` preset's 10 regions and 15 queries, the model narrowed (the
+    ``tiny`` widths), 3 steps an epoch, to a results row."""
+    monkeypatch.setitem(config.REGION_INFO, "hhs", dict(SMALL_REGION, n_regions=10, n_qs=15))
+    cfg = config.ExperimentConfig(region="hhs", ode_name="UONN", test_season=2014, epochs=4,
+                                  window_size=7, gamma=28, latent_dim=6, batch_size=512,
+                                  n_samples=4)
+    out = experiment.run_experiment(
+        cfg, data_root=hhs_tree, fill_1=True, padded_curriculum=True, fused_train=True,
+        weights_root=str(tmp_path), results_file=str(tmp_path / "results_table"), device="cpu")
+    steps = [len(epoch) for epoch in out["trainer"].history.batch_history]
+    assert steps == [3] * 4 and np.isfinite([h["loss"] for h in out["history"]]).all()
+    df = pd.read_csv(str(tmp_path / "results_table.csv"), index_col=0)
+    assert len(df) == 1 and df.loc[0, "region"] == "hhs"
+    for g, w in zip((13, 20, 27, 34), (7, 14, 21, 28)):
+        assert np.isfinite(df.loc[0, f"2014 {g}"]) and np.isfinite(df.loc[0, f"skill 2014 {w}"])
 
 
 def test_daily_grid_is_float64_and_uniform():

@@ -204,8 +204,22 @@ class TestIntegrate:
         assert ys_t.shape == (5, 3, 2, 5)
         close(ys_t, ys_j)
 
-    @pytest.mark.parametrize("method,substeps", [
-        ("rk4_classic", 1), ("euler", 1), ("dopri5", 1), ("rk4", 2)])
+    @pytest.mark.parametrize("method,substeps", [("rk4_classic", 1), ("euler", 1), ("rk4", 2)])
+    def test_other_fixed_solvers_match_jax(self, method, substeps):
+        """Classic RK4, Euler and sub-stepping, which the port once refused, on
+        a non-uniform grid (every method and sub-step count:
+        ``tests/test_torch_port_solvers.py``)."""
+        jm, params, port = build_pair("UONN", R=2, L=5)
+        y0 = np.random.default_rng(7).uniform(0, 1, (3, 2, 5))
+        t = np.array([0.0, 0.1, 0.25, 0.3, 0.5])
+        ys_j, _ = jax_odeint_grid(jm.rhs_fn(params.ode, 0.8), jnp.asarray(y0),
+                                  jnp.asarray(t), method=method, substeps=substeps)
+        with torch.no_grad():
+            ys_t, _ = odeint_grid(port.rhs_fn(0.8), t64(y0), t64(t), method=method,
+                                  substeps=substeps)
+        close(ys_t, ys_j)
+
+    @pytest.mark.parametrize("method,substeps", [("dopri5", 1), ("tsit5", 1)])
     def test_unported_solvers_raise(self, method, substeps):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             odeint_grid(lambda t, y: y, torch.zeros(2), [0.0, 1.0],
@@ -257,14 +271,18 @@ class TestForecaster:
         close(y_t, y_j)
 
     @pytest.mark.parametrize("kwargs", [
-        {"ode_name": "UONNb", "fused_train": True, "method": "euler"},
-        {"ode_name": "Bayes_Fp", "fused_train": True, "substeps": 2},
-        {"encoder_name": "bigru"}, {"fused_train": True, "method": "dopri5"}])
+        {"encoder_name": "bigru"}, {"fused_train": True, "method": "dopri5"},
+        {"method": "tsit5"}, {"ode_name": "UONNb", "fused_train": True, "method": "tsit5"}])
     def test_unported_options_raise(self, kwargs):
+        """Another encoder raises when built; an adaptive solver when run, on
+        the fused path as on the plain one (the fixed methods and sub-steps,
+        with ``fused_train`` too, run: ``tests/test_torch_port_solvers.py``)."""
         kw = dict(n_regions=2, latent_dim=5, n_qs=3, ode_name="FaFp")
         kw.update(kwargs)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            UDEForecaster.build(device="cpu", **kw)
+            model = UDEForecaster.build(device="cpu", **kw)
+            model(torch.rand(2, 9, model.encoder.input_size), [0.0, 1.0],
+                  torch.randn(2, 2, 2, 4))
 
     @pytest.mark.parametrize("ode_name", ["UONN", "CONN", "SONN", "UONNb", "Bayes_Fp", "SONNb"])
     def test_fused_train_alone_builds_for_every_family(self, ode_name):

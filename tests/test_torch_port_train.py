@@ -215,15 +215,17 @@ def step_inputs(seed=9):
     return x, y, t, eps
 
 
-def trainer_pair(fused=True, key=5, stats=None, **trainer_kw):
+def trainer_pair(fused=True, key=5, stats=None, method="rk4", substeps=1, **trainer_kw):
     """A JAX Trainer and a port Trainer on the same weights; ``stats=False``
     with ``fused`` is the aux-streaming mode."""
     stats = fused if stats is None else stats
-    jm = JaxForecaster.build(fused_train=fused, fused_stats=stats, **CONFIG)
+    solver = dict(method=method, substeps=substeps)
+    jm = JaxForecaster.build(fused_train=fused, fused_stats=stats, **solver, **CONFIG)
     jt = JaxTrainer(model=jm, loss_cfg=JAX_INFO["UONN"], seed=7, len_tr=10, **trainer_kw)
     jt.init_params(jax.random.PRNGKey(key))
     jt.setup_training(lr=1e-3)
-    port = UDEForecaster.build(device="cpu", fused_train=fused, fused_stats=stats, **CONFIG)
+    port = UDEForecaster.build(device="cpu", fused_train=fused, fused_stats=stats, **solver,
+                               **CONFIG)
     flat = {}
     for part in ("enc", "ode", "dec"):
         flat.update(tree_to_flat_dict(getattr(jt.params, part)))
@@ -345,13 +347,25 @@ class TestTrainStep:
 
 
 class TestFusedTrainOptions:
-    @pytest.mark.parametrize("kwargs", [
-        {"fused_stats": True, "method": "euler"}, {"fused_stats": True, "substeps": 2}])
-    def test_unported_fused_train_options_raise(self, kwargs):
-        kw = dict(CONFIG, fused_train=True)
-        kw.update(kwargs)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            UDEForecaster.build(device="cpu", **kw)
+    @pytest.mark.parametrize("kwargs", [{"method": "euler"}, {"substeps": 2}])
+    def test_fused_train_with_the_plain_solver_matches_jax(self, kwargs):
+        """``fused_train`` + ``fused_stats`` with a method or sub-stepping that
+        K5/K6 do not take: the encoder through K3/K4, the trajectory on the
+        plain solver with its stage aux, as the JAX package routes it; one
+        step under a padded mask equals the JAX step."""
+        jt, pt = trainer_pair(fused=True, **kwargs)
+        assert pt.model.fused_train and not pt.model.fused_trajectory
+        x, y, t, eps = step_inputs()
+        tm = np.array([1.0, 1.0, 0.0], np.float32)
+        em = np.array([1.0, 1.0, 1.0, 0.0], np.float32)
+        m_j = jax_step(jt, x, y, t, eps, epoch=1, grad_lim=5000.0, tm=tm, em=em)
+        m_t = pt.train_step(torch.from_numpy(x), torch.from_numpy(y), t,
+                            torch.from_numpy(eps), epoch=1, grad_lim=5000.0,
+                            time_mask=torch.from_numpy(tm), eval_mask=torch.from_numpy(em))
+        assert set(m_t) == set(m_j)
+        for k in m_j:
+            assert m_t[k] == pytest.approx(m_j[k], rel=2e-4, abs=1e-7), k
+        assert_params_match(jt.state.params, pt.model)
 
     @pytest.mark.parametrize("kwargs", [
         {"fused_stats": False}, {"fused_stats": False, "ode_name": "UONNb"},
