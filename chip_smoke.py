@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port's serving and training paths on one NVIDIA GPU:
 the deterministic families (phases 2-7), the Bayes families (phases 8-12), the
 kernels' other modes (phases 13-15), the experiment recipes (phase 16), the
-device-resident training epoch (phase 17) and real data through the recipes
-with ``fused_train`` on the plain solver (phase 18).
+device-resident training epoch (phase 17), real data through the recipes
+with ``fused_train`` on the plain solver (phase 18) and the sweep path's
+populations and command line (phase 19).
 
     python3 chip_smoke.py
 
@@ -134,7 +135,23 @@ no result, when there is no card.  Phases, each printing its lines:
     encoder's gradients and grad_norm, ill-conditioned in float32 under KL_z,
     in a second pair of steps whose loss leaves KL_z out, as in phase 11, and
     under the full loss against the float64 step, within twice the plain
-    step's own distance from it plus the step tolerance).
+    step's own distance from it plus the step tolerance);
+19. the sweep path: (a) ``python -m fiude_tpu_torch.scripts.run_sweep
+    --synthetic --population --padded --fused-train --skip-done`` over the
+    ``state`` UONN config, season 2016, 4 epochs, window 28, gamma 28, nums
+    15 16 17 (the production command, ``scripts/round5_tpu_chain_v8.sh:43``,
+    with the grid narrowed), in a subprocess that blocks ``jax`` and
+    ``pandas``: one population of 3 members, 3 rows with the reference's
+    columns, K3-K6 once a member-step (K3/K5 also once a test forecast), the
+    seconds split into data build, training, test forecasts and row writes;
+    then the same command again, which finds nothing left to run; (b) member
+    15 against a 1-member population of its config on the card, every
+    parameter with max abs diff 0; (c) a UONNb population of 2 members, 1
+    epoch a stage over the weekly grid, through K3, the draw, K8, K9 and K4,
+    once a member-step each, finite losses; (d) host ms of an 8-member
+    population step at the training shape beside 8 lone ``Trainer`` steps,
+    in turns, and the synchronising runtime calls in each population epoch's
+    profiler span (2, or 3 for UONNb, whatever the members).
 
 Every kernel's line carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -2402,6 +2419,276 @@ def solver_steps(dev, rng, smi):
                                        "step's distance allows")
 
 
+POP_NUMS = (15, 16, 17)
+POP_ARGS = ("--synthetic", "--population", "--padded", "--fused-train", "--skip-done",
+            "--regions", "state", "--models", "UONN", "--seasons", "2016", "--epochs", "4",
+            "--windows", "28", "--gammas", "28", "--nums", *map(str, POP_NUMS))
+POP_MEMBERS = 8   # the population step's members (bench.py:339-380)
+
+# Phase 19 (a)'s subprocess: the sweep command line with jax and pandas
+# blocked, its parts timed (each ending in a synchronize), its member-steps and
+# K3-K6's launches counted; prints one JSON line after the command's own.
+_SWEEP_RUN = """
+import json, runpy, sys, time
+sys.modules["jax"] = None
+sys.modules["pandas"] = None
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets them
+torch.backends.cudnn.allow_tf32 = False
+from fiude_tpu_torch.ops import fused_gru_train, fused_train
+from fiude_tpu_torch.parallel import sweep
+from fiude_tpu_torch.train.trainer import Trainer
+split, steps = {}, [0]
+
+def timed(name, fn):
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+        return out
+    return run
+
+device_step = Trainer._device_step
+
+def counted_step(self, *args, **kwargs):
+    steps[0] += 1
+    return device_step(self, *args, **kwargs)
+
+Trainer._device_step = counted_step
+sweep._build_data = timed("data build", sweep._build_data)
+sweep.PopulationTrainer.train = timed("training", sweep.PopulationTrainer.train)
+Trainer.forecast = timed("test forecasts", Trainer.forecast)
+sweep.upsert_results_row = timed("row writes", sweep.upsert_results_row)
+counters = {"K3": fused_gru_train.encoder_forward_cuda,
+            "K4": fused_gru_train.encoder_backward_cuda,
+            "K5": fused_train.train_forward_cuda, "K6": fused_train.train_backward_cuda}
+for c in counters.values():
+    c.launches = 0
+t0 = time.perf_counter()
+runpy.run_module("fiude_tpu_torch.scripts.run_sweep", run_name="__main__", alter_sys=True)
+torch.cuda.synchronize()
+seconds = time.perf_counter() - t0
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and (m in ("fiude_tpu", "pandas") or m.startswith(("fiude_tpu.", "jax"))))
+print(json.dumps({"seconds": seconds, "split": split, "member_steps": steps[0],
+                  "launches": {k: c.launches for k, c in counters.items()}, "loaded": loaded}))
+"""
+
+
+def sweep_command(work: str):
+    """Phase 19 (a)'s command in a subprocess from this checkout: (its output
+    lines, the wrapper's report)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-c", _SWEEP_RUN, *POP_ARGS, "--work-dir", work,
+                          "--out", "results_table"], cwd=root, capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=root), timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"the sweep command failed ({out.returncode}):\n{out.stderr[-6000:]}")
+    lines = out.stdout.strip().splitlines()
+    return lines[:-1], json.loads(lines[-1])
+
+
+def population_runs(dev, rng, smi):
+    """Phase 19 (a) and (b): the population command line, run twice, and
+    member 15 against a 1-member population of its config on the card."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.parallel import run_population_experiment
+    from fiude_tpu_torch.utils.config import ExperimentConfig
+    from fiude_tpu_torch.utils.ledger import Ledger
+    from fiude_tpu_torch.utils.results import read_table
+    group = [ExperimentConfig(region="state", ode_name="UONN", epochs=4, window_size=28,
+                              gamma=28, num=n) for n in POP_NUMS]
+    want_columns = ([f"2016 {g}" for g in (34, 41, 48, 55)]
+                    + [f"skill 2016 {w}" for w in (7, 14, 21, 28)])
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, rep = sweep_command(tmp)
+        for line in lines:
+            log(f"    | {line}")
+        if lines[-1] != f"processed {len(group)}/{len(group)} configs (population mode)":
+            raise RuntimeError(f"the sweep command ended with {lines[-1]!r}")
+        if rep["loaded"]:
+            raise RuntimeError(f"the sweep command loaded {rep['loaded']}")
+        split = rep["split"]
+        rest = rep["seconds"] - sum(split.values())
+        log(f"  population of {len(group)} (state UONN, 4 epochs, window 28, gamma 28): "
+            f"{rep['seconds']:.4f} s in the command: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f", the rest {rest:.4f} (model builds, saves); {rep['member_steps']} member-steps; "
+            f"launches {rep['launches']} [{smi}]")
+        hold_launches("the population command", rep["launches"], rep["member_steps"],
+                      forwards=len(group))
+        _, index, rows = read_table(f"{tmp}/results_table.csv")
+        if sorted(r.get("num") for r in rows) != list(POP_NUMS):
+            raise RuntimeError(f"the results table holds rows {index}: {rows}")
+        for row in rows:
+            if any(c not in row or not np.isfinite(row[c]) for c in want_columns):
+                raise RuntimeError(f"a results row lacks one of the reference's columns: {row}")
+        status = Ledger(f"{tmp}/started.txt").status(f"{group[0].key}_pop{len(group)}")
+        if status != "finished":
+            raise RuntimeError(f"the population's ledger line says {status!r}")
+        again, _ = sweep_command(tmp)
+        log(f"  the same command again: {again[0]!r}, {again[-1]!r}")
+        if again[-1] != "processed 0/0 configs (population mode)":
+            raise RuntimeError("the second run found work left")
+
+        # (b) member 15 against a 1-member population of its config
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_population_experiment(group[:1], synthetic=True, fused_train=True,
+                                  weights_root=f"{tmp}/alone")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        worst, n = 0.0, 0
+        for part in ("enc", "ode", "dec"):
+            a = np.load(f"{tmp}/weights/{group[0].key}{part}.npz")
+            b = np.load(f"{tmp}/alone/weights/{group[0].key}{part}.npz")
+            if set(a.files) != set(b.files):
+                raise RuntimeError(f"the {part} checkpoints hold different arrays")
+            for k in a.files:
+                worst = max(worst, float(np.abs(a[k] - b[k]).max()))
+                n += 1
+        log(f"  member {group[0].num} against a 1-member population of its config (in "
+            f"{seconds:.4f} s, its test forecast and no row included): {n} arrays, max abs "
+            f"diff {worst} [{smi}]")
+        if worst != 0.0:
+            raise RuntimeError("a population member is not its 1-member population bit for bit")
+
+
+def bayes_population(dev, rng, smi):
+    """Phase 19 (c): a UONNb population of 2 members, 1 epoch a stage of the
+    exact weekly curriculum (2 steps an epoch): K3, the draw, K8, K9 and K4
+    once a member-step, finite losses; then one more epoch of it and one
+    epoch of a 1-member population, traced: the synchronisations of each
+    population epoch (3).  Returns {members: syncs}."""
+    import functools
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.data import ArrayLoader
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.ops import fused_bayes, fused_bayes_train, fused_gru_train
+    from fiude_tpu_torch.parallel import PopulationTrainer
+    from fiude_tpu_torch.parallel.sweep import POPULATION_SPAN
+    from fiude_tpu_torch.train import TRAINING_INFO
+    from fiude_tpu_torch.utils.profiler import trace
+    build = functools.partial(UDEForecaster.build, ode_name="UONNb", fused_train=True,
+                              fused_stats=True, **STATE)
+    x_all, y_all = training_inputs(build(), rng)
+    grid = np.arange(WEEKS, dtype=np.float64)
+    loader = ArrayLoader(x_all, y_all, batch_size=BATCH, seed=SEED)
+    pops = {m: PopulationTrainer(build, m, TRAINING_INFO["UONNb"], lr=LR, seed=SEED,
+                                 ode_kl_w=ODE_KL_W) for m in (2, 1)}
+    counters = {"K3": fused_gru_train.encoder_forward_cuda, "draw": fused_bayes.bayes_draw_cuda,
+                "K8": fused_bayes_train.bayes_train_forward_cuda,
+                "K9": fused_bayes_train.bayes_train_backward_cuda,
+                "K4": fused_gru_train.encoder_backward_cuda}
+    pop = pops[2]
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    for k in range(2, WEEKS + 1):
+        pop.train(loader, grid[:k], 1, np.arange(k), n_samples=SAMPLES)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    member_steps = sum(len(e) for h in pop.history for e in h.batch_history)
+    losses = [e["loss"] for h in pop.history for e in h.epoch_history]
+    log(f"  UONNb population of 2: {member_steps} member-steps ({WEEKS - 1} stages of 1 epoch, "
+        f"{len(loader)} steps an epoch), launches {launches}; last epoch's losses "
+        f"{', '.join(f'{v:.4g}' for v in pop.epoch_losses())}")
+    if any(v != member_steps for v in launches.values()):
+        raise RuntimeError(f"UONNb population: launches {launches} for {member_steps} "
+                           "member-steps")
+    if not np.isfinite(losses).all():
+        raise RuntimeError("UONNb population: a loss is not finite")
+    syncs = {}
+    for members, p in pops.items():
+        with trace() as prof:
+            p.train(loader, grid, 1, np.arange(WEEKS), n_samples=SAMPLES)
+            torch.cuda.synchronize()
+        syncs[members] = [s[1] for s in epoch_spans(prof, POPULATION_SPAN)]
+    log(f"  UONNb population epoch, traced: synchronising runtime calls {syncs} by members "
+        f"[{smi}]")
+    if any(n != [3] for n in syncs.values()):
+        raise RuntimeError(f"a UONNb population epoch synchronises {syncs} times")
+    return syncs
+
+
+def population_step_times(dev, rng, smi):
+    """Phase 19 (d): host ms of an 8-member UONN population step (``fused_train``
+    + ``fused_stats``, 32 windows x 64 samples, 8 weekly points, 9 steps an
+    epoch, 2 epochs a call, staging included) beside 8 lone ``Trainer`` steps
+    on the same loader (``Trainer.train``'s epoch path), the two trainers
+    called in turns (lone, population, population, lone); then, traced, an
+    epoch of 2 steps of a 2-member population and of the 8-member one: the
+    synchronising runtime calls and the device-busy time in each population
+    epoch's span."""
+    import functools
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.data import ArrayLoader
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.parallel import PopulationTrainer
+    from fiude_tpu_torch.parallel.sweep import POPULATION_SPAN
+    from fiude_tpu_torch.train import TRAINING_INFO, Trainer
+    from fiude_tpu_torch.utils.profiler import trace
+    build = functools.partial(UDEForecaster.build, ode_name="UONN", fused_train=True,
+                              fused_stats=True, **STATE)
+    x_all, y_all = training_inputs(build(), rng, EPOCH_WINDOWS)
+    grid, pts = np.arange(WEEKS, dtype=np.float64), np.arange(WEEKS)
+    epochs = 2
+    steps_an_epoch = -(-EPOCH_WINDOWS // BATCH)
+    loader = ArrayLoader(x_all, y_all, batch_size=BATCH, seed=SEED)
+    lone = Trainer(build(generator=torch.Generator().manual_seed(SEED)),
+                   loss_cfg=TRAINING_INFO["UONN"], seed=SEED)
+    lone.setup_training(lr=LR)
+    pops = {members: PopulationTrainer(build, members, TRAINING_INFO["UONN"], lr=LR, seed=SEED)
+            for members in (2, POP_MEMBERS)}
+
+    def timed(who):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if who == "lone":
+            lone.train(loader, grid, epochs, pts, n_samples=SAMPLES, grad_lim=5000.0)
+        else:
+            pops[who].train(loader, grid, epochs, pts, n_samples=SAMPLES)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (epochs * steps_an_epoch)
+
+    ms = {"lone": [], POP_MEMBERS: []}
+    for who in ("lone", POP_MEMBERS, POP_MEMBERS, "lone"):
+        ms[who].append(timed(who))
+    per_member = [v / POP_MEMBERS for v in ms[POP_MEMBERS]]
+    log(f"  host clock, {epochs * steps_an_epoch} steps a call of {BATCH} windows x {SAMPLES} "
+        f"samples, {WEEKS} weekly points (in turns): a population step of {POP_MEMBERS} members "
+        f"{ms[POP_MEMBERS][0]:.4f} / {ms[POP_MEMBERS][1]:.4f} ms ({per_member[0]:.4f} / "
+        f"{per_member[1]:.4f} ms a member-step); {POP_MEMBERS} lone steps "
+        f"{POP_MEMBERS * ms['lone'][0]:.4f} / {POP_MEMBERS * ms['lone'][1]:.4f} ms "
+        f"({ms['lone'][0]:.4f} / {ms['lone'][1]:.4f} ms a step) [{smi}]")
+    syncs = {}
+    short = ArrayLoader(x_all[:WINDOWS], y_all[:WINDOWS], batch_size=BATCH, seed=SEED)
+    for members in (2, POP_MEMBERS):
+        with trace() as prof:
+            pops[members].train(short, grid, 1, pts, n_samples=SAMPLES)
+            torch.cuda.synchronize()
+        spans = epoch_spans(prof, POPULATION_SPAN)
+        syncs[members] = [s[1] for s in spans]
+        span_us, busy_us = sum(s[0] for s in spans), sum(s[3] for s in spans)
+        member_steps = len(spans) * len(short) * members
+        log(f"  UONN population of {members}, an epoch of {len(short)} steps traced: "
+            f"synchronising runtime calls "
+            f"{syncs[members]}, Memcpy DtoH {[s[2] for s in spans]}; inside the epoch host "
+            f"{span_us / 1e3 / member_steps:.4f} ms and device busy "
+            f"{busy_us / 1e3 / member_steps:.4f} ms a member-step, idle share "
+            f"{1.0 - busy_us / span_us:.1%} (traced) [{smi}]")
+        if len(spans) != 1 or any(n != 2 for n in syncs[members]):
+            raise RuntimeError(f"a UONN population epoch synchronises {syncs[members]} times")
+        if not np.isfinite(pops[members].epoch_losses()).all():
+            raise RuntimeError("the UONN population's losses are not finite")
+    return ms, syncs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2739,6 +3026,20 @@ def main() -> int:
         "state UONN config with fill_1 both ways; fused_train steps with euler and 2 sub-steps")
     data_tree_runs(dev, smi)
     solver_steps(dev, rng, smi)
+
+    # -- 19. the sweep path: populations, the ledger, the command line -----------------------
+    log("phase 19: the sweep path: python -m fiude_tpu_torch.scripts.run_sweep "
+        f"{' '.join(POP_ARGS)} (jax and pandas blocked), twice; member {POP_NUMS[0]} against "
+        "its 1-member population; a UONNb population; population step times")
+    took = [time.perf_counter()]
+    population_runs(dev, rng, smi)
+    took.append(time.perf_counter())
+    bayes_population(dev, rng, smi)
+    took.append(time.perf_counter())
+    population_step_times(dev, rng, smi)
+    took.append(time.perf_counter())
+    log(f"  phase 19 took {took[-1] - took[0]:.1f} s: (a, b) {took[1] - took[0]:.1f}, (c) "
+        f"{took[2] - took[1]:.1f}, (d) {took[3] - took[2]:.1f}")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None,
               **extra):

@@ -17,6 +17,8 @@ from fiude_tpu_torch.train.trainer import Trainer, TrainState, warm_up_lr
 from fiude_tpu_torch.train.experiment import (
     adaptive_curriculum_train,
     build_trainer,
+    rerun_best,
     run_experiment,
     run_transfer,
+    run_tuning_worker,
 )

@@ -13,6 +13,12 @@ Counterpart of ``fiude_tpu/train/experiment.py:36-233``:
 * :func:`adaptive_curriculum_train`: the tuning harness's plateau-triggered
   horizon growth (reference ``tuning/tune_node.py:217-219``): extend tmax by
   one day whenever the last 10 epochs' NLL < -2.
+* :func:`run_tuning_worker`: the CSV work-queue worker (reference
+  ``tuning/tune_node.py:234-266``): claim the first ``started == 0`` row
+  under a file lock, evaluate, write the score back (``fail_score`` on a
+  crash).
+* :func:`rerun_best`: best-config re-testing (reference
+  ``lib/Old/test_odes.py:268-358``).
 
 Each entry point builds on the card unless the caller passes
 ``device="cpu"``, as :meth:`UDEForecaster.build` does.  Where the JAX
@@ -28,14 +34,20 @@ Real data: with a ``data_root`` (and not ``synthetic``) the recipes read
 the reference's ``Data/`` tree through the port's ``DataConstructor``
 (``run_backward=True, no_qs_in_output=True``, ``fill_1`` as given), as the
 JAX package does; ``data.synthetic.write_reference_data_tree`` writes such a
-tree.  The tuning worker and ``rerun_best`` wait for a later slice
-(ROADMAP.md, queue A, item 4).
+tree.
+
+The tuning worker and ``rerun_best`` read and write their tables with the
+``csv`` module through ``utils/results.py`` (``read_table``,
+``atomic_write_table``) under its ``file_lock``: the layout pandas gives a
+table and the lock ``filelock`` takes, so the JAX package's workers and
+``pd.read_csv(path, index_col=0)`` share the tables with the port's.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -48,7 +60,9 @@ from fiude_tpu_torch.train import checkpoint as ckpt
 from fiude_tpu_torch.train.losses import TRAINING_INFO
 from fiude_tpu_torch.train.trainer import Trainer
 from fiude_tpu_torch.utils.config import ExperimentConfig
-from fiude_tpu_torch.utils.results import test_and_record
+from fiude_tpu_torch.utils.results import (
+    atomic_write_table, file_lock, read_table, test_and_record,
+)
 
 
 def _build_data(cfg: ExperimentConfig, data_root: Optional[str], synthetic: bool,
@@ -265,3 +279,85 @@ def adaptive_curriculum_train(trainer: Trainer, loader, *, gamma: int,
             tmax = min(tmax + 1, tmax_cap)
         trainer.decay_lr(lr_decay, lr_floor)
     return tmax
+
+
+def _cells(columns, row) -> Dict[str, Any]:
+    """A row as ``dict(df.loc[i])`` gives it: every column, NaN where empty."""
+    return {c: row.get(c, float("nan")) for c in columns}
+
+
+def rerun_best(scores_csv: str,
+               evaluate: Callable[[Dict[str, Any], int], Dict[str, Any]],
+               *, run_best: int = 10, run_each: int = 5,
+               out_dir: str = "best_runs",
+               score_col: str = "score") -> str:
+    """Best-config re-testing (reference lib/Old/test_odes.py:268-358):
+    sort the validation-score table, re-run each of the top ``run_best``
+    configs ``run_each`` times, dumping per-run JSON results (ground truth /
+    predictive mean / std or whatever ``evaluate`` returns) plus a summary
+    ``test_scores.csv``.  The ranking is pandas' ``sort_values``: numpy's
+    quicksort over the scores, empty scores last."""
+    columns, index, rows = read_table(scores_csv)
+    scores = np.asarray([row.get(score_col, np.nan) for row in rows], dtype=np.float64)
+    missing = np.isnan(scores)
+    order = np.flatnonzero(~missing)[np.argsort(scores[~missing], kind="quicksort")]
+    order = list(order) + list(np.flatnonzero(missing))
+    os.makedirs(out_dir, exist_ok=True)
+    out_columns, out_rows = [], []
+    for rank, n in enumerate(order[:run_best]):
+        for rep in range(run_each):
+            result = evaluate(_cells(columns, rows[n]), rep)
+            path = os.path.join(out_dir, f"rank{rank}_rep{rep}.json")
+            with open(path, "w") as fh:
+                json.dump({k: (v.tolist() if hasattr(v, "tolist") else v)
+                           for k, v in result.items()}, fh)
+            out = {"rank": rank, "config_index": int(index[n]), "rep": rep,
+                   **{k: v for k, v in result.items() if np.isscalar(v)}}
+            out_columns += [k for k in out if k not in out_columns]
+            out_rows.append(out)
+    out_csv = os.path.join(out_dir, "test_scores.csv")
+    atomic_write_table(out_csv, out_columns, list(range(len(out_rows))), out_rows)
+    return out_csv
+
+
+def run_tuning_worker(csv_path: str,
+                      evaluate: Callable[[Dict[str, Any]], float],
+                      max_rows: int = 256,
+                      fail_score: float = 10.0,
+                      extra_cols: Optional[Dict[str, Any]] = None) -> int:
+    """CSV work-queue worker (reference tune_node.py:234-266): repeatedly
+    claim the first ``started == 0`` row under a file lock, run
+    ``evaluate(params_dict)``, write ``score`` back.  Returns rows processed.
+
+    ``extra_cols`` (e.g. ``{"platform": "cuda"}``) are stamped on the row at
+    score-write time: provenance for mixed worker pools.
+    """
+    lock = csv_path + ".lock"
+    processed = 0
+    for _ in range(max_rows):
+        with file_lock(lock):
+            columns, index, rows = read_table(csv_path)
+            first = next((n for n, row in enumerate(rows) if row.get("started") == 0), None)
+            if first is None:
+                return processed
+            label = index[first]
+            rows[first]["started"] = 1
+            params = _cells(columns, rows[first])
+            atomic_write_table(csv_path, columns, index, rows)
+
+        score = fail_score
+        try:
+            score = float(evaluate(params))
+        except Exception as e:  # crash containment (tune_node.py:259-261)
+            print("tuning worker error:", e)
+
+        with file_lock(lock):
+            columns, index, rows = read_table(csv_path)
+            row = rows[index.index(label)]
+            for k, v in {"score": score, **(extra_cols or {})}.items():
+                if k not in columns:
+                    columns.append(k)
+                row[k] = v
+            atomic_write_table(csv_path, columns, index, rows)
+        processed += 1
+    return processed

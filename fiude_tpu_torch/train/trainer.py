@@ -34,7 +34,9 @@ Counterpart of ``fiude_tpu/train/trainer.py``:
 the loss's constants once a call or stage; an epoch uploads its window order
 as one index tensor, takes every batch (the partial tail one included) with
 ``index_select``, runs every step with no host read, and reads the stacked
-metrics once at its end (twice for a Bayes family, with its seeds).  PyTorch
+metrics once at its end (twice for a Bayes family, with its seeds).  That
+epoch is :func:`run_epoch`, which a population's members share
+(``parallel/sweep.py``): a lone trainer is a population of one.  PyTorch
 has no one compiled program for it: the epoch is launches from Python with no
 synchronisation between its first and last step.  ``nan_guard``,
 ``eps_source``, a loader without ``.x`` or ``FIUDE_NO_EPOCH_SCAN=1`` (the JAX
@@ -103,6 +105,49 @@ class StagedSplit(NamedTuple):
     x: torch.Tensor
     y: torch.Tensor
     batch_size: int
+
+
+def epoch_seeds(trainers: Sequence["Trainer"], n: int) -> Optional[np.ndarray]:
+    """A Bayes family's weight-noise seeds for an epoch of ``n`` steps, (M, n)
+    for M trainers, each row drawn in one call from its trainer's generator,
+    all read in one read; None for a deterministic family."""
+    if not trainers[0].model.is_bayes:
+        return None
+    draws = [torch.randint(0, 2 ** 31 - 1, (n,), generator=tr.generator,
+                           device=tr.generator.device) for tr in trainers]
+    return Trainer._read(torch.stack(draws))
+
+
+def run_epoch(members: Sequence[Tuple["Trainer", StepConstants]], split: StagedSplit,
+              idx: np.ndarray, *, epoch: int, grad_lim: float, n_samples: int,
+              span: str = EPOCH_SPAN) -> List[List[Dict[str, float]]]:
+    """One epoch on the device of one or more (trainer, constants) pairs on
+    one staged split (``fiude_tpu/train/trainer.py:191-223``; a population's
+    ``fiude_tpu/parallel/sweep.py:226-258``).  A Bayes family's seeds are
+    drawn first (:func:`epoch_seeds`, one read); ``idx``, the epoch's window
+    order, goes up as one index tensor; every batch (the partial tail one as
+    one more step) is taken by ``index_select`` once and every trainer steps
+    on it in turn with no host read; all the trainers' stacked metrics come
+    back in one read.  Returns each trainer's per-step metrics."""
+    with record_function(span):
+        trainers = [tr for tr, _ in members]
+        bs = split.batch_size
+        n = -(-len(idx) // bs)
+        seeds = epoch_seeds(trainers, n)
+        rows = torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(split.x.device)
+        names, steps = [], [[] for _ in members]
+        for b in range(n):
+            sel = rows[b * bs:(b + 1) * bs]
+            x_b, y_b = split.x.index_select(0, sel), split.y.index_select(0, sel)
+            for m, (tr, c) in enumerate(members):
+                names, values = tr._device_step(
+                    x_b, y_b, c, epoch=epoch, grad_lim=grad_lim, n_samples=n_samples,
+                    noise_seed=None if seeds is None else int(seeds[m, b]))
+                steps[m].append(values)
+        if not n:
+            return [[] for _ in members]
+        vals = Trainer._read(torch.stack([torch.stack(s) for s in steps]))   # (M, n, K)
+        return [[dict(zip(names, row)) for row in member.tolist()] for member in vals]
 
 
 def warm_up_lr(epoch: int) -> float:
@@ -199,15 +244,6 @@ class Trainer:
         generator = generator or self.generator
         return int(self._read(torch.randint(0, 2 ** 31 - 1, (), generator=generator,
                                             device=generator.device)))
-
-    def _epoch_seeds(self, n: int) -> Optional[List[int]]:
-        """A Bayes family's ``n`` weight-noise seeds for an epoch, drawn in one
-        call and read once; None for a deterministic family."""
-        if not self.model.is_bayes:
-            return None
-        g = self.generator
-        return self._read(torch.randint(0, 2 ** 31 - 1, (n,), generator=g,
-                                        device=g.device)).tolist()
 
     def _constants(self, t, *, fa_w: Optional[float] = None, time_mask=None,
                    eval_mask=None) -> StepConstants:
@@ -313,26 +349,9 @@ class Trainer:
     def _run_epoch(self, split: StagedSplit, idx: np.ndarray, c: StepConstants, *, epoch: int,
                    grad_lim: float, n_samples: int) -> List[Dict[str, float]]:
         """One epoch on the device (``fiude_tpu/train/trainer.py:191-223``):
-        ``idx``, the epoch's window order, goes up as one index tensor; every
-        batch (the partial tail one as one more step) is taken by
-        ``index_select`` and stepped with no host read; the stacked metrics
-        come back in one read.  A Bayes family's seeds are drawn first."""
-        with record_function(EPOCH_SPAN):
-            bs = split.batch_size
-            n = -(-len(idx) // bs)
-            seeds = self._epoch_seeds(n)
-            rows = torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(self.device)
-            names, steps = [], []
-            for b in range(n):
-                sel = rows[b * bs:(b + 1) * bs]
-                names, values = self._device_step(
-                    split.x.index_select(0, sel), split.y.index_select(0, sel), c,
-                    epoch=epoch, grad_lim=grad_lim, n_samples=n_samples,
-                    noise_seed=None if seeds is None else seeds[b])
-                steps.append(values)
-            if not steps:
-                return []
-            return [dict(zip(names, row)) for row in self._read(torch.stack(steps)).tolist()]
+        :func:`run_epoch` with this trainer alone."""
+        return run_epoch([(self, c)], split, idx, epoch=epoch, grad_lim=grad_lim,
+                         n_samples=n_samples)[0]
 
     def _loop_epoch(self, loader, cols, c: StepConstants, *, epoch: int, grad_lim: float,
                     n_samples: int, eps_source=None, nan_guard: bool = False
@@ -340,27 +359,31 @@ class Trainer:
         """One epoch a step at a time, each batch uploaded and each step read;
         the seeds and eps drawn as :meth:`_run_epoch` draws them."""
         with record_function(EPOCH_SPAN):
-            seeds = self._epoch_seeds(len(loader))
+            seeds = epoch_seeds([self], len(loader))
             pending = []
             for b, (x_b, y_b) in enumerate(loader):
                 eps = self._tensor(next(eps_source)) if eps_source is not None else None
                 names, values = self._device_step(
                     self._tensor(x_b), self._tensor(np.asarray(y_b)[:, cols]), c, eps,
                     epoch=epoch, grad_lim=grad_lim, n_samples=n_samples,
-                    noise_seed=None if seeds is None else seeds[b])
+                    noise_seed=None if seeds is None else int(seeds[0, b]))
                 metrics = dict(zip(names, self._read(values).tolist()))
                 pending.append(metrics)
                 if nan_guard and not np.isfinite(metrics["loss"]):
                     break          # crash containment (tune_encoders.py:199-200)
             return pending
 
-    def _end_epoch(self, pending, *, validate, verbose, norm_file, checkpoint, tag=""):
-        epoch_norms = []
+    def record_epoch(self, pending: List[Dict[str, float]]) -> List[float]:
+        """Close an epoch in the history from its steps' metrics; returns the
+        steps' grad norms, rounded to 0.1."""
         for metrics in pending:
             self.batch_grad_norms.append(metrics["grad_norm"])
-            epoch_norms.append(round(metrics["grad_norm"], 1))
             self.history.batch(metrics)
         self.history.reset()
+        return [round(metrics["grad_norm"], 1) for metrics in pending]
+
+    def _end_epoch(self, pending, *, validate, verbose, norm_file, checkpoint, tag=""):
+        epoch_norms = self.record_epoch(pending)
         if validate is not None:
             self.history.epoch_history[-1].update(self.validate(**validate))
         if verbose:
