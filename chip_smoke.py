@@ -3,8 +3,9 @@
 the deterministic families (phases 2-7), the Bayes families (phases 8-12), the
 kernels' other modes (phases 13-15), the experiment recipes (phase 16), the
 device-resident training epoch (phase 17), real data through the recipes
-with ``fused_train`` on the plain solver (phase 18) and the sweep path's
-populations and command line (phase 19).
+with ``fused_train`` on the plain solver (phase 18), the sweep path's
+populations and command line (phase 19), and the other encoders, the adaptive
+solvers and the encoder comparison (phase 20).
 
     python3 chip_smoke.py
 
@@ -152,6 +153,23 @@ no result, when there is no card.  Phases, each printing its lines:
     population step at the training shape beside 8 lone ``Trainer`` steps,
     in turns, and the synchronising runtime calls in each population epoch's
     profiler span (2, or 3 for UONNb, whatever the members).
+20. the other encoders and the adaptive solvers: (a) ``python -m
+    fiude_tpu_torch.scripts.tune_encoders --make-grid``, then one worker (jax,
+    pandas and filelock blocked) over the grid's hidden-128 row of each
+    family (Back-GRU, BiGRU, BiLSTM; epochs cut from 20 to 2), each score
+    written and finite, seconds a row; (b) a BiGRU encoder at the ``state``
+    width: a ``fused_train`` + ``fused_stats`` step (K5/K6 once, K3/K4 never)
+    held to the plain step as phase 7 holds one, and a request through
+    ``FusedForecaster`` (K2 once, K1 never) held to the plain forward on the
+    held rows, host and device-busy ms of each; (c) ``dopri5`` and ``tsit5``
+    with a Back-GRU encoder under ``fused_train``: the first step's accepted
+    and rejected trial steps an interval and intervals ended on the budget,
+    two steps (K3/K4 once a step, K5/K6 never) with their synchronising calls,
+    host and device-busy ms, the first held to a float64 step on the card
+    within twice a float32 CPU step's distance from it (phase 18 (c)'s rule),
+    and a UONNb model with ``dopri5`` raising ``ValueError``; (d) a Back-GRU
+    encoder of two layers of 1024, which K4's plan cannot take, under
+    ``fused_train``: K3/K4 never launch and the step holds to the plain step.
 
 Every kernel's line carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -235,6 +253,7 @@ WINDOWS = 64    # the training loader: 2 batches of BATCH
 GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-5
 LR = 1e-3
 TMASKS = ([1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0], [1.0] * (WEEKS - 1))
+ADAPTIVE = ("dopri5", "tsit5")
 
 
 def log(msg: str) -> None:
@@ -610,7 +629,9 @@ def training_inputs(model, rng, windows=WINDOWS):
 def held_eps(model, x, rng, noise_seed=None):
     """eps (S, B, R, Le) whose every folded row stays FREEZE_MARGIN from the
     freeze bounds along the plain integration with the model's solver (a
-    Bayes model's under ``noise_seed``), redrawing from ``rng``."""
+    Bayes model's under ``noise_seed``; for an adaptive solver, the Kutta 3/8
+    rule at 8 sub-steps, the adjoint's backward grid), redrawing from
+    ``rng``."""
     import numpy as np
     import torch
     from fiude_tpu_torch.models.vae import reparam
@@ -623,8 +644,9 @@ def held_eps(model, x, rng, noise_seed=None):
             mean, std = model.encoder(x)
             e = torch.tensor(eps, device=x.device)
             z = reparam(e, std, mean) + model.ic_jitter
-            held = held_rows(model.rhs_fn(1.0), z, grid, noise_seed=noise_seed,
-                             method=model.method, substeps=model.substeps)
+            solver = ({"method": "rk4", "substeps": 8} if model.method in ADAPTIVE
+                      else {"method": model.method, "substeps": model.substeps})
+            held = held_rows(model.rhs_fn(1.0), z, grid, noise_seed=noise_seed, **solver)
             held = held.reshape(SAMPLES, -1).cpu().numpy()
         if first is None:
             first = int((~held).sum())
@@ -2689,6 +2711,437 @@ def population_step_times(dev, rng, smi):
     return ms, syncs
 
 
+# -- phase 20: the other encoders, the adaptive solvers, the encoder comparison ---------------
+
+TUNE_EPOCHS = 2   # the encoder grid's 20 epochs a row, cut for the run's time
+BIGRU = dict(n_regions=49, latent_dim=8, n_qs=8, encoder_name="bigru",
+             enc_params={"q_sizes": (256, 128), "ili_sizes": (32, 16), "ff_sizes": (64, 64),
+                         "SIR_scaler": [0.1, 0.05, 1.0]},
+             ode_params=STATE["ode_params"])
+WIDE = dict(STATE, enc_params={"q_sizes": (1024, 1024), "ff_sizes": (64, 64),
+                               "SIR_scaler": [0.1, 0.05, 1.0]})
+
+# Phase 20 (a)'s subprocess: a module of fiude_tpu_torch.scripts run as a
+# command, with jax, pandas and filelock blocked.
+_SCRIPT_RUN = """
+import runpy, sys
+for name in ("jax", "pandas", "filelock"):
+    sys.modules[name] = None
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets them
+torch.backends.cudnn.allow_tf32 = False
+runpy.run_module(sys.argv.pop(1), run_name="__main__", alter_sys=True)
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and (m in ("fiude_tpu", "pandas", "filelock") or m.startswith(("fiude_tpu.", "jax"))))
+if loaded:
+    raise SystemExit(f"loaded {loaded}")
+"""
+
+
+def script(module: str, *args):
+    """``python -m fiude_tpu_torch.scripts.<module> args`` from this checkout,
+    jax, pandas and filelock blocked: its output lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-c", _SCRIPT_RUN, f"fiude_tpu_torch.scripts.{module}",
+                          *args], cwd=root, capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=root), timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"{module} failed ({out.returncode}):\n{out.stderr[-6000:]}")
+    return out.stdout.strip().splitlines()
+
+
+def tuning_runs(smi):
+    """Phase 20 (a): ``tune_encoders --make-grid``, then one worker over the
+    grid's widest rows (hidden 128) of each encoder family, their epochs cut
+    from 20 to TUNE_EPOCHS; the other rows are marked started, as another
+    worker's.  Each row's score is written and finite."""
+    import numpy as np
+    from fiude_tpu_torch.utils.results import atomic_write_table, read_table
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = f"{tmp}/encoder_scores.csv"
+        log(f"  {script('tune_encoders', '--make-grid', '--csv', csv)[-1]}")
+        columns, index, rows = read_table(csv)
+        for row in rows:
+            if row["hidden_size"] == 128:
+                row["epochs"] = TUNE_EPOCHS
+            else:
+                row["started"] = 1
+        atomic_write_table(csv, columns, index, rows)
+        t0 = time.perf_counter()
+        lines = script("tune_encoders", "0", "--csv", csv, "--max-rows", "3")
+        seconds = time.perf_counter() - t0
+        for line in lines:
+            log(f"    | {line}")
+        if lines[-1] != "worker 0: processed 3 rows":
+            raise RuntimeError(f"the encoder worker ended with {lines[-1]!r}")
+        _, _, rows = read_table(csv)
+        done = [r for r in rows if r["hidden_size"] == 128]
+        for r in done:
+            if not (r["started"] == 1 and r.get("platform") == "cuda"
+                    and np.isfinite(r["score"]) and r["score"] != 10.0):
+                raise RuntimeError(f"an encoder row was not scored on the card: {r}")
+        rows_s = [float(line.rsplit(" in ", 1)[1].split()[0]) for line in lines[:-1]]
+        log(f"  encoder comparison, hidden 128, window 28, batch 32, 16 samples, latent 6, gamma "
+            f"28, {TUNE_EPOCHS} epochs (cut from 20): scores "
+            + ", ".join(f"{r['encoder']} {r['score']!r}" for r in done)
+            + "; seconds a row " + ", ".join(f"{s:.2f}" for s in rows_s)
+            + f" ({seconds:.1f} s for the worker's command, its start included) [{smi}]")
+
+
+def traced(fn):
+    """``fn()`` under ``torch.profiler`` (the card's activity only): (its
+    result, host ms of the traced call, device-busy ms, synchronising runtime
+    calls, device-to-host copies), the counts by ``utils/profiler.py::
+    host_syncs``.  The profiler's raw events are read, not its parsed ones:
+    an adaptive step's trace holds hundreds of thousands of events, whose
+    parsing took most of this phase's time (PERF.md); the counts are
+    the same."""
+    import types
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fiude_tpu_torch.utils.profiler import host_syncs
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    events = [types.SimpleNamespace(name=e.name(), device_type=e.device_type(),
+                                    time_range=types.SimpleNamespace(start=e.start_ns() / 1e3),
+                                    busy_ns=e.duration_ns(), annotation=e.is_user_annotation())
+              for e in prof.profiler.kineto_results.events()]
+    syncs = host_syncs(events)
+    busy = sum(e.busy_ns for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.annotation)
+    return out, host, busy / 1e6, syncs["calls"], syncs["dtoh"]
+
+
+def grads_of(model):
+    return {n: p.grad.detach().double().clone() for n, p in model.named_parameters()}
+
+
+def worst_grad_ratio(got, ref):
+    """The largest max|got - ref| / (GRAD_RTOL * max|ref| + GRAD_ATOL) over
+    the parameters, and where."""
+    out = (0.0, None)
+    for name, g in ref.items():
+        bound = GRAD_RTOL * g.abs().max().item() + GRAD_ATOL
+        out = max(out, ((got[name].to(g.device) - g).abs().max().item() / bound, name),
+                  key=lambda r: r[0])
+    return out
+
+
+def hold_step(tag, got, ref):
+    """A step's metrics within rel 2e-4 and its gradients within the gradient
+    bound of the reference step's ((metrics, grads) pairs)."""
+    (mk, gk), (mp, gp) = got, ref
+    rels = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mp}
+    ratio, where = worst_grad_ratio(gk, gp)
+    log(f"  {tag}: step metrics rel " + ", ".join(f"{k} {v:.3g}" for k, v in sorted(rels.items()))
+        + f"; {len(gp)} gradients, the worst at {ratio:.3g} of the gradient bound ({where})")
+    bad = [k for k, v in rels.items() if v > 2e-4]
+    if bad or ratio > 1.0:
+        raise RuntimeError(f"{tag}: the step disagrees with the plain step ({bad}, {where})")
+
+
+def bigru_runs(dev, rng, smi):
+    """Phase 20 (b): a BiGRU encoder at the ``state`` width, a training step
+    under ``fused_train`` + ``fused_stats`` (K5/K6, no K3/K4) held to the plain
+    step, and a request through ``FusedForecaster`` (K2, no K1) held to the
+    plain forward."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.models.vae import reparam
+    from fiude_tpu_torch.ops import fused_gru, fused_ude
+    from fiude_tpu_torch.train import TRAINING_INFO, Trainer
+    grid = np.arange(WEEKS, dtype=np.float64)
+    tm = torch.tensor(TMASKS[0], device=dev)
+    em = torch.tensor([1.0] + TMASKS[0], device=dev)
+
+    def build(fused):
+        return UDEForecaster.build(ode_name="UONN", fused_train=fused, fused_stats=fused,
+                                   generator=torch.Generator().manual_seed(SEED + 9), **BIGRU)
+
+    model = build(True)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    x, y = (torch.tensor(a, device=dev) for a in training_inputs(model, rng, BATCH))
+    eps = held_eps(model, x, rng)
+    runs, trainers = {}, {}
+    for path in ("kernels", "plain"):
+        m = build(path == "kernels")
+        m.load_state_dict(initial)
+        tr = Trainer(m, loss_cfg=TRAINING_INFO["UONN"], seed=SEED)
+        tr.setup_training(lr=LR)
+        step = lambda tr=tr: tr.train_step(x, y, grid, eps, epoch=1, grad_lim=5000.0,  # noqa: E731
+                                           time_mask=tm, eval_mask=em)
+        metrics, launches, seconds = counted(step)
+        want = {"K3": 0, "K4": 0, "K5": 1, "K6": 1} if path == "kernels" else \
+            {"K3": 0, "K4": 0, "K5": 0, "K6": 0}
+        if launches != want:
+            raise RuntimeError(f"BiGRU step, {path}: launches {launches}, expected {want}")
+        runs[path] = (metrics, grads_of(m))
+        trainers[path] = step
+    hold_step(f"BiGRU UONN step ({BATCH} windows x {SAMPLES} samples, {WEEKS} weekly points, "
+              "fused_train + fused_stats) against the plain step", runs["kernels"], runs["plain"])
+    for path, step in trainers.items():
+        host = host_ms(step, 5)
+        _, _, busy, calls, _ = traced(step)
+        log(f"  BiGRU step, {path}: host {host:.4f} ms, device busy {busy:.4f} ms (traced, "
+            f"{calls} synchronising calls) [{smi}]")
+
+    kernel_times_by_encoder(model, x, eps, smi)
+
+    served = build(False)
+    served.load_state_dict(initial)
+    forecaster = fused_ude.FusedForecaster(served, fa_w=1.0)
+    if forecaster.encoder is not served.encoder:
+        raise RuntimeError("the BiGRU model's forecaster should run its encoder plainly")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    xr = torch.tensor(rng.uniform(0, 1, (BATCH, T_IN, served.encoder.input_size)),
+                      dtype=torch.float32, device=dev)
+    er = served.sample_eps(BATCH, SAMPLES, generator=gen)
+    serve_grid = np.arange(T_OUT) * DT
+    torch.cuda.synchronize()
+    fused_gru.backgru_encode.launches = 0
+    fused_ude.trajectory_decode.launches = 0
+    answer = forecaster(xr, serve_grid, er)
+    torch.cuda.synchronize()
+    launches = {"K1": fused_gru.backgru_encode.launches,
+                "K2": fused_ude.trajectory_decode.launches}
+    log(f"  BiGRU request ({BATCH} windows x {SAMPLES} samples, T={T_OUT}): launches {launches}")
+    if launches != {"K1": 0, "K2": 1}:
+        raise RuntimeError(f"the BiGRU request launched {launches}, expected K1 0, K2 1")
+    with torch.no_grad():
+        y_ref, extras = served(xr, serve_grid, er, fa_w=1.0)
+        z_req = reparam(er, extras.std, extras.mean) + served.ic_jitter
+        rows = held_rows(served.rhs_fn(1.0), z_req, serve_grid)
+        rows = rows.reshape(SAMPLES, BATCH).T.reshape(-1)
+        flat = (BATCH * SAMPLES, T_OUT, served.n_regions)
+        compare("BiGRU request vs UDEForecaster.forward", answer.reshape(flat).transpose(0, 1),
+                y_ref.reshape(flat).transpose(0, 1), rows)
+        log(f"  rows left out of the hold: {int((~rows).sum())} of {rows.numel()}")
+        for path, fn in (("kernels", lambda: forecaster(xr, serve_grid, er)),
+                         ("plain", lambda: served(xr, serve_grid, er, fa_w=1.0))):
+            host = host_ms(fn, 5)
+            _, _, busy, calls, _ = traced(fn)
+            log(f"  BiGRU request, {path}: host {host:.4f} ms, device busy {busy:.4f} ms "
+                f"(traced, {calls} synchronising calls) [{smi}]")
+
+
+def kernel_times_by_encoder(model, x, eps, smi):
+    """K5, K6 (training shape) and K2 (serving shape, T_OUT points) with the
+    BiGRU model's field, timed (CUDA events, in turns) on the latent states
+    its encoder gives and on those a Back-GRU ``state`` encoder gives for the
+    same windows and eps: the kernels see only the states, so their times
+    should not move with the encoder."""
+    import torch
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.models.vae import reparam
+    from fiude_tpu_torch.ops import fused_train, fused_ude
+    back = UDEForecaster.build(ode_name="UONN", generator=torch.Generator().manual_seed(SEED),
+                               **STATE)
+    zs = {}
+    with torch.no_grad():
+        for tag, m in (("BiGRU", model), ("Back-GRU", back)):
+            mean, std = m.encoder(x)
+            zs[tag] = reparam(eps, std, mean) + m.ic_jitter
+    w = fused_ude.pack_field(model.ode)
+    w2 = fused_ude.pack_ude(model.ode, model.decoder)
+    fa_w = torch.tensor(1.0, device=x.device)
+    dts = torch.ones(WEEKS - 1, device=x.device)
+    tm = torch.tensor(TMASKS[0], device=x.device)
+    gstats = torch.full((5,), 1e-3, device=x.device)
+    runs = {}
+    for tag, z in zs.items():
+        B = z.shape[0]
+        head, tail = z[..., :3].reshape(B, -1).contiguous(), z[..., 3:].reshape(B, -1).contiguous()
+        traj = fused_train.train_forward_cuda(head, tail, w, fa_w, dts, tm, stats_mode=True)[0]
+        g = torch.ones_like(traj)
+        runs[tag] = {
+            "K5": lambda head=head, tail=tail: fused_train.train_forward_cuda(
+                head, tail, w, fa_w, dts, tm, stats_mode=True),
+            "K6": lambda traj=traj, g=g, tail=tail: fused_train.train_backward_cuda(
+                traj, g, tail, w, fa_w, dts, tm, gstats, stats_mode=True),
+            "K2": lambda z=z: fused_ude.trajectory_decode_cuda(z, w2, T=T_OUT, dt=DT, fa_w=1.0)}
+    for k in ("K5", "K6", "K2"):
+        a, b = in_turns(lambda n: cuda_ms(runs["Back-GRU"][k], n),
+                        lambda n: cuda_ms(runs["BiGRU"][k], n), 10, 10)
+        log(f"  {k} with the BiGRU model's field: {b:.4f} ms on its encoder's states, {a:.4f} ms "
+            f"on a Back-GRU encoder's (ratio {b / a:.4f}) [{smi}]")
+
+
+def adaptive_runs(dev, rng, smi):
+    """Phase 20 (c): ``dopri5`` and ``tsit5`` at the ``state`` width with a
+    Back-GRU encoder under ``fused_train``: two steps each through K3/K4 and
+    the adaptive forward with its adjoint; the first held to a float64 step on
+    the card (same weights and eps) within twice the distance of a float32
+    plain step on the CPU from it, plus rel 2e-4 (loss, grad_norm) or the
+    gradient bound (every gradient): phase 18 (c)'s rule.  A UONNb model with
+    ``dopri5`` raises ``ValueError``."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.models.vae import reparam
+    from fiude_tpu_torch.ops.integrate import odeint_adaptive
+    from fiude_tpu_torch.train import TRAINING_INFO, Trainer
+    grid = np.arange(WEEKS, dtype=np.float64)
+    for method in ADAPTIVE:
+        def build(fused, device=None, method=method):
+            return UDEForecaster.build(ode_name="UONN", method=method, fused_train=fused,
+                                       fused_stats=fused, device=device,
+                                       generator=torch.Generator().manual_seed(SEED + 11),
+                                       **STATE)
+        model = build(True)
+        initial = {k: v.clone() for k, v in model.state_dict().items()}
+        x, y = (torch.tensor(a, device=dev) for a in training_inputs(model, rng, BATCH))
+        eps = held_eps(model, x, rng)
+        tm = torch.tensor(TMASKS[0], device=dev)
+        em = torch.tensor([1.0] + TMASKS[0], device=dev)
+
+        # the trial steps of the first step's forward: the same solve, recorded
+        record = []
+        with torch.no_grad():
+            mean, std = model._encode(x)
+            z = reparam(eps, std, mean) + model.ic_jitter
+            odeint_adaptive(model.rhs_fn(1.0), z, grid, method=method, record=record)
+        accepted = [int(r.accepted) for r in record]
+        trials = [r.trials for r in record]
+        log(f"  {method}: trial steps an interval {trials}, accepted {accepted}, rejected "
+            f"{[t - a for t, a in zip(trials, accepted)]}; intervals ended on the budget of "
+            f"256: {sum(r.short for r in record)} of {len(record)}")
+
+        tk = Trainer(model, loss_cfg=TRAINING_INFO["UONN"], seed=SEED)
+        tk.setup_training(lr=LR)
+
+        def step(tk=tk):
+            return tk.train_step(x, y, grid, eps, epoch=1, grad_lim=5000.0, time_mask=tm,
+                                 eval_mask=em)
+
+        (m1, launches, _), host1, busy1, calls1, dtoh1 = traced(lambda: counted(step))
+        g1 = grads_of(model)
+        m2, launches2, seconds2 = counted(step)
+        if calls1 < sum(trials):
+            raise RuntimeError(f"{method}: the trace saw {calls1} synchronising calls for "
+                               f"{sum(trials)} trial steps, each of which reads")
+        for n, got in ((1, launches), (2, launches2)):
+            if got != {"K3": 1, "K4": 1, "K5": 0, "K6": 0}:
+                raise RuntimeError(f"{method} step {n}: launches {got}, expected K3/K4 once")
+        log(f"  {method} steps ({BATCH} windows x {SAMPLES} samples, {WEEKS} weekly points, "
+            f"fused_train): launches {launches} and {launches2}; step 1 traced: host "
+            f"{host1:.4f} ms, device busy {busy1:.4f} ms, {calls1} synchronising calls and "
+            f"{dtoh1} device-to-host copies ({sum(trials)} trial steps in its forward); step 2 "
+            f"host {seconds2 * 1e3:.4f} ms; losses {m1['loss']!r}, {m2['loss']!r} [{smi}]")
+        if not (np.isfinite(m1["loss"]) and np.isfinite(m2["loss"])):
+            raise RuntimeError(f"{method}: a step's loss is not finite")
+
+        refs = {}
+        for path in ("float64", "cpu"):
+            m = build(False, device="cpu" if path == "cpu" else None)
+            m.load_state_dict(initial)
+            inputs = (x, y, eps, tm, em)
+            if path == "float64":
+                m, inputs = m.double(), tuple(a.double() for a in inputs)
+            else:
+                inputs = tuple(a.cpu() for a in inputs)
+            tr = Trainer(m, loss_cfg=TRAINING_INFO["UONN"], seed=SEED)
+            tr.setup_training(lr=LR)
+            t0 = time.perf_counter()
+            metrics = tr.train_step(inputs[0], inputs[1], grid, inputs[2], epoch=1,
+                                    grad_lim=5000.0, time_mask=inputs[3], eval_mask=inputs[4])
+            refs[path] = (metrics, grads_of(m), time.perf_counter() - t0)
+        (m64, g64, s64), (mcpu, gcpu, scpu) = refs["float64"], refs["cpu"]
+        notes = []
+        for k in ("loss", "grad_norm"):
+            err, plain_err = abs(m1[k] - m64[k]), abs(mcpu[k] - m64[k])
+            bound = 2.0 * plain_err + 2e-4 * abs(m64[k])
+            notes.append(f"{k} from float64: kernels {err / abs(m64[k]):.3g}, CPU "
+                         f"{plain_err / abs(m64[k]):.3g}, bound {bound / abs(m64[k]):.3g}")
+            if err > bound:
+                raise RuntimeError(f"{method}: {k} is further from the float64 step than the "
+                                   "rule allows")
+        worst = (0.0, None)
+        for name, g in g64.items():
+            err = (g1[name] - g).abs().max().item()
+            bound = (2.0 * (gcpu[name].to(g.device) - g).abs().max().item()
+                     + GRAD_RTOL * g.abs().max().item() + GRAD_ATOL)
+            worst = max(worst, (err / bound, name), key=lambda r: r[0])
+        log(f"  {method} step 1 against the float64 step on the card ({s64:.2f} s) and the "
+            f"float32 plain step on the CPU ({scpu:.2f} s): " + "; ".join(notes)
+            + f"; {len(g64)} gradients, the worst at {worst[0]:.3g} of its bound ({worst[1]}) "
+            f"[{smi}]")
+        if worst[0] > 1.0:
+            raise RuntimeError(f"{method}: the gradient of {worst[1]} is further from the "
+                               "float64 step than the rule allows")
+
+    bayes = UDEForecaster.build(ode_name="UONNb", method="dopri5",
+                                generator=torch.Generator().manual_seed(SEED), **STATE)
+    try:
+        bayes(torch.rand(2, T_IN, bayes.encoder.input_size, device=dev), grid,
+              torch.randn(2, 2, bayes.n_regions, bayes.encoder.latent_dim, device=dev))
+    except ValueError as e:
+        log(f"  UONNb with dopri5 raises ValueError: {e}")
+    else:
+        raise RuntimeError("a UONNb model with dopri5 ran")
+
+
+def wide_encoder_step(dev, rng, smi):
+    """Phase 20 (d): a Back-GRU encoder of two layers of 1024, which K4's
+    sweep cannot take (``fits_clusters``), under ``fused_train`` +
+    ``fused_stats``: K3/K4 never launch, K5/K6 once, and the step holds to
+    the plain step."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.ops.fused_gru_train import fits_clusters
+    from fiude_tpu_torch.train import TRAINING_INFO, Trainer
+    grid = np.arange(WEEKS, dtype=np.float64)
+    tm = torch.tensor(TMASKS[0], device=dev)
+    em = torch.tensor([1.0] + TMASKS[0], device=dev)
+
+    def build(fused):
+        return UDEForecaster.build(ode_name="UONN", fused_train=fused, fused_stats=fused,
+                                   generator=torch.Generator().manual_seed(SEED + 13), **WIDE)
+
+    model = build(True)
+    if fits_clusters(model.encoder, BATCH):
+        raise RuntimeError("K3/K4's plans should refuse two layers of 1024")
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    x, y = (torch.tensor(a, device=dev) for a in training_inputs(model, rng, BATCH))
+    eps = held_eps(model, x, rng)
+    runs = {}
+    for path in ("kernels", "plain"):
+        m = build(path == "kernels")
+        m.load_state_dict(initial)
+        tr = Trainer(m, loss_cfg=TRAINING_INFO["UONN"], seed=SEED)
+        tr.setup_training(lr=LR)
+        metrics, launches, seconds = counted(lambda: tr.train_step(
+            x, y, grid, eps, epoch=1, grad_lim=5000.0, time_mask=tm, eval_mask=em))
+        want = {"K3": 0, "K4": 0, "K5": 1, "K6": 1} if path == "kernels" else \
+            {"K3": 0, "K4": 0, "K5": 0, "K6": 0}
+        log(f"  2 x 1024 encoder step, {path}: launches {launches}, {seconds:.4f} s [{smi}]")
+        if launches != want:
+            raise RuntimeError(f"2 x 1024 step, {path}: launches {launches}, expected {want}")
+        runs[path] = (metrics, grads_of(m))
+    hold_step("2 x 1024 encoder step against the plain step", runs["kernels"], runs["plain"])
+
+
+
+def phase_20(dev, rng, smi):
+    """Phase 20's four parts, timed; it also runs alone after a build (the
+    README gives the command)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    took = [time.perf_counter()]
+    for run in (lambda: tuning_runs(smi), lambda: bigru_runs(dev, rng, smi),
+                lambda: adaptive_runs(dev, rng, smi), lambda: wide_encoder_step(dev, rng, smi)):
+        run()
+        took.append(time.perf_counter())
+    log(f"  phase 20 took {took[-1] - took[0]:.1f} s: (a) {took[1] - took[0]:.1f}, (b) "
+        f"{took[2] - took[1]:.1f}, (c) {took[3] - took[2]:.1f}, (d) {took[4] - took[3]:.1f}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3040,6 +3493,12 @@ def main() -> int:
     took.append(time.perf_counter())
     log(f"  phase 19 took {took[-1] - took[0]:.1f} s: (a, b) {took[1] - took[0]:.1f}, (c) "
         f"{took[2] - took[1]:.1f}, (d) {took[3] - took[2]:.1f}")
+
+    # -- 20. the other encoders, the adaptive solvers, the encoder comparison ---------------
+    log("phase 20: python -m fiude_tpu_torch.scripts.tune_encoders over the hidden-128 rows; a "
+        "BiGRU encoder at the state width (a fused_train + fused_stats step, a request); "
+        "dopri5 and tsit5 steps; a 2 x 1024 Back-GRU encoder under fused_train")
+    phase_20(dev, rng, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None,
               **extra):

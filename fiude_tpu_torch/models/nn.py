@@ -58,17 +58,20 @@ class MLP(nn.Sequential):
 
     ``flatten=True`` prepends ``nn.Flatten(-2)`` so a (..., R, L) state is
     read region-major as one R*L vector, as the RHS nets do (reference
-    ``lib/models.py:118``).
+    ``lib/models.py:118``).  ``standard=True`` is the legacy ``FFNetwork``
+    order, ``Linear, (act, Linear)*`` with the activation before the final
+    projection too (``fiude_tpu/models/nn.py:86-97``, ``mlp_apply_standard``).
     """
 
     def __init__(self, sizes: Sequence[int], activation: Callable[[], nn.Module],
-                 *, flatten: bool = False, generator: torch.Generator,
-                 dtype: Optional[torch.dtype] = None):
-        if len(sizes) < 3:
+                 *, flatten: bool = False, standard: bool = False,
+                 generator: torch.Generator, dtype: Optional[torch.dtype] = None):
+        if len(sizes) < (2 if standard else 3):
             raise ValueError(f"an MLP needs at least two layers, got sizes {sizes}")
         layers = [nn.Flatten(-2)] if flatten else []
+        last_act = len(sizes) - 1 if standard else len(sizes) - 2
         for i in range(len(sizes) - 1):
-            if 1 <= i < len(sizes) - 2:
+            if 1 <= i < last_act:
                 layers.append(activation())
             layer = make_linear(sizes[i], sizes[i + 1], dtype=dtype)
             init_linear_(layer, generator)
@@ -86,3 +89,7 @@ def elu_mlp(sizes: Sequence[int], **kwargs) -> MLP:
 
 def relu_mlp(sizes: Sequence[int], **kwargs) -> MLP:
     return MLP(sizes, nn.ReLU, **kwargs)
+
+
+def relu_mlp_standard(sizes: Sequence[int], **kwargs) -> MLP:
+    return MLP(sizes, nn.ReLU, standard=True, **kwargs)

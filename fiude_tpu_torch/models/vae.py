@@ -21,7 +21,17 @@ evaluation's rates and Fa as the aux or, with ``fused_stats`` (which
 production sweeps do), reduce the loss's aux to five masked sums on the card.
 Any other fixed method or sub-stepping integrates on the plain
 ``odeint_grid``, as the JAX package does (``fiude_tpu/models/vae.py:292-293,
-364-369``), with the full stage aux.
+364-369``), with the full stage aux.  The adaptive methods (``dopri5``,
+``tsit5``) integrate with ``odeint_adaptive`` and train through the
+continuous adjoint (``ops.adjoint.odeint_adjoint``), with the aux evaluated
+at the output grid (``:270-291``), whatever ``fused_train``.
+
+The encoder is any of the JAX package's four families (``models.encoders``).
+Only a Back-GRU encoder runs through K3/K4 under ``fused_train``, and only
+when their launch plans fit the card's shared memory, decided from the
+widths alone (``ops.fused_gru_train.fits_clusters``; the JAX package's
+``fits_vmem`` guard, ``:217-231``); every other encoder, and a Back-GRU one
+too wide for the plans, runs plainly.
 
 The Bayes families (CONNb, SONNb, UONNb; ``models.bayes``) draw fresh weight
 noise on every RHS evaluation from ``(noise_seed, e)``; their serving twin is
@@ -42,9 +52,12 @@ from torch import nn
 
 from fiude_tpu_torch.models.bayes import BayesNeuralAug, BayesSIRRates, BayesUDE
 from fiude_tpu_torch.models.decoder import LinearDecoder
-from fiude_tpu_torch.models.encoders import BackGRUEncoder
+from fiude_tpu_torch.models.encoders import (
+    BackGRUEncoder, BiGRUEncoder, BiLSTMEncoder, GenericEncoder,
+)
 from fiude_tpu_torch.models.rhs import UDE, NeuralAug, SIRRates
-from fiude_tpu_torch.ops.integrate import odeint_grid
+from fiude_tpu_torch.ops.adjoint import odeint_adjoint
+from fiude_tpu_torch.ops.integrate import ADAPTIVE_TABLEAUX, odeint_grid
 
 _RHS = {"Fp": SIRRates, "CONN": SIRRates,
         "Fa": NeuralAug, "SONN": NeuralAug,
@@ -59,6 +72,44 @@ _RHS_KWARGS = {SIRRates: ("net_sizes",), NeuralAug: ("aug_net_sizes",),
                BayesSIRRates: ("net_sizes", "prior_std"),
                BayesNeuralAug: ("aug_net_sizes", "prior_std"),
                BayesUDE: ("net_sizes", "aug_net_sizes", "prior_std")}
+_BACK_GRU = ("back_gru", "Encoder_Back_GRU")
+_BIGRU = ("bigru", "miso_gru", "Encoder_BiDirectionalGRU", "Encoder_MISO_GRU")
+_GENERIC = ("generic", "Encoder")
+_BILSTM = ("bilstm", "Encoder_BiDirectionalLSTM")
+
+
+def build_encoder(encoder_name: str, enc_params: Dict[str, Any], *, n_regions: int,
+                  latent_dim: int, n_qs: int, uncertainty: bool, generator: torch.Generator,
+                  dtype: torch.dtype) -> nn.Module:
+    """The encoder ``encoder_name`` names (any name or alias of
+    ``fiude_tpu/models/vae.py:129-163``), its ``enc_params`` rewritten as
+    there: ``q_sizes`` / ``ff_sizes`` become a generic encoder's
+    ``rnn_hidden_sizes`` / ``ff_hidden_sizes``, and a BiLSTM takes
+    ``input_size`` = R * (n_qs + 1) and ``hidden_size`` = 64 unless given and
+    drops ``q_sizes`` / ``ff_sizes``."""
+    p = dict(enc_params)
+    if "SIR_scaler" in p:
+        p["sir_scaler"] = tuple(p.pop("SIR_scaler"))
+    common = dict(latent_dim=latent_dim, uncertainty=uncertainty, generator=generator,
+                  dtype=dtype)
+    if encoder_name in _BACK_GRU:
+        return BackGRUEncoder(n_regions, n_qs=n_qs, **common, **p)
+    if encoder_name in _BIGRU:
+        return BiGRUEncoder(n_regions, n_qs=n_qs, **common, **p)
+    if encoder_name in _GENERIC:
+        p.setdefault("rnn_input_size", n_regions * (n_qs + 1))
+        if "rnn_hidden_sizes" not in p and "q_sizes" in p:
+            p["rnn_hidden_sizes"] = p.pop("q_sizes")
+        if "ff_hidden_sizes" not in p and "ff_sizes" in p:
+            p["ff_hidden_sizes"] = p.pop("ff_sizes")
+        return GenericEncoder(n_regions=n_regions, **common, **p)
+    if encoder_name in _BILSTM:
+        p.setdefault("input_size", n_regions * (n_qs + 1))
+        p.setdefault("hidden_size", 64)
+        p.pop("q_sizes", None)
+        p.pop("ff_sizes", None)
+        return BiLSTMEncoder(n_regions=n_regions, **common, **p)
+    raise ValueError(f"unknown encoder {encoder_name!r}")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,7 +131,7 @@ def grid_steps(t, device, dtype) -> torch.Tensor:
     ``dtype`` on ``device``: the ``dts`` of the fused training trajectory.  A
     caller that runs many forwards on one grid makes them once and passes them
     as ``forward(dts=)`` (the trainer does, once a call)."""
-    grid = torch.as_tensor(t).detach().to("cpu", torch.float64)
+    grid = torch.as_tensor(t, dtype=torch.float64).detach().cpu()
     return (grid[1:] - grid[:-1]).to(device, dtype)
 
 
@@ -125,7 +176,7 @@ class ForwardExtras(NamedTuple):
 class UDEForecaster(nn.Module):
     """Encoder / ODE / decoder stack."""
 
-    def __init__(self, encoder: BackGRUEncoder, ode: nn.Module,
+    def __init__(self, encoder: nn.Module, ode: nn.Module,
                  decoder: LinearDecoder, *, latent_dim: int = 8,
                  n_regions: int = 1, uncertainty: bool = True,
                  method: str = "rk4", substeps: int = 1, ic_jitter: float = 1e-5,
@@ -161,22 +212,15 @@ class UDEForecaster(nn.Module):
         device = resolve_device(device)
         if ode_name not in _RHS:
             raise ValueError(f"unknown ode_name {ode_name!r}")
-        if encoder_name not in ("back_gru", "Encoder_Back_GRU"):
-            raise NotImplementedError(
-                f"encoder {encoder_name!r} is not ported yet "
-                "(ROADMAP.md, queue A, 'Other encoders')")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        enc_params = dict(enc_params or {})
-        if "SIR_scaler" in enc_params:
-            enc_params["sir_scaler"] = tuple(enc_params.pop("SIR_scaler"))
         rhs_cls = _RHS[ode_name]
         ode_kw = {k: (v if k == "prior_std" else tuple(v))
                   for k, v in (ode_params or {}).items() if k in _RHS_KWARGS[rhs_cls]}
 
-        encoder = BackGRUEncoder(n_regions, n_qs=n_qs, latent_dim=latent_dim - 1,
-                                 uncertainty=uncertainty, generator=generator,
-                                 dtype=dtype, **enc_params)
+        encoder = build_encoder(encoder_name, enc_params or {}, n_regions=n_regions,
+                                latent_dim=latent_dim - 1, n_qs=n_qs,
+                                uncertainty=uncertainty, generator=generator, dtype=dtype)
         ode = rhs_cls(n_regions, latent_dim, generator=generator, dtype=dtype,
                       **ode_kw)
         decoder = LinearDecoder(n_regions, generator=generator, dtype=dtype,
@@ -217,12 +261,43 @@ class UDEForecaster(nn.Module):
 
     def _encode(self, x: torch.Tensor):
         """Encoder forward ``x -> (mean, std)``; with ``fused_train`` a
-        Back-GRU encoder runs through K3/K4 on the card (no VMEM guard: on a
-        CUDA tensor the kernels run or raise)."""
+        Back-GRU encoder whose widths K3/K4's launch plans take runs through
+        them (``fiude_tpu/models/vae.py:217-231``): on a CUDA tensor they then
+        run or raise.  Any other encoder, or a Back-GRU encoder too wide for
+        the plans, runs plainly, as the JAX package takes its scan."""
         if self.fused_train and isinstance(self.encoder, BackGRUEncoder):
-            from fiude_tpu_torch.ops.fused_gru_train import encode_train  # ops import models
-            return encode_train(x, self.encoder)
+            # ops import models: import late
+            from fiude_tpu_torch.ops.fused_gru_train import encode_train, fits_clusters
+            if fits_clusters(self.encoder, x.shape[0]):
+                return encode_train(x, self.encoder)
         return self.encoder(x)
+
+    def _adaptive_trajectory(self, z: torch.Tensor, t, fa_w):
+        """The ``dopri5`` / ``tsit5`` branch (``fiude_tpu/models/vae.py:
+        270-291``): the trajectory from ``odeint_adjoint`` over the ODE's
+        parameters, and the RHS aux evaluated at the output grid, each leaf
+        (T-1, B, R, k) (the step count depends on the data, so there is no
+        stage aux).  A Bayes family raises: its fresh noise an evaluation
+        needs the fixed stages."""
+        if self.is_bayes:
+            raise ValueError(
+                "adaptive methods do not support Bayes RHS variants: "
+                "fresh per-evaluation weight noise needs the fixed-stage "
+                "path (use method='rk4')")
+        from fiude_tpu_torch.train.checkpoint import param_map  # train imports models
+        names = {id(p): n for n, p in self.ode.named_parameters()}
+        params = [p for _, p, _ in param_map(self, "ode")]
+        keys = [names[id(p)] for p in params]
+        kw = {"fa_w": fa_w} if isinstance(self.ode, UDE) else {}
+
+        def f(ps, s, y):
+            return torch.func.functional_call(self.ode, dict(zip(keys, ps)), (s, y), kw)[0]
+
+        latent = odeint_adjoint(f, params, z, t, method=self.method)
+        rhs = self.rhs_fn(fa_w)
+        times = torch.as_tensor(t, dtype=torch.float64).detach().to("cpu", z.dtype).tolist()
+        auxs = [rhs(s, y)[1] for s, y in zip(times[1:], latent[1:])]
+        return latent, {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
 
     def _fused_trajectory(self, z: torch.Tensor, t, fa_w, time_mask, noise_seed, dts=None):
         """K5/K6, K8/K9 for a Bayes family: the latent trajectory and the aux,
@@ -287,7 +362,9 @@ class UDEForecaster(nn.Module):
         z = z + self.ic_jitter
         if self.is_bayes and noise_seed is None:
             noise_seed = 0
-        if self.fused_trajectory:
+        if self.method in ADAPTIVE_TABLEAUX:
+            latent, aux = self._adaptive_trajectory(z, t, fa_w)
+        elif self.fused_trajectory:
             latent, aux = self._fused_trajectory(z, t, fa_w, time_mask, noise_seed, dts)
         else:
             latent, aux = odeint_grid(self.rhs_fn(fa_w), z, t, method=self.method,

@@ -1,5 +1,11 @@
-from fiude_tpu_torch.ops.gru import GRULayer, gru_cell, gru_gates, gru_stack_last
-from fiude_tpu_torch.ops.integrate import odeint_grid, rk4_38_step
+from fiude_tpu_torch.ops.gru import (
+    GRULayer, LSTMLayer, bigru, bilstm, gru, gru_cell, gru_gates, gru_stack_last, lstm,
+    lstm_cell,
+)
+from fiude_tpu_torch.ops.integrate import (
+    odeint, odeint_adaptive, odeint_dopri5, odeint_grid, odeint_tsit5, rk4_38_step,
+)
+from fiude_tpu_torch.ops.adjoint import odeint_adjoint
 from fiude_tpu_torch.ops.fused_gru import (
     BackGRUWeights,
     FusedBackGRUEncoder,

@@ -47,7 +47,7 @@ import torch
 from fiude_tpu_torch.models.bayes import BayesNeuralAug, BayesSIRRates, BayesUDE
 from fiude_tpu_torch.models.rhs import out_of_range_mask, sir_field
 from fiude_tpu_torch.ops import _build, philox
-from fiude_tpu_torch.ops.fused_gru import FusedBackGRUEncoder
+from fiude_tpu_torch.ops.fused_gru import fused_encoder
 from fiude_tpu_torch.ops.fused_ude import (
     FieldRecord, FieldWeights, _check_net, _later_layers, is_bf16, matmul, pack_layers, plan_for,
     plan_ints, uniform_step,
@@ -397,8 +397,9 @@ def bayes_trajectory_decode(z0: torch.Tensor, w: BayesWeights, *, T: int, dt: fl
 
 
 class FusedBayesForecaster:
-    """Serving-path forecaster of the Bayes families: K1 encode, reparam, the
-    weight draw and K7, ensemble transpose.
+    """Serving-path forecaster of the Bayes families: encode (K1 for a
+    Back-GRU encoder, any other encoder plainly), reparam, the weight draw and
+    K7, ensemble transpose.
 
     ``FusedBayesForecaster(model, fa_w=...)(x, t, eps, seed=...)`` gives the
     (B, S, T, R) forecast of ``UDEForecaster.forward(..., noise_seed=seed)``
@@ -415,7 +416,7 @@ class FusedBayesForecaster:
         self.model = model
         self.fa_w = float(fa_w)
         self.compute_dtype = compute_dtype
-        self.encoder = FusedBackGRUEncoder(model.encoder)
+        self.encoder = fused_encoder(model.encoder)
         self.weights = pack_bayes(model.ode, model.decoder)
 
     @torch.no_grad()

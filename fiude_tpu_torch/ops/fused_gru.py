@@ -291,3 +291,12 @@ class FusedBackGRUEncoder:
 
     def __call__(self, x: torch.Tensor):
         return self.encoder.split(backgru_encode(x, self.weights))
+
+
+def fused_encoder(encoder):
+    """The serving encoder of a forecaster: K1 (:class:`FusedBackGRUEncoder`)
+    for a Back-GRU encoder, the encoder itself (plain torch) for any other
+    family, as the JAX package's ``FusedForecaster`` runs K1 only for a
+    Back-GRU encoder (``fiude_tpu/ops/pallas_ude.py:459-470,487-489``)."""
+    from fiude_tpu_torch.models.encoders import BackGRUEncoder   # models import ops
+    return FusedBackGRUEncoder(encoder) if isinstance(encoder, BackGRUEncoder) else encoder

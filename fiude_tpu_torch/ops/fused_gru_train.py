@@ -27,8 +27,11 @@ Counterpart of ``fiude_tpu/ops/pallas_gru_train.py:278-375``
 
 :func:`encode_train` dispatches strictly on the input's device: a CPU tensor
 takes the twin, a CUDA tensor launches K3 and, on backward, K4, or raises.
-There is no VMEM guard (``fits_vmem`` and its scan fallback,
-``fiude_tpu/models/vae.py:229-231``): on a CUDA tensor the kernels run.
+Whether the kernels take an encoder at all is :func:`fits_clusters`, decided
+from the widths alone before any build or launch, the counterpart of the JAX
+package's ``fits_vmem`` guard (``fiude_tpu/ops/pallas_gru_train.py:108``);
+``UDEForecaster._encode`` runs the plain encoder where it is false, as
+``fiude_tpu/models/vae.py:225-229`` takes its scan.
 ``encoder_forward_cuda.launches`` and ``encoder_backward_cuda.launches``
 count the launches of K3 and K4.
 """
@@ -43,8 +46,9 @@ import torch
 
 from fiude_tpu_torch.ops import _build
 from fiude_tpu_torch.ops.fused_gru import (
-    BackGRUWeights, RecurrencePlan, _split_lanes, _stride, backgru_encode_plain, check_backgru,
-    first_plan_that_fits, launch_backgru, max_active_clusters,
+    _MAX_LAYERS, SMEM_LIMIT, BackGRUWeights, RecurrencePlan, _split_lanes, _stride,
+    backgru_encode_plain, check_backgru, first_plan_that_fits, launch_backgru,
+    max_active_clusters, recurrence_plan,
 )
 
 _SWEEP_WARPS = 12   # kWarps in csrc/fused_gru_train.cu: a sweep CTA's warps
@@ -98,6 +102,21 @@ def bptt_plan(B: int, hidden: Sequence[int]) -> RecurrencePlan:
         raise ValueError(f"no BPTT plan for B={B}, hidden={tuple(hidden)}")
     return first_plan_that_fits(B, hidden,
                                 lambda c, r, res: bptt_smem_bytes(hidden, c, r, res))
+
+
+def fits_clusters(encoder, batch: int) -> bool:
+    """Whether K3 and K4 take a Back-GRU encoder at batch ``batch``: 1-8 GRU
+    and head layers, and the first plan of K1/K3's recurrence and of K4's
+    sweep fits the shared memory of a CTA, resident weights or not (two
+    layers of 1024 do not fit K4's).  Shapes only: nothing is built or
+    launched, and whether the card can hold the cluster is still the
+    launcher's to say."""
+    hidden = [g.hidden_size for g in encoder.rnn_layers]
+    heads = [lin.out_features for lin in encoder.ff_layers.linears]
+    if not (1 <= len(hidden) <= _MAX_LAYERS and 1 <= len(heads) <= _MAX_LAYERS):
+        return False
+    return (recurrence_plan(batch, hidden, encoder.input_size, heads).smem_bytes <= SMEM_LIMIT
+            and bptt_plan(batch, hidden).smem_bytes <= SMEM_LIMIT)
 
 
 def bptt_max_active_clusters(plan: RecurrencePlan) -> int:

@@ -38,7 +38,7 @@ import torch
 
 from fiude_tpu_torch.models.rhs import UDE, NeuralAug, SIRRates, out_of_range_mask, sir_field
 from fiude_tpu_torch.ops import _build
-from fiude_tpu_torch.ops.fused_gru import FusedBackGRUEncoder
+from fiude_tpu_torch.ops.fused_gru import fused_encoder
 from fiude_tpu_torch.ops.integrate import rk4_38_step
 
 _MAX_DEEP = 8   # kMaxDeep in csrc/fused_ude.cuh
@@ -627,7 +627,8 @@ def uniform_step(t) -> float:
 
 
 class FusedForecaster:
-    """Serving-path forecaster: K1 encode, reparam, K2 trajectory + decode.
+    """Serving-path forecaster: encode (K1 for a Back-GRU encoder, any other
+    encoder plainly), reparam, K2 trajectory + decode.
 
     ``FusedForecaster(model, fa_w=...)(x, t, eps)`` gives the (B, S, T, R)
     Monte-Carlo forecast of ``UDEForecaster.forward`` (up to float
@@ -644,7 +645,7 @@ class FusedForecaster:
         self.model = model
         self.fa_w = float(fa_w)
         self.compute_dtype = compute_dtype
-        self.encoder = FusedBackGRUEncoder(model.encoder)
+        self.encoder = fused_encoder(model.encoder)
         self.weights = pack_ude(model.ode, model.decoder)
         self.rounded = bf16_matrices(self.weights) if is_bf16(compute_dtype) else None
 

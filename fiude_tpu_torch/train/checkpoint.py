@@ -4,7 +4,9 @@ Counterpart of ``fiude_tpu/train/checkpoint.py:28-71``: ``{prefix}{enc,ode,dec}.
 one array per parameter, named by the JAX parameter tree's
 ``jax.tree_util.keystr`` path and stored in its (in, out) layout::
 
-    enc  .grus[i].w_ih|w_hh|b_ih|b_hh   .ff[i].w|b
+    enc  .grus[i].w_ih|w_hh|b_ih|b_hh   .ff[i].w|b        (Back-GRU, generic)
+         .i_layers[i].w_ih...   .q_layers[i][0|1].w_ih...   .ff[i].w|b   (BiGRU)
+         .layers[i][0|1].w_ih...   .fc.w|b                  (BiLSTM)
     ode  .fp_net[i].w|b   .aug_net[i].w|b
          .fp_net[i].w_mean|w_std|b_mean|b_std   .aug_net[i]...  (Bayes families)
     dec  .out.w|b
@@ -25,6 +27,10 @@ from typing import Callable, Dict, Iterator, List, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from fiude_tpu_torch.models.encoders import (
+    BackGRUEncoder, BiGRUEncoder, BiLSTMEncoder, GenericEncoder,
+)
 
 PARTS = ("enc", "ode", "dec")
 
@@ -48,17 +54,48 @@ def _net(prefix: str, net) -> Iterator[Tuple[str, torch.Tensor, bool]]:
         yield f".{prefix}[{i}].b_std", lay.b_std, False
 
 
+def _recurrent(prefix: str, layer) -> Iterator[Tuple[str, torch.Tensor, bool]]:
+    """A GRU or LSTM layer's entries: ``w_ih, w_hh, b_ih, b_hh``."""
+    yield f"{prefix}.w_ih", layer.weight_ih_l0, True
+    yield f"{prefix}.w_hh", layer.weight_hh_l0, True
+    yield f"{prefix}.b_ih", layer.bias_ih_l0, False
+    yield f"{prefix}.b_hh", layer.bias_hh_l0, False
+
+
+def _encoder(enc) -> Iterator[Tuple[str, torch.Tensor, bool]]:
+    """An encoder's entries, in the order of the JAX parameter tree."""
+    if isinstance(enc, BackGRUEncoder):
+        for i, g in enumerate(enc.rnn_layers):
+            yield from _recurrent(f".grus[{i}]", g)
+        yield from _linears("ff", enc.ff_layers.linears)
+    elif isinstance(enc, GenericEncoder):
+        for i, g in enumerate(enc.grus):
+            yield from _recurrent(f".grus[{i}]", g)
+        yield from _linears("ff", enc.ff.linears)
+    elif isinstance(enc, BiGRUEncoder):                  # and MISO-GRU
+        for i, g in enumerate(enc.i_layers):
+            yield from _recurrent(f".i_layers[{i}]", g)
+        for i, pair in enumerate(enc.q_layers):
+            for d, g in enumerate(pair):
+                yield from _recurrent(f".q_layers[{i}][{d}]", g)
+        yield from _linears("ff", enc.ff.linears)
+    elif isinstance(enc, BiLSTMEncoder):
+        for i, pair in enumerate(enc.layers):
+            for d, g in enumerate(pair):
+                yield from _recurrent(f".layers[{i}][{d}]", g)
+        yield ".fc.w", enc.fc.weight, True
+        yield ".fc.b", enc.fc.bias, False
+    else:
+        raise TypeError(f"no checkpoint layout for encoder {type(enc).__name__}")
+
+
 def param_map(model: nn.Module, part: str) -> Iterator[Tuple[str, torch.Tensor, bool]]:
     """``(jax_key, parameter, transposed)`` for one part of a
-    :class:`~fiude_tpu_torch.models.vae.UDEForecaster`; ``transposed`` marks
-    a torch (out, in) weight stored as JAX's (in, out)."""
+    :class:`~fiude_tpu_torch.models.vae.UDEForecaster`, in the order of the
+    JAX parameter tree; ``transposed`` marks a torch (out, in) weight stored
+    as JAX's (in, out)."""
     if part == "enc":
-        for i, g in enumerate(model.encoder.rnn_layers):
-            yield f".grus[{i}].w_ih", g.weight_ih_l0, True
-            yield f".grus[{i}].w_hh", g.weight_hh_l0, True
-            yield f".grus[{i}].b_ih", g.bias_ih_l0, False
-            yield f".grus[{i}].b_hh", g.bias_hh_l0, False
-        yield from _linears("ff", model.encoder.ff_layers.linears)
+        yield from _encoder(model.encoder)
     elif part == "ode":
         if hasattr(model.ode, "Fp_net"):
             yield from _net("fp_net", model.ode.Fp_net)

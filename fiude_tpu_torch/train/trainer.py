@@ -482,8 +482,9 @@ class Trainer:
     def forecast(self, x, t, n_samples: int = 32, generator: Optional[torch.Generator] = None,
                  fa_w: Optional[float] = None, fused: bool = False) -> torch.Tensor:
         """MC forecast (B, S, T, R) (the reference VAE.__call__); ``fused``
-        serves through K1 and K2 (``FusedForecaster``; uniform grid), a Bayes
-        family through K1 and K7 (``FusedBayesForecaster``).  A Bayes family
+        serves through K2 (``FusedForecaster``; uniform grid), a Bayes family
+        through K7 (``FusedBayesForecaster``), each after K1 for a Back-GRU
+        encoder and after the plain encoder for any other.  A Bayes family
         draws its weight-noise seed from the generator after eps."""
         x = self._tensor(x)
         generator = generator or self.generator

@@ -8,14 +8,21 @@ which hidden unit, which cluster takes which batch rows and how much shared
 memory a CTA takes, and the kernel follows it (CTA c of a C-CTA cluster owns
 units ``[c*U, min((c+1)*U, H))`` of a layer; cluster i takes rows
 ``[i*R, min((i+1)*R, B))``).  The kernel itself is held against its twin by
-``tests/test_torch_port_cuda.py`` on the card.
+``tests/test_torch_port_cuda.py`` on the card.  ``fits_clusters``, which
+decides from these plans whether a ``fused_train`` model's Back-GRU encoder
+runs through K3/K4 at all, takes every encoder of the repository and refuses
+two layers of 1024.
 """
 import pytest
+import torch
 
 from fiude_tpu_torch.ops.fused_gru import (
     PLAN_CHOICES, SMEM_LIMIT, RecurrencePlan, plan_smem_bytes, recurrence_plan,
 )
-from fiude_tpu_torch.ops.fused_gru_train import bptt_layer_warps, bptt_plan, bptt_smem_bytes
+from fiude_tpu_torch.ops.fused_gru_train import (
+    bptt_layer_warps, bptt_plan, bptt_smem_bytes, fits_clusters,
+)
+from fiude_tpu_torch.utils.config import REGION_INFO
 
 STATE = dict(hidden=(256, 128), in_width=441, head_widths=(64, 64, 686))
 WIDTHS = (20, 24, 40, 300, 8, 16)      # not divided by C, and narrower than C
@@ -187,3 +194,37 @@ def test_bptt_plan_refuses_empty_shapes(bad):
 def test_bptt_warps_cover_the_cta_and_every_layer(hidden):
     warps = bptt_layer_warps(hidden, 16, 8)
     assert len(warps) == len(hidden) and min(warps) >= 1 and sum(warps) == 12
+
+
+# -- which Back-GRU encoders K3/K4 take (fused_gru_train.fits_clusters) ---------------
+
+def back_gru(n_regions, n_qs, enc_params):
+    from fiude_tpu_torch.models import UDEForecaster
+    return UDEForecaster.build(n_regions=n_regions, latent_dim=6, n_qs=n_qs, ode_name="CONN",
+                               enc_params=enc_params, device="cpu",
+                               generator=torch.Generator().manual_seed(0)).encoder
+
+
+#: every region preset's encoder (``utils/config.py::REGION_INFO``) and the
+#: tuning grids' (``scripts/tune_worker.py``, ``tune_encoders.py``: one region,
+#: one layer of 32, 64 or 128 and a head of half that)
+ENCODER_CONFIGS = [(info["n_regions"], info["n_qs"], info["enc_params"])
+                   for info in REGION_INFO.values()] + \
+    [(1, 8, {"q_sizes": (h,), "ff_sizes": (h // 2,)}) for h in (32, 64, 128)]
+
+
+@pytest.mark.parametrize("n_regions,n_qs,enc_params", ENCODER_CONFIGS)
+@pytest.mark.parametrize("B", [1, 32, 149, 2048])
+def test_fits_clusters_takes_every_config_and_grid(n_regions, n_qs, enc_params, B):
+    assert fits_clusters(back_gru(n_regions, n_qs, enc_params), B)
+
+
+@pytest.mark.parametrize("B", [1, 32, 2048])
+def test_fits_clusters_refuses_two_layers_of_1024(B):
+    """K4's exchange buffers for two layers of 1024 take 2 x (3072 + 3072) x 4
+    floats a CTA at R = 4, 192 KiB, beside the carry: over 227 KiB.  K1/K3's
+    plan takes them (through L2), but the encoder must run plainly."""
+    enc = back_gru(49, 8, {"q_sizes": (1024, 1024), "ff_sizes": (64,)})
+    assert recurrence_plan(B, (1024, 1024), 441, (64, 686)).smem_bytes <= SMEM_LIMIT
+    assert bptt_plan(B, (1024, 1024)).smem_bytes > SMEM_LIMIT
+    assert not fits_clusters(enc, B)

@@ -221,9 +221,16 @@ class TestIntegrate:
 
     @pytest.mark.parametrize("method,substeps", [("dopri5", 1), ("tsit5", 1)])
     def test_unported_solvers_raise(self, method, substeps):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        """``odeint_grid`` takes the fixed methods only and refuses an adaptive
+        name with ``ValueError``, as the JAX one does; the adaptive solvers are
+        ``odeint_adaptive`` (``tests/test_torch_port_adaptive.py``)."""
+        with pytest.raises(ValueError, match="unknown method") as e_j:
+            jax_odeint_grid(lambda t, y: y, jnp.zeros(2), jnp.asarray([0.0, 1.0]),
+                            method=method, substeps=substeps)
+        with pytest.raises(ValueError, match="unknown method") as e_t:
             odeint_grid(lambda t, y: y, torch.zeros(2), [0.0, 1.0],
                         method=method, substeps=substeps)
+        assert str(e_t.value) == str(e_j.value)
 
 
 class TestReparam:
@@ -274,15 +281,45 @@ class TestForecaster:
         {"encoder_name": "bigru"}, {"fused_train": True, "method": "dopri5"},
         {"method": "tsit5"}, {"ode_name": "UONNb", "fused_train": True, "method": "tsit5"}])
     def test_unported_options_raise(self, kwargs):
-        """Another encoder raises when built; an adaptive solver when run, on
-        the fused path as on the plain one (the fixed methods and sub-steps,
-        with ``fused_train`` too, run: ``tests/test_torch_port_solvers.py``)."""
-        kw = dict(n_regions=2, latent_dim=5, n_qs=3, ode_name="FaFp")
+        """The options the port once refused: another encoder, and an adaptive
+        solver on the plain and the ``fused_train`` path, give JAX's forward;
+        a Bayes family with an adaptive solver raises JAX's ``ValueError``.
+        With ``fused_train`` the JAX package's Back-GRU kernel computes in
+        float32 whatever the model's dtype, so that case runs in float32 and
+        is held at the fused paths' bound (rtol 2e-4, atol 2e-5)."""
+        kw = dict(n_regions=2, latent_dim=5, n_qs=3, ode_name="FaFp",
+                  enc_params={"q_sizes": (8,), "ff_sizes": (6,)},
+                  ode_params={"net_sizes": (8, 8), "aug_net_sizes": (6,)})
         kw.update(kwargs)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model = UDEForecaster.build(device="cpu", **kw)
-            model(torch.rand(2, 9, model.encoder.input_size), [0.0, 1.0],
-                  torch.randn(2, 2, 2, 4))
+        if "encoder_name" in kw:
+            kw["enc_params"] = dict(kw["enc_params"], ili_sizes=(4,))
+        dtype = "float32" if kw.get("fused_train") else "float64"
+        jm = JaxForecaster.build(dtype=dtype, **kw)
+        params = jm.init(jax.random.PRNGKey(1))
+        port = UDEForecaster.build(device="cpu", dtype=getattr(torch, dtype), **kw)
+        flat = {}
+        for part in ("enc", "ode", "dec"):
+            flat.update(tree_to_flat_dict(getattr(params, part)))
+        assert load_state_from_flat(port, flat, strict=True) == len(flat)
+        rng = np.random.default_rng(10)
+        x = rng.uniform(0, 1, (2, 16, port.encoder.input_size)).astype(dtype)
+        eps = rng.standard_normal((2, 2, 2, 4)).astype(dtype)
+        t = np.arange(4) / 7.0
+        if port.is_bayes:
+            with pytest.raises(ValueError, match="adaptive methods") as e_j:
+                jm.apply(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(eps))
+            with pytest.raises(ValueError, match="adaptive methods") as e_t:
+                port(torch.from_numpy(x), t, torch.from_numpy(eps))
+            assert str(e_t.value) == str(e_j.value)
+            return
+        y_j, ex_j = jm.apply(params, jnp.asarray(x), jnp.asarray(t, dtype), jnp.asarray(eps),
+                             fa_w=0.6)
+        with torch.no_grad():
+            y_t, ex_t = port(torch.from_numpy(x), t, torch.from_numpy(eps), fa_w=0.6)
+        tol = dict(rtol=2e-4, atol=2e-5) if dtype == "float32" else dict(rtol=RTOL, atol=ATOL)
+        for got, want in [(y_t, y_j), (ex_t.latent, ex_j.latent)] + [
+                (ex_t.aux[k], ex_j.aux[k]) for k in ex_j.aux]:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
 
     @pytest.mark.parametrize("ode_name", ["UONN", "CONN", "SONN", "UONNb", "Bayes_Fp", "SONNb"])
     def test_fused_train_alone_builds_for_every_family(self, ode_name):

@@ -202,7 +202,7 @@ def test_port_and_chip_smoke_import_no_jax_or_pandas():
         " 'train.experiment', 'data.builder', 'data.tables', 'data.regions',"
         " 'utils.ledger', 'parallel.sweep', 'scripts.run_sweep', 'scripts.tune_worker',"
         " 'scripts.run_transfer', 'scripts.make_tuning_grid',"
-        " 'scripts.rerun_best_tuning'):\n"
+        " 'scripts.rerun_best_tuning', 'ops.adjoint', 'scripts.tune_encoders'):\n"
         "    assert 'fiude_tpu_torch.' + new in names, new\n"
         "import chip_smoke\n"
         "assert not any(m in ('fiude_tpu', 'pandas', 'filelock')"

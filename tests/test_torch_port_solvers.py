@@ -14,7 +14,10 @@ against the JAX package, on the CPU.
   Kutta 3/8 step an interval, the plain ``odeint_grid`` otherwise (``rk4_38``
   included, as in ``fiude_tpu/models/vae.py:292-293``); a ``Trainer`` step
   there equals the JAX step (rel 2e-4, as ``tests/test_torch_port_train.py``);
-* ``dopri5`` / ``tsit5`` raise on both paths (ROADMAP.md, queue A, item 6).
+* ``dopri5`` / ``tsit5``: ``odeint_grid`` refuses them with the JAX package's
+  ``ValueError``, and a model with either gives the JAX forward on the plain
+  and the ``fused_train`` path (the adaptive solvers themselves:
+  ``tests/test_torch_port_adaptive.py``).
 """
 import numpy as np
 import pytest
@@ -124,13 +127,34 @@ def test_kutta_38_index_is_the_fused_kernels():
 @pytest.mark.parametrize("method", ["dopri5", "tsit5"])
 @pytest.mark.parametrize("fused", [False, True])
 def test_adaptive_solvers_raise_on_both_paths(method, fused):
-    with pytest.raises(NotImplementedError, match="queue A, item 6"):
+    """``odeint_grid`` refuses an adaptive name as the JAX one does; the model
+    integrates with the adaptive solver on both paths and gives the JAX
+    forward (the trajectory and the aux at the output grid).  With
+    ``fused_train`` the JAX Back-GRU kernel computes in float32, so that path
+    runs in float32 at rtol 2e-4, atol 2e-5; the plain one in float64 at
+    rtol 1e-9."""
+    with pytest.raises(ValueError, match="unknown method"):
+        jax_odeint_grid(lambda t, y: -y, jnp.ones(2), jnp.asarray([0.0, 1.0]), method=method)
+    with pytest.raises(ValueError, match="unknown method"):
         odeint_grid(lambda t, y: -y, torch.ones(2), [0.0, 1.0], method=method)
-    model = UDEForecaster.build(device="cpu", ode_name="UONN", method=method,
-                                fused_train=fused, fused_stats=fused, **MODEL)
-    x = torch.rand(2, 9, model.encoder.input_size)
-    with pytest.raises(NotImplementedError, match="queue A, item 6"):
-        model(x, np.arange(3) / 7.0, torch.randn(2, 2, R, L - 1))
+    dtype = "float32" if fused else "float64"
+    jm, params, port = model_pair(dtype=dtype, method=method, fused_train=fused,
+                                  fused_stats=fused)
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0, 1, (2, 9, port.encoder.input_size)).astype(dtype)
+    eps = rng.standard_normal((2, 2, R, L - 1)).astype(dtype)
+    t = np.arange(3) / 7.0
+    y_j, ex_j = jm.apply(params, jnp.asarray(x), jnp.asarray(t, dtype), jnp.asarray(eps),
+                         fa_w=0.9)
+    with torch.no_grad():
+        y_t, ex_t = port(torch.from_numpy(x), t, torch.from_numpy(eps), fa_w=0.9)
+    tol = dict(rtol=2e-4, atol=2e-5) if fused else dict(rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **tol)
+    assert {k: v.shape for k, v in ex_t.aux.items()} == {"rates": (2, 4, R, 2),
+                                                        "fa": (2, 4, R, 3)}
+    for k in ex_t.aux:
+        np.testing.assert_allclose(ex_t.aux[k].numpy(), np.asarray(ex_j.aux[k]), **tol,
+                                   err_msg=k)
 
 
 def spy(monkeypatch, module, name, calls):

@@ -9,11 +9,16 @@
 * The CLIs (``python -m fiude_tpu_torch.scripts.<name> --device cpu``) in a
   subprocess that blocks ``jax``, ``pandas`` and ``filelock``: ``run_sweep``
   in both modes, ``run_transfer`` from the sweep's CONN weights,
-  and ``tune_worker --max-rows 1``.  Each prints its
+  ``tune_worker --max-rows 1`` and ``tune_encoders`` over a 3-row grid (one
+  row an encoder family).  Each prints its
   ``processed`` line, and a second run skips what the ledger (or the
   tuning table) claimed.  A tiny region preset and a short synthetic series
   keep them to seconds.  Without a card and without ``--device cpu`` each
   raises before it touches a file.
+* ``tune_encoders --make-grid`` writes the JAX script's file byte for byte,
+  and a training step of each encoder family as ``tune_encoders.setup``
+  builds it equals the step of the model the JAX script builds, on tied
+  weights and eps (rel 2e-4, as ``tests/test_torch_port_train.py``).
 """
 import json
 import os
@@ -34,7 +39,7 @@ from fiude_tpu.utils.config import grid as jax_grid
 from scripts.run_sweep import filter_done as jax_filter_done
 
 from fiude_tpu_torch.scripts import (
-    make_tuning_grid, rerun_best_tuning, run_sweep, run_transfer, tune_worker,
+    make_tuning_grid, rerun_best_tuning, run_sweep, run_transfer, tune_encoders, tune_worker,
 )
 from fiude_tpu_torch.scripts.run_sweep import filter_done
 from fiude_tpu_torch.train.experiment import rerun_best, run_tuning_worker
@@ -292,9 +297,93 @@ def test_tune_worker_cli(tmp_path):
 
 def test_clis_refuse_to_fall_back_to_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for main in (run_sweep.main, run_transfer.main, tune_worker.main, rerun_best_tuning.main):
+    for main in (run_sweep.main, run_transfer.main, tune_worker.main, rerun_best_tuning.main,
+                 tune_encoders.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--synthetic"] if main is run_sweep.main else [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_sweep.main(["--synthetic", "--work-dir", str(tmp_path)])
     assert os.listdir(tmp_path) == []
+
+
+def test_tune_encoders_make_grid_is_the_jax_file(tmp_path, monkeypatch):
+    from scripts import tune_encoders as jax_tune_encoders
+    monkeypatch.setattr(sys, "argv", ["tune_encoders.py", "--make-grid", "--csv",
+                                      str(tmp_path / "jax.csv")])
+    jax_tune_encoders.main()
+    tune_encoders.main(["--make-grid", "--csv", str(tmp_path / "port.csv")])
+    assert (tmp_path / "port.csv").read_bytes() == (tmp_path / "jax.csv").read_bytes()
+    df = pd.read_csv(tmp_path / "port.csv", index_col=0)
+    assert len(df) == 9 and set(df.encoder) == {"back_gru", "bigru", "bilstm"}
+
+
+def test_tune_encoders_cli(tmp_path):
+    """One row an encoder family, a worker over all three (the Back-GRU row
+    pre-trained first), then a second worker that finds nothing left."""
+    csv = str(tmp_path / "enc.csv")
+    rows = [dict(encoder=e, latent_dim=4, hidden_size=4, window_size=15, batch_size=256,
+                 n_samples=2, epochs=1, started=0, score=10.0)
+            for e in ("back_gru", "bigru", "bilstm")]
+    pd.DataFrame(rows).to_csv(csv)
+    out = cli("tune_encoders", "2", "--csv", csv, "--device", "cpu")
+    assert out[-1] == "worker 2: processed 3 rows"
+    assert [line.split(":")[0] for line in out[:-1]] == [
+        "back_gru hidden 4", "bigru hidden 4", "bilstm hidden 4"]
+    assert cli("tune_encoders", "2", "--csv", csv, "--device", "cpu")[-1] == \
+        "worker 2: processed 0 rows"
+    df = pd.read_csv(csv, index_col=0)
+    assert (df.started == 1).all() and (df.platform == "cpu").all()
+    assert np.isfinite(df.score).all() and (df.score != 10.0).all()
+
+
+@pytest.mark.parametrize("encoder", ["back_gru", "bigru", "bilstm"])
+def test_tune_encoders_steps_match_jax(encoder):
+    """The model, loss and optimizer a row trains against the JAX script's
+    (``scripts/tune_encoders.py:36-52``, transcribed here because its
+    ``evaluate`` builds them inside), one step on tied weights and eps."""
+    import jax
+    import jax.numpy as jnp
+    from fiude_tpu.data.synthetic import synthetic_dataset as jax_synthetic
+    from fiude_tpu.models import UDEForecaster as JaxForecaster
+    from fiude_tpu.train import TRAINING_INFO as JAX_INFO
+    from fiude_tpu.train import Trainer as JaxTrainer
+    from fiude_tpu.train.checkpoint import tree_to_flat_dict
+    from fiude_tpu_torch.train import load_state_from_flat
+    from fiude_tpu_torch.train.checkpoint import flat_from_module
+
+    params = dict(encoder=encoder, latent_dim=6, hidden_size=8, window_size=28,
+                  batch_size=32, n_samples=4, epochs=1)
+    pt, loader, _ = tune_encoders.setup(params, "cpu")
+    x_tr, y_tr, _, _, _ = jax_synthetic(n_regions=1, n_qs=8, window_size=28, gamma=28,
+                                        run_backward=False, seed=0)
+    np.testing.assert_array_equal(loader.x, np.asarray(x_tr))
+    jm = JaxForecaster.build(n_regions=1, latent_dim=6, n_qs=8, ode_name="Fp",
+                             encoder_name=encoder,
+                             enc_params=tune_encoders.enc_params(encoder, 8),
+                             ode_params={"net_sizes": (32, 32)})
+    jt = JaxTrainer(jm, loss_cfg=JAX_INFO["CONN"], len_tr=max(len(x_tr) // 32, 1))
+    jt.setup_training(lr=1e-3)
+    assert pt.len_tr == jt.len_tr
+    flat = {}
+    for part in ("enc", "ode", "dec"):
+        flat.update(tree_to_flat_dict(getattr(jt.params, part)))
+    load_state_from_flat(pt.model, flat, strict=True)
+    rng = np.random.default_rng(3)
+    x, y = np.asarray(x_tr[:8], np.float32), np.asarray(y_tr[:8, :28], np.float32)
+    t = (np.linspace(1.0, 28, 28) / 7.0).astype(np.float32)
+    eps = rng.standard_normal((4, 8, 1, 5)).astype(np.float32)
+    jt.state, m_j = jt._step_fn(
+        jt.state, jnp.asarray(x), jnp.asarray(y), jnp.asarray(t), jnp.asarray(eps),
+        jnp.asarray(1.0, jnp.float32), jnp.asarray(1, jnp.int32),
+        jnp.asarray(5000.0, jnp.float32))
+    m_t = pt.train_step(torch.from_numpy(x), torch.from_numpy(y), t, torch.from_numpy(eps),
+                        epoch=1, grad_lim=5000.0)
+    assert set(m_t) == set(m_j)
+    for k in m_j:
+        assert m_t[k] == pytest.approx(float(m_j[k]), rel=2e-4, abs=1e-7), k
+    for part in ("enc", "ode", "dec"):
+        want = tree_to_flat_dict(getattr(jt.state.params, part))
+        got = flat_from_module(pt.model, part)
+        for k in want:
+            np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
