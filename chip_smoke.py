@@ -4,8 +4,10 @@ the deterministic families (phases 2-7), the Bayes families (phases 8-12), the
 kernels' other modes (phases 13-15), the experiment recipes (phase 16), the
 device-resident training epoch (phase 17), real data through the recipes
 with ``fused_train`` on the plain solver (phase 18), the sweep path's
-populations and command line (phase 19), and the other encoders, the adaptive
-solvers and the encoder comparison (phase 20).
+populations and command line (phase 19), the other encoders, the adaptive
+solvers and the encoder comparison (phase 20), and the legacy pipeline, the
+tree validator, the demo and Bayes-workflow commands and solver remat (phase
+21).
 
     python3 chip_smoke.py
 
@@ -170,6 +172,30 @@ no result, when there is no card.  Phases, each printing its lines:
     and a UONNb model with ``dopri5`` raising ``ValueError``; (d) a Back-GRU
     encoder of two layers of 1024, which K4's plan cannot take, under
     ``fused_train``: K3/K4 never launch and the step holds to the plain step.
+21. what the port does beyond the kernels' paths, through the entry points:
+    (a) the legacy tree from the port's writer and ``legacy_national_data``
+    for England and US at 0 and 6 queries, shapes and seconds;
+    ``fiude_tpu_torch.scripts.validate_data_tree`` on phase 18's tree (exit
+    0), on a copy without one state's query file (``--regions state``, exit 1),
+    and ``--deep --regions state`` on season 2016 (the port's
+    ``DataConstructor``), seconds each; (b) ``demo_accuracy.main`` as written (CONN and UONN, the
+    plain path, full widths) cut from 56 epochs to 2, its rows and seconds;
+    one ``demo`` UONN config through ``run_experiment(fused_train=True)``
+    (K3-K6 once a step, K3/K5 once for the test forecast) and its trainer's
+    ``forecast(fused=True)`` (K1, K2 once); ``run_sweep.main`` with phase
+    19's arguments and ``--summary`` (in this process), its summary table (one
+    row, ``state`` UONN, 3 runs, finite means) and K3-K6's launches; (c) ``bayes_workflow.main`` at its
+    widths cut from 30 epochs to 2 (1 + 1 around ``update_priors``), the next
+    step's ``ode_kl`` equal to ``ode_kl_w`` x ``variational_kl`` at the new
+    std (and not the old); the two halves again with the model built
+    ``fused_train=True`` (K3, the draw, K8, K9, K4 once a step) and its
+    ``forecast(fused=True)`` (the draw, K1, K7 once) held to the float64 plain
+    forward, and to the float32 one within twice the bound, as phase 9 holds a
+    Bayes request; (d) the ``state`` UONN on the plain fixed-grid path, a
+    ``Trainer`` step at 32 x 64 over 8 weekly points and over 85 daily points
+    (``bench.py:272-336``'s grid) with ``checkpoint_solver`` off and on, in
+    turns, twice: gradients and loss bit for bit, the peak device memory above
+    the model and the host ms of each.
 
 Every kernel's line carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -225,10 +251,12 @@ raises.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2216,8 +2244,9 @@ def epoch_runs(dev, rng, smi):
 TREE = dict(n_weeks=470, start="2010-10-01", n_qs=12)   # the writer's defaults
 
 
-def data_tree_runs(dev, smi):
-    """Phase 18 (a, b): a ``Data/`` tree from the port's writer, then
+def data_tree_runs(dev, smi, root):
+    """Phase 18 (a, b): a ``Data/`` tree from the port's writer at ``root``
+    (phase 21 validates it), then
     ``run_experiment(data_root=)`` for the ``state`` UONN config with
     ``fill_1`` both ways (the padded curriculum through K3-K6, the whole train
     split of season 2016), each run's seconds split into the data build,
@@ -2256,7 +2285,6 @@ def data_tree_runs(dev, smi):
     stages = len(np.linspace(0, cfg.gamma, int(cfg.gamma / 7) + 1)) - 1
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            root = f"{tmp}/Data"
             t0 = time.perf_counter()
             write_reference_data_tree(root, **TREE)
             files = sum(len(f) for _, _, f in os.walk(root))
@@ -3142,6 +3170,301 @@ def phase_20(dev, rng, smi):
         f"{took[2] - took[1]:.1f}, (c) {took[3] - took[2]:.1f}, (d) {took[4] - took[3]:.1f}")
 
 
+# -- phase 21: the legacy pipeline, the validator, the demo and Bayes commands, remat --------
+
+DEMO_EPOCHS = 2    # demo_accuracy's 56 epochs, cut for the run's time
+BAYES_EPOCHS = 2   # bayes_workflow's 30: 1 + 1 around update_priors
+
+
+def legacy_and_validator(tree_root, smi):
+    """Phase 21 (a): the legacy tree from the port's writer and
+    ``legacy_national_data`` for England and US at 0 and 6 queries, timed; the
+    port's ``validate_data_tree`` on phase 18's ``Data/`` tree (exit 0), on a
+    copy without one query file (exit 1), and ``--deep`` on one season."""
+    import io
+    import shutil
+    import numpy as np
+    from fiude_tpu_torch.data.legacy import legacy_national_data
+    from fiude_tpu_torch.data.synthetic import write_legacy_national_tree
+    from fiude_tpu_torch.scripts import validate_data_tree
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_legacy_national_tree(f"{tmp}/legacy", n_qs=6, seed=SEED)
+        log(f"  wrote the legacy tree (6 queries) in {time.perf_counter() - t0:.4f} s")
+        for country in ("England", "US"):
+            for n_queries in (0, 6):
+                t0 = time.perf_counter()
+                out = legacy_national_data(f"{tmp}/legacy", country=country, n_queries=n_queries,
+                                           rescale=True)
+                seconds = time.perf_counter() - t0
+                arrays = out[:-1]
+                if not all(a.size and np.isfinite(a).all() for a in arrays):
+                    raise RuntimeError(f"legacy_national_data({country}, {n_queries}): empty or "
+                                       "not finite")
+                log(f"  legacy_national_data({country}, n_queries={n_queries}): "
+                    f"{[tuple(a.shape) for a in arrays]}, ili_max {out[-1]:.6g}, in "
+                    f"{seconds:.4f} s [{smi}]")
+        broken = f"{tmp}/broken"
+        shutil.copytree(tree_root, broken)
+        os.remove(f"{broken}/Queries/state_queries/CA_query_data.csv")
+        for tag, args, want in (("the phase 18 tree", [tree_root], 0),
+                                ("a copy without CA's query file, state", [broken, "--regions",
+                                                                          "state"], 1),
+                                ("--deep, state, season 2016", [tree_root, "--deep", "--regions",
+                                                               "state", "--seasons", "2016"], 0)):
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                rc = validate_data_tree.main(args)
+            seconds = time.perf_counter() - t0
+            lines = printed.getvalue().strip().splitlines()
+            log(f"  validate_data_tree on {tag}: exit {rc} in {seconds:.4f} s; {lines[-1]!r}"
+                + "".join(f"\n    | {ln}" for ln in lines if "FAIL" in ln or "deep" in ln))
+            if rc != want:
+                raise RuntimeError(f"validate_data_tree on {tag} exited {rc}, expected {want}")
+
+
+def demo_runs(dev, smi):
+    """Phase 21 (b): ``demo_accuracy.main`` as written (the plain path) cut to
+    2 epochs; one ``demo`` UONN config through ``run_experiment(fused_train=
+    True)`` (K3-K6) and its trainer's ``forecast(fused=True)`` (K1/K2); then
+    ``run_sweep --population --fused-train --summary`` on phase 19's grid."""
+    import io
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.ops import fused_gru, fused_ude
+    from fiude_tpu_torch.scripts import demo_accuracy, run_sweep
+    from fiude_tpu_torch.train import experiment
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = demo_accuracy.main(["--out-dir", f"{tmp}/demo", "--epochs", str(DEMO_EPOCHS)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for row in rows:
+            log(f"  demo {row}")
+        log(f"  demo_accuracy.main (CONN, UONN; {DEMO_EPOCHS} epochs, the plain path) in "
+            f"{seconds:.4f} s [{smi}]")
+        files = sorted(os.listdir(f"{tmp}/demo"))
+        if not {"summary.json", "RESULTS_SYNTH.md", "demo_results.csv"} <= set(files):
+            raise RuntimeError(f"demo_accuracy wrote {files}")
+        if not all(np.isfinite(v) for r in rows for k, v in r.items() if k != "model"):
+            raise RuntimeError("demo_accuracy: a row is not finite")
+
+        cfg = demo_accuracy.demo_config("UONN", DEMO_EPOCHS)
+        out, launches, seconds = counted(lambda: experiment.run_experiment(
+            cfg, synthetic=True, fused_train=True, weights_root=f"{tmp}/fused",
+            results_file=f"{tmp}/fused/demo_results"))
+        trainer = out["trainer"]
+        steps = sum(len(epoch) for epoch in trainer.history.batch_history)
+        log(f"  run_experiment({cfg.key}, fused_train=True): {steps} steps and the test "
+            f"forecast in {seconds:.4f} s [{smi}]; launches {launches}; metrics "
+            + ", ".join(f"{k} {v:.4g}" for k, v in out["metrics"].items()))
+        hold_launches("the demo config under fused_train", launches, steps, forwards=1)
+        x_te = experiment._build_data(cfg, None, True)[2]
+        fused_gru.backgru_encode.launches = 0
+        fused_ude.trajectory_decode.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = trainer.forecast(x_te, experiment.daily_grid(cfg), n_samples=cfg.n_samples,
+                             fused=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        served = {"K1": fused_gru.backgru_encode.launches,
+                  "K2": fused_ude.trajectory_decode.launches}
+        log(f"  its forecast(fused=True) of {x_te.shape[0]} windows x {cfg.n_samples} samples: "
+            f"{tuple(y.shape)} in {seconds * 1e3:.4f} ms; launches {served} [{smi}]")
+        if served != {"K1": 1, "K2": 1} or not torch.isfinite(y).all():
+            raise RuntimeError("the demo's fused forecast did not run K1 and K2 once each")
+
+        os.makedirs(f"{tmp}/sweep")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            _, launches, seconds = counted(lambda: run_sweep.main(
+                [*POP_ARGS, "--summary", "--work-dir", f"{tmp}/sweep", "--out", "results_table"]))
+        lines = printed.getvalue().strip().splitlines()
+        head = next((i for i, ln in enumerate(lines) if ln.split()[:2] == ["region", "model"]),
+                    None)
+        if head is None:
+            raise RuntimeError(f"run_sweep --summary printed no table: {lines[-3:]}")
+        for line in lines[head - 1:]:
+            log(f"    | {line}")
+        log(f"  run_sweep.main({' '.join(POP_ARGS)} --summary): {seconds:.4f} s; launches "
+            f"{launches} [{smi}]")
+        steps = launches["K4"]
+        if not steps or launches != {"K3": steps + len(POP_NUMS), "K4": steps,
+                                     "K5": steps + len(POP_NUMS), "K6": steps}:
+            raise RuntimeError(f"run_sweep --summary: launches {launches}")
+        table = [ln.split() for ln in lines[head + 1:]]
+        if len(table) != 1 or table[0][:3] != ["state", "UONN", str(len(POP_NUMS))] \
+                or not all(np.isfinite(float(v)) for v in table[0][3:]):
+            raise RuntimeError(f"run_sweep --summary printed {lines[head:]}")
+
+
+def bayes_workflow_runs(dev, smi):
+    """Phase 21 (c): ``bayes_workflow.main`` at its widths, cut to 2 epochs
+    (1 + 1 around ``update_priors``), the next step's ``ode_kl`` held to
+    ``variational_kl`` at the new std; then the two halves again with the
+    model built ``fused_train=True`` (K3, the draw, K8, K9, K4 once a step)
+    and its ``forecast(fused=True)`` (the draw, K1, K7) held to the plain
+    forward by phase 9's rule."""
+    import copy
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.models.bayes import variational_kl
+    from fiude_tpu_torch.models.vae import reparam
+    from fiude_tpu_torch.ops import fused_bayes, fused_bayes_train, fused_gru, fused_gru_train
+    from fiude_tpu_torch.scripts import bayes_workflow
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--out-dir", f"{tmp}/plain", "--epochs", str(BAYES_EPOCHS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = bayes_workflow.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        args = bayes_workflow.parser().parse_args(argv)
+        trainer, model = run["trainer"], run["trainer"].model
+        curves = [{k: round(v, 6) for k, v in h.items() if k in ("loss", "nll", "ode_kl")}
+                  for h in trainer.history.epoch_history]
+        log(f"  bayes_workflow.main ({BAYES_EPOCHS} epochs, the plain path) in {seconds:.4f} s "
+            f"[{smi}]: epochs {curves}; wrote {sorted(os.listdir(f'{tmp}/plain'))}")
+        loader, cols = run["loader"], run["eval_pts"]
+        x = trainer._tensor(loader.x[:BATCH])
+        y = trainer._tensor(loader.y[:BATCH][:, cols])
+        w = trainer.loss_cfg.ode_kl_w
+        with torch.no_grad():
+            want = float(w * variational_kl(model.ode, args.new_prior_std))
+            old = float(w * variational_kl(model.ode, args.prior_std))
+        got = trainer.train_step(x, y, run["t"][cols], epoch=99, grad_lim=1e5,
+                                 n_samples=args.n_samples)["ode_kl"]
+        log(f"  after update_priors({args.new_prior_std}): a step's ode_kl {got!r}; ode_kl_w x "
+            f"variational_kl at the new std {want!r}, at the old {old!r}")
+        if abs(got - want) > 1e-6 * abs(want) or abs(got - old) <= 1e-6 * abs(old):
+            raise RuntimeError("the step after update_priors did not use the new prior std")
+
+        args = bayes_workflow.parser().parse_args(["--out-dir", f"{tmp}/fused", "--epochs",
+                                                   str(BAYES_EPOCHS)])
+        os.makedirs(args.out_dir)
+        run = bayes_workflow.prepare(args, dev, fused_train=True)
+        trainer, model = run["trainer"], run["trainer"].model
+        counters = {"K3": fused_gru_train.encoder_forward_cuda, "draw": fused_bayes.bayes_draw_cuda,
+                    "K8": fused_bayes_train.bayes_train_forward_cuda,
+                    "K9": fused_bayes_train.bayes_train_backward_cuda,
+                    "K4": fused_gru_train.encoder_backward_cuda}
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        bayes_workflow.train_halves(run, args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        steps = sum(len(epoch) for epoch in trainer.history.batch_history)
+        losses = [h["loss"] for h in trainer.history.epoch_history]
+        log(f"  the two halves with fused_train=True: {steps} steps in {seconds:.4f} s [{smi}]; "
+            f"epoch losses {losses}; launches {launches}")
+        if any(n != steps for n in launches.values()) or not np.isfinite(losses).all():
+            raise RuntimeError("the fused Bayes workflow did not launch each kernel once a step")
+
+        grid, n_samples = run["t"], 64
+        x_te = trainer._tensor(run["x_test"])
+        for c in (fused_gru.backgru_encode, fused_bayes.bayes_draw_cuda,
+                  fused_bayes.bayes_trajectory_cuda):
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = trainer.forecast(run["x_test"], grid, n_samples,
+                             generator=torch.Generator(dev).manual_seed(5), fused=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        served = {"draw": fused_bayes.bayes_draw_cuda.launches,
+                  "K1": fused_gru.backgru_encode.launches,
+                  "K7": fused_bayes.bayes_trajectory_cuda.launches}
+        log(f"  its forecast(fused=True): {tuple(y.shape)} in {seconds * 1e3:.4f} ms; launches "
+            f"{served} [{smi}]")
+        if served != {"draw": 1, "K1": 1, "K7": 1}:
+            raise RuntimeError("the fused Bayes forecast did not run the draw, K1 and K7 once")
+        gen = torch.Generator(dev).manual_seed(5)
+        eps = model.sample_eps(x_te.shape[0], n_samples, generator=gen)
+        seed = trainer.next_noise_seed(gen)
+        plain = copy.deepcopy(model)
+        plain.fused_train = False
+        plain64 = copy.deepcopy(plain).double()
+        with torch.no_grad():
+            y_ref, extras = plain64(x_te.double(), grid, eps.double(), noise_seed=seed)
+            y_f32, _ = plain(x_te, grid, eps, noise_seed=seed)
+            z = reparam(eps.double(), extras.std, extras.mean) + plain64.ic_jitter
+            rows = held_rows(plain64.rhs_fn(1.0), z, grid, noise_seed=seed)
+        B = x_te.shape[0]
+        rows = rows.reshape(n_samples, B).T.reshape(-1)
+        flat = (B * n_samples, len(grid), model.n_regions)
+        y, y_ref, y_f32 = (a.reshape(flat).transpose(0, 1) for a in (y, y_ref, y_f32))
+        compare("  the fused forecast vs UDEForecaster.forward(noise_seed=) in float64", y, y_ref,
+                rows)
+        compare("  the float32 forward vs the float64 one", y_f32, y_ref, rows, limit=None)
+        compare("  the fused forecast vs the float32 forward", y, y_f32, rows, limit=2.0)
+
+
+def remat_steps(dev, rng, smi):
+    """Phase 21 (d): the ``state`` UONN on the plain fixed-grid path at the
+    training step's shape (8 weekly points) and at ``bench.py:272-336``'s 85
+    daily points, a ``Trainer`` step with ``checkpoint_solver`` off and on, in
+    turns, twice: the gradients equal bit for bit after each pair; the peak
+    device memory and the host ms of each."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.train import TRAINING_INFO, Trainer
+    for tag, grid in (("8 weekly points", np.arange(WEEKS, dtype=np.float64)),
+                      ("85 daily points", np.arange(T_OUT) * DT)):
+        trainers = []
+        for remat in (False, True):
+            model = UDEForecaster.build(ode_name="UONN", checkpoint_solver=remat,
+                                        generator=torch.Generator().manual_seed(SEED), **STATE)
+            tr = Trainer(model, loss_cfg=TRAINING_INFO["UONN"], seed=SEED)
+            tr.setup_training(lr=LR)
+            trainers.append(tr)
+        x = torch.tensor(rng.uniform(0, 1, (BATCH, T_IN, trainers[0].model.encoder.input_size)),
+                         dtype=torch.float32, device=dev)
+        y = torch.tensor(rng.uniform(0, 1, (BATCH, len(grid), STATE["n_regions"])),
+                         dtype=torch.float32, device=dev)
+        eps = trainers[0].model.sample_eps(BATCH, SAMPLES, generator=torch.Generator(dev)
+                                           .manual_seed(SEED))
+        for rep in range(2):
+            stats = []
+            for tr in trainers:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                t0 = time.perf_counter()
+                metrics = tr.train_step(x, y, grid, eps, epoch=rep, grad_lim=5000.0)
+                torch.cuda.synchronize()
+                stats.append(((time.perf_counter() - t0) * 1e3,
+                              torch.cuda.max_memory_allocated(dev) - base, metrics["loss"]))
+            same = all(torch.equal(a.grad, b.grad) for a, b in
+                       zip(trainers[0].model.parameters(), trainers[1].model.parameters()))
+            log(f"  remat, {tag} ({BATCH} x {SAMPLES}), step {rep + 1}: checkpoint_solver off "
+                f"{stats[0][0]:.4f} ms, peak {stats[0][1] / 2**20:.1f} MiB above the "
+                f"model; on {stats[1][0]:.4f} ms, peak {stats[1][1] / 2**20:.1f} MiB; loss "
+                f"{stats[0][2]!r} / {stats[1][2]!r}; gradients bit for bit: {same} [{smi}]")
+            if not same or stats[0][2] != stats[1][2]:
+                raise RuntimeError(f"remat, {tag}: the checkpointed step differs")
+
+
+def phase_21(dev, rng, smi, tree_root):
+    """Phase 21's four parts, timed."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    took = [time.perf_counter()]
+    for run in (lambda: legacy_and_validator(tree_root, smi), lambda: demo_runs(dev, smi),
+                lambda: bayes_workflow_runs(dev, smi), lambda: remat_steps(dev, rng, smi)):
+        run()
+        took.append(time.perf_counter())
+    log(f"  phase 21 took {took[-1] - took[0]:.1f} s: (a) {took[1] - took[0]:.1f}, (b) "
+        f"{took[2] - took[1]:.1f}, (c) {took[3] - took[2]:.1f}, (d) {took[4] - took[3]:.1f}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3477,7 +3800,9 @@ def main() -> int:
     # -- 18. real data through run_experiment, and fused_train with the plain solver --------
     log("phase 18: a Data/ tree from the port's writer; run_experiment(data_root=) for the "
         "state UONN config with fill_1 both ways; fused_train steps with euler and 2 sub-steps")
-    data_tree_runs(dev, smi)
+    tree_dir = tempfile.mkdtemp(prefix="fiude_tree_")
+    atexit.register(shutil.rmtree, tree_dir, ignore_errors=True)
+    data_tree_runs(dev, smi, f"{tree_dir}/Data")
     solver_steps(dev, rng, smi)
 
     # -- 19. the sweep path: populations, the ledger, the command line -----------------------
@@ -3499,6 +3824,12 @@ def main() -> int:
         "BiGRU encoder at the state width (a fused_train + fused_stats step, a request); "
         "dopri5 and tsit5 steps; a 2 x 1024 Back-GRU encoder under fused_train")
     phase_20(dev, rng, smi)
+
+    # -- 21. the legacy pipeline, the validator, the demo and Bayes commands, remat ----------
+    log("phase 21: the legacy England/US pipeline and validate_data_tree; demo_accuracy, a demo "
+        "config under fused_train, run_sweep --summary; bayes_workflow with update_priors, "
+        "plain and fused; checkpoint_solver off and on")
+    phase_21(dev, rng, smi, f"{tree_dir}/Data")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None,
               **extra):

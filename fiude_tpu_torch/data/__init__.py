@@ -5,6 +5,12 @@ from fiude_tpu_torch.data.builder import (
 from fiude_tpu_torch.data.loader import ArrayLoader, convert_to_arrays, return_folds
 from fiude_tpu_torch.data.synthetic import (
     synthetic_daily_ili, synthetic_dataset, synthetic_queries,
-    write_reference_data_tree,
+    write_legacy_national_tree, write_reference_data_tree,
+)
+from fiude_tpu_torch.data.legacy import (
+    LEGACY_TEST_DATES, legacy_national_data, load_legacy_queries,
+)
+from fiude_tpu_torch.data.embedding import (
+    WordEmbeddings, build_similarity_scores, select_queries, similarity_score,
 )
 from fiude_tpu_torch.data.tables import Frame

@@ -31,8 +31,10 @@ Series.  What pandas decides is kept as it behaves:
   both tables, each window dated by its output slice, the split from
   ``Dates.csv`` (a missing ``train_start`` means 0).
 
-The legacy national pipeline (``England``, ``data/legacy.py``) is a later
-slice of the port (ROADMAP.md, queue A, item 3).
+:func:`load_ili` also reads ``England_ILIrates.csv`` (day-first
+``ISOWeekStartDate`` + 3 days, ``RatePer100000`` as ``National``, not divided
+by 13), as the JAX package does; the England pipeline itself is the legacy
+national one, :func:`fiude_tpu_torch.data.legacy.legacy_national_data`.
 """
 
 from __future__ import annotations
@@ -48,9 +50,13 @@ from scipy.stats import pearsonr
 from fiude_tpu_torch.data.regions import (
     HHS_REGION_STATES, N_REGIONS, STATE_CODE_TO_NAME, STATE_CODES, STATE_NAMES,
 )
-from fiude_tpu_torch.data.tables import Frame, dates_of, floats_of, read_columns, read_frame
+from fiude_tpu_torch.data.tables import (
+    Frame, dates_of, day_first_dates_of, floats_of, read_columns, read_frame,
+)
 
-_ILI_FILES = {"US": "national_flu.csv", "state": "state_flu.csv", "hhs": "hhs_flu.csv"}
+_ILI_FILES = {"US": "national_flu.csv", "England": "England_ILIrates.csv",
+              "state": "state_flu.csv", "hhs": "hhs_flu.csv"}
+_LEGACY = "fiude_tpu_torch.data.legacy.legacy_national_data(country='England')"
 _DAY = np.timedelta64(1, "D")
 
 
@@ -190,14 +196,20 @@ def choose_qs(qs_data_dict: Dict[int, Frame], daily_ili: Frame, region_num: int,
 
 
 def load_ili(location: str, root: str = "Data/") -> Frame:
-    """Load the weekly ILI table (reference :122-147), divided by 13."""
+    """Load the weekly ILI table (reference :122-147): divided by 13, but
+    for England's, dated ``ISOWeekStartDate`` + 3 days in one column
+    ``National``."""
     if location not in _ILI_FILES:
         raise ValueError(
-            f"unknown location {location!r}; the regional pipeline reads "
-            f"{sorted(_ILI_FILES)} (the England tables are the legacy pipeline, "
-            "not ported yet: ROADMAP.md, queue A, item 3)")
+            f"unknown location {location!r}; load_ili reads {sorted(_ILI_FILES)} (the "
+            f"England pipeline is {_LEGACY})")
     path = os.path.join(root, _ILI_FILES[location])
     header, columns = read_columns(path)
+    if location == "England":
+        week = day_first_dates_of(columns[header.index("ISOWeekStartDate")],
+                                  f"{path}, column 'ISOWeekStartDate'")
+        rate = floats_of(columns[header.index("RatePer100000")], f"{path}, column 'RatePer100000'")
+        return Frame(week + 3 * _DAY, ("National",), rate[:, None])
     dates = dates_of(columns[-1], path)
     if location == "US":
         ili = floats_of(columns[header.index("weighted_ili")], f"{path}, column 'weighted_ili'")
@@ -293,9 +305,8 @@ class DataConstructor:
                  ignore: Sequence[str] = ("VI", "PR")):
         if region not in N_REGIONS:
             raise ValueError(
-                f"region {region!r} is not a regional pipeline ({sorted(N_REGIONS)}); the "
-                "England pipeline is the legacy one, not ported yet (ROADMAP.md, queue A, "
-                "item 3)")
+                f"region {region!r} is not a regional pipeline ({sorted(N_REGIONS)}); for "
+                f"England use {_LEGACY}")
         self.test_season = test_season
         self.region = region
         self.n_queries = n_queries

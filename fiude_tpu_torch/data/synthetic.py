@@ -12,7 +12,9 @@ C++ library (``data/native.py``); the port uses the builder's numpy
 reference's layout, the files of ``fiude_tpu/data/synthetic.py:213-310``
 from the same draws, through :mod:`fiude_tpu_torch.data.tables`, so that
 :class:`~fiude_tpu_torch.data.builder.DataConstructor` can run end to end
-where there is no pandas.
+where there is no pandas; :func:`write_legacy_national_tree` writes the
+files of the legacy national pipeline (``fiude_tpu/data/synthetic.py:313-355``)
+for :mod:`fiude_tpu_torch.data.legacy` the same way.
 
 Epidemic curves come from actual SIR integrations (seasonally re-seeded,
 noise-perturbed), so models trained on this data learn real mechanistic
@@ -229,3 +231,42 @@ def write_reference_data_tree(root: str, *, n_qs: int = 12, seed: int = 0,
                   [seasons, [f"{first_year}-11-01"] * len(seasons),
                    [f"{s}-08-01" for s in seasons], [f"{s}-10-01" for s in seasons],
                    [f"{s + 1}-05-01" for s in seasons]])
+
+
+def write_legacy_national_tree(root: str, *, n_qs: int = 6, seed: int = 0) -> None:
+    """Write the files the legacy national pipeline reads
+    (:mod:`fiude_tpu_torch.data.legacy`, reference ``lib/Old/data.py:15-74``):
+    the JAX package's writer's files (``fiude_tpu/data/synthetic.py:313-355``),
+    from the same draws, byte for byte.
+
+      - ``national_flu.csv``: weekly US ILI on Sundays from 1997-01-05 to
+        2017-07-30 (the reference skips the first 300 rows, ``:66``), so the
+        +3-day shift lands on the Wednesday season anchors
+      - ``ILI_rates_{UK,US}_thursday_cubic_interpolation.csv``: daily
+        national ILI from 2003-06-01 to 2017-06-30, column ``wILI``
+      - ``{UK,US}_Qs_small_7day_avg.csv``: daily national query columns
+      - ``{UK,US}_Similarity_Scores.csv``: per-query semantic scores
+    """
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    q_names = [f"query_{i}" for i in range(n_qs)]
+
+    first, last = np.datetime64("1997-01-05", "D"), np.datetime64("2017-07-30", "D")
+    week_dates = first + 7 * np.arange(int((last - first) // np.timedelta64(7, "D")) + 1)
+    n_seasons = len(week_dates) // 52 + 1
+    daily_curve = synthetic_daily_ili(1, n_seasons, 364, seed)[:, 0]
+    write_columns(os.path.join(root, "national_flu.csv"), ["weighted_ili", "week", "date"],
+                  [daily_curve[7 * np.arange(len(week_dates))], np.arange(len(week_dates)),
+                   week_dates])
+
+    day_dates = np.arange(np.datetime64("2003-06-01", "D"), np.datetime64("2017-07-01", "D"))
+    for code, shift in (("UK", 0), ("US", 1)):
+        curve = synthetic_daily_ili(1, len(day_dates) // 364 + 1, 364,
+                                    seed + shift)[: len(day_dates), 0]
+        write_columns(os.path.join(root, f"ILI_rates_{code}_thursday_cubic_interpolation.csv"),
+                      ["", "wILI"], [day_dates, curve])
+        qs = synthetic_queries(curve[:, None], n_qs, seed + 10 + shift)[:, 0, :] * 100.0
+        write_columns(os.path.join(root, f"{code}_Qs_small_7day_avg.csv"), ["", *q_names],
+                      [day_dates, *qs.T])
+        write_columns(os.path.join(root, f"{code}_Similarity_Scores.csv"), ["", "similarity"],
+                      [q_names, rng.uniform(0.3, 1.0, n_qs)])

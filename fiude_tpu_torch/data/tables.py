@@ -14,7 +14,10 @@ asks of pandas is small: a date index plus named float columns
   ``builder.py:139-140``), text columns through :func:`read_columns`.
 
 Dates are ISO ``YYYY-MM-DD``, optionally with a ``00:00:00`` time; anything
-else raises, naming the file and the row.
+else raises, naming the file and the row.  The one exception is
+``England_ILIrates.csv``'s ``ISOWeekStartDate``, day first (``%d/%m/%Y``,
+``fiude_tpu/data/builder.py:149-153``), read by :func:`day_first_dates_of`,
+as strictly.
 
 Floats are parsed as pandas' default C parser parses them
 (``precise_xstrtod``): up to 17 digits accumulated in a double, then one
@@ -28,6 +31,7 @@ pandas' ``to_csv`` does.
 from __future__ import annotations
 
 import csv
+import datetime as dt
 import math
 from typing import List, NamedTuple, Sequence, Tuple
 
@@ -120,6 +124,20 @@ def dates_of(cells: Sequence[str], where: str) -> np.ndarray:
         return raw.astype("S10").astype("U10").astype("datetime64[D]")
     except ValueError:
         raise _date_error(cells, where) from None
+
+
+def day_first_dates_of(cells: Sequence[str], where: str) -> np.ndarray:
+    """Day-first dates (``%d/%m/%Y``, as ``datetime.strptime`` reads them) as
+    ``datetime64[D]``; ``where`` names the file in the error of a cell that
+    is anything else."""
+    out = np.empty(len(cells), "datetime64[D]")
+    for i, cell in enumerate(cells):
+        try:
+            out[i] = np.datetime64(dt.datetime.strptime(cell, "%d/%m/%Y").date(), "D")
+        except ValueError:
+            raise ValueError(f"{where}, row {i + 2}: {cell!r} is not a day-first date "
+                             "(DD/MM/YYYY)") from None
+    return out
 
 
 def _xstrtod(text: str) -> float:
@@ -221,6 +239,13 @@ def floats_of(cells: Sequence[str], where: str) -> np.ndarray:
         except ValueError:
             raise ValueError(f"{where}, row {i + 2}: {cells[i]!r} is not a number") from None
     return out
+
+
+def nanmax(a: np.ndarray, axis=None):
+    """pandas' ``max``: NaN skipped, NaN where everything is NaN."""
+    a = np.asarray(a, dtype=float)
+    empty = np.isnan(a).all(axis=axis)
+    return np.where(empty, np.nan, np.where(np.isnan(a), -np.inf, a).max(axis=axis))
 
 
 def read_frame(path: str, index_col: int = 0, parse_dates: bool = True) -> Frame:

@@ -25,6 +25,10 @@ Any other fixed method or sub-stepping integrates on the plain
 ``tsit5``) integrate with ``odeint_adaptive`` and train through the
 continuous adjoint (``ops.adjoint.odeint_adjoint``), with the aux evaluated
 at the output grid (``:270-291``), whatever ``fused_train``.
+``checkpoint_solver`` rematerializes each interval of the plain fixed-grid
+integration in the backward pass (``:89,362-367``; ``odeint_grid(checkpoint=
+True)``), with gradients equal bit for bit; the fused and the adaptive paths
+ignore it, as in JAX.
 
 The encoder is any of the JAX package's four families (``models.encoders``).
 Only a Back-GRU encoder runs through K3/K4 under ``fused_train``, and only
@@ -180,7 +184,8 @@ class UDEForecaster(nn.Module):
                  decoder: LinearDecoder, *, latent_dim: int = 8,
                  n_regions: int = 1, uncertainty: bool = True,
                  method: str = "rk4", substeps: int = 1, ic_jitter: float = 1e-5,
-                 fused_train: bool = False, fused_stats: bool = False):
+                 fused_train: bool = False, fused_stats: bool = False,
+                 checkpoint_solver: bool = False):
         super().__init__()
         self.encoder, self.ode, self.decoder = encoder, ode, decoder
         self.latent_dim = latent_dim
@@ -191,6 +196,7 @@ class UDEForecaster(nn.Module):
         self.ic_jitter = ic_jitter
         self.fused_train = fused_train
         self.fused_stats = fused_stats
+        self.checkpoint_solver = checkpoint_solver
 
     @classmethod
     def build(cls, *, n_regions: int, latent_dim: int, n_qs: int,
@@ -369,7 +375,8 @@ class UDEForecaster(nn.Module):
         else:
             latent, aux = odeint_grid(self.rhs_fn(fa_w), z, t, method=self.method,
                                       substeps=self.substeps,
-                                      noise_seed=noise_seed if self.is_bayes else None)
+                                      noise_seed=noise_seed if self.is_bayes else None,
+                                      checkpoint=self.checkpoint_solver)
         y = self.decoder(latent)                               # (T, S*B, R)
         y = y.reshape(y.shape[0], n_samples, batch, self.n_regions)
         return y.permute(2, 1, 0, 3), ForwardExtras(mean, std, latent, aux)

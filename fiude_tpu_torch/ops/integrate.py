@@ -46,6 +46,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 _ONE_THIRD = 1.0 / 3.0
 _TWO_THIRDS = 2.0 / 3.0
@@ -119,7 +120,8 @@ def rk4_38_step(rhs: Callable, t0, dt, y0: torch.Tensor, *, noise_seed=None, e0:
 
 
 def odeint_grid(rhs: Callable, y0: torch.Tensor, t, *, method: str = "rk4",
-                substeps: int = 1, noise_seed: Optional[int] = None
+                substeps: int = 1, noise_seed: Optional[int] = None,
+                checkpoint: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Integrate ``dy/dt = rhs(t, y)`` on the 1-D grid ``t`` (need not be
     uniform) with ``substeps`` equal steps of ``method`` an interval
@@ -133,6 +135,17 @@ def odeint_grid(rhs: Callable, y0: torch.Tensor, t, *, method: str = "rk4",
     dtype).  So a uniform float64 grid gives every float32 step the same
     ``dt``, as the fused kernels take it; a float32 grid of k/7 up to 12 would
     give steps that differ by ~5e-6 relative.
+
+    ``checkpoint``: rematerialize each interval in the backward pass
+    (``fiude_tpu/ops/integrate.py:198-199``, ``jax.checkpoint``): the
+    interval, its sub-steps included, runs under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, which keeps
+    only its input and recomputes its stages when the backward reaches it
+    (non-reentrant, so the interval may return the aux dict and take a ``y``
+    that needs no grad).  The recomputation is the same computation, so the
+    gradients are the unchecked path's bit for bit; a Bayes RHS redraws the
+    same noise, since it is counter-based (``(noise_seed, e)``), never drawn
+    from a generator's state.
 
     Returns ``(ys, aux)``: ``ys`` of shape ``(T,) + y0.shape`` with
     ``ys[0] == y0``; ``aux`` the stage-ordered aux, each leaf
@@ -148,18 +161,24 @@ def odeint_grid(rhs: Callable, y0: torch.Tensor, t, *, method: str = "rk4",
     if t.ndim != 1:
         raise ValueError("t must be 1-D")
     grid = t.tolist()
+
+    def interval(y, i, t0, t1):
+        if substeps == 1:
+            y1, aux = step(_bound(rhs, noise_seed, i * stages), t0, t1 - t0, y)
+            return y1, _stack(aux)
+        h, subs = (t1 - t0) / substeps, []
+        for j in range(substeps):
+            y, aux = step(_bound(rhs, noise_seed, (i * substeps + j) * stages), t0 + j * h, h, y)
+            subs.append(_stack(aux))
+        return y, _stack(subs)
+
     ys, auxs = [y0], []
     for i, (t0, t1) in enumerate(zip(grid[:-1], grid[1:])):
-        if substeps == 1:
-            y1, aux = step(_bound(rhs, noise_seed, i * stages), t0, t1 - t0, ys[-1])
-            aux = _stack(aux)
+        if checkpoint:
+            y1, aux = torch.utils.checkpoint.checkpoint(interval, ys[-1], i, t0, t1,
+                                                        use_reentrant=False)
         else:
-            h, y1, subs = (t1 - t0) / substeps, ys[-1], []
-            for j in range(substeps):
-                y1, aux = step(_bound(rhs, noise_seed, (i * substeps + j) * stages),
-                               t0 + j * h, h, y1)
-                subs.append(_stack(aux))
-            aux = _stack(subs)
+            y1, aux = interval(ys[-1], i, t0, t1)
         ys.append(y1)
         auxs.append(aux)
     return torch.stack(ys), (_stack(auxs) if auxs else None)

@@ -7,7 +7,8 @@ JAX package's workers) and file-locked results tables.  Works against a real
 ``Data/`` tree or ``--synthetic``.  ``--population`` trains each group of
 configs that differ only in ``num`` as one population
 (``parallel/sweep.py``); it ignores ``--padded`` and ``--fill-1``, as the
-JAX script does.
+JAX script does.  ``--summary`` prints the region x model table of the
+results (``scripts/summarize_results.py``) after the sweep.
 
 Examples:
     python -m fiude_tpu_torch.scripts.run_sweep --synthetic --regions US \\
@@ -23,6 +24,7 @@ from fiude_tpu_torch.models.vae import resolve_device
 from fiude_tpu_torch.parallel.sweep import (
     group_configs_for_population, run_population_experiment, run_work_queue,
 )
+from fiude_tpu_torch.scripts.summarize_results import format_summary, summarize
 from fiude_tpu_torch.train.experiment import run_experiment
 from fiude_tpu_torch.utils.config import grid
 from fiude_tpu_torch.utils.ledger import Ledger
@@ -77,6 +79,9 @@ def main(argv=None):
     ap.add_argument("--padded", action="store_true",
                     help="the masked curriculum: every stage on the one weekly grid, same "
                          "gradients")
+    ap.add_argument("--summary", action="store_true",
+                    help="print the aggregated region x model table (summarize_results) after "
+                         "the sweep")
     ap.add_argument("--population", action="store_true",
                     help="train same-shape config groups (the `nums` axis) as populations")
     ap.add_argument("--skip-done", action="store_true",
@@ -116,6 +121,7 @@ def main(argv=None):
                 print("population failed:", e, flush=True)
                 ledger.mark(key, "failed")
         print(f"processed {done}/{len(configs)} configs (population mode)")
+        print_summary(args, results_file)
         return
 
     def worker(cfg):
@@ -130,6 +136,19 @@ def main(argv=None):
     results = run_work_queue(configs, worker, ledger=ledger)
     done = sum(1 for r in results if r is not None)
     print(f"processed {done}/{len(configs)} configs")
+    print_summary(args, results_file)
+
+
+def print_summary(args, results_file: str) -> None:
+    """With ``--summary``, the results table's region x model summary."""
+    if not args.summary:
+        return
+    csv_path = results_file + ".csv"
+    if not os.path.exists(csv_path):
+        print(f"--summary: no results at {csv_path}")
+        return
+    columns, _, rows = read_table(csv_path)
+    print(format_summary(summarize(columns, rows)))
 
 
 if __name__ == "__main__":

@@ -234,9 +234,14 @@ class Trainer:
 
     def set_prior_std(self, new_std: float = 0.1):
         """Change the variational-weight prior std of a Bayes RHS (reference
-        lib/VAE.py:103-110; ``update_priors`` in the JAX package)."""
+        lib/VAE.py:103-110): every later step's ``ode_kl`` reads it, on the
+        device-resident epoch and the lone step alike.  A deterministic
+        family has none to change."""
         if self.model.is_bayes:
             self.model.ode.prior_std = new_std
+
+    #: the JAX package's name (``fiude_tpu/train/trainer.py:266``)
+    update_priors = set_prior_std
 
     def next_noise_seed(self, generator: Optional[torch.Generator] = None) -> int:
         """A weight-noise seed in [0, 2^31 - 1) from ``generator`` (the

@@ -193,6 +193,7 @@ def test_port_and_chip_smoke_import_no_jax_or_pandas():
         "sys.modules['jax'] = None\n"
         "sys.modules['pandas'] = None\n"
         "sys.modules['filelock'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
         "import fiude_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(fiude_tpu_torch.__path__,"
         " 'fiude_tpu_torch.')]\n"
@@ -202,11 +203,14 @@ def test_port_and_chip_smoke_import_no_jax_or_pandas():
         " 'train.experiment', 'data.builder', 'data.tables', 'data.regions',"
         " 'utils.ledger', 'parallel.sweep', 'scripts.run_sweep', 'scripts.tune_worker',"
         " 'scripts.run_transfer', 'scripts.make_tuning_grid',"
-        " 'scripts.rerun_best_tuning', 'ops.adjoint', 'scripts.tune_encoders'):\n"
+        " 'scripts.rerun_best_tuning', 'ops.adjoint', 'scripts.tune_encoders',"
+        " 'data.legacy', 'data.embedding', 'utils.logging', 'utils.latent_ode',"
+        " 'scripts.validate_data_tree', 'scripts.summarize_results',"
+        " 'scripts.demo_accuracy', 'scripts.bayes_workflow'):\n"
         "    assert 'fiude_tpu_torch.' + new in names, new\n"
         "import chip_smoke\n"
         "assert not any(m in ('fiude_tpu', 'pandas', 'filelock')"
-        " or m.startswith(('fiude_tpu.', 'jax'))"
+        " or m.startswith(('fiude_tpu.', 'jax', 'matplotlib'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
