@@ -5,9 +5,9 @@ kernels' other modes (phases 13-15), the experiment recipes (phase 16), the
 device-resident training epoch (phase 17), real data through the recipes
 with ``fused_train`` on the plain solver (phase 18), the sweep path's
 populations and command line (phase 19), the other encoders, the adaptive
-solvers and the encoder comparison (phase 20), and the legacy pipeline, the
+solvers and the encoder comparison (phase 20), the legacy pipeline, the
 tree validator, the demo and Bayes-workflow commands and solver remat (phase
-21).
+21), and the sharded paths over several ranks (phase 22).
 
     python3 chip_smoke.py
 
@@ -195,7 +195,29 @@ no result, when there is no card.  Phases, each printing its lines:
     ``Trainer`` step at 32 x 64 over 8 weekly points and over 85 daily points
     (``bench.py:272-336``'s grid) with ``checkpoint_solver`` off and on, in
     turns, twice: gradients and loss bit for bit, the peak device memory above
-    the model and the host ms of each.
+    the model and the host ms of each;
+22. several ranks (``fiude_tpu_torch/parallel/``), which the card's machine
+    rehearses on its one card: (a) a world of 2 ranks on it through gloo
+    (``parallel/launch.py::run_world``: forked ranks, a ``FileStore``;
+    NCCL takes one rank a device): ``ShardedFusedForecaster`` on a 2-way
+    sample mesh, 32 windows x 64 samples, T = 85, in float32 (held to the
+    one-process ``FusedForecaster`` on the same eps at the serving tolerance
+    on the held rows) and bfloat16 (phase 15's rule for an 85-point
+    request), and ``make_fused_sharded_train_step`` for UONN in stats and
+    aux-streaming mode and for UONNb, 32 x 64 over 8 weekly points, 32 x 32
+    systems a rank, each rank's first step held to the one-process step on
+    the same eps and seed (metrics rel 2e-4, the all-reduced gradient to the
+    gradient bound, the post-Adam parameters as phase 6 holds them), each
+    rank's launch counters read around every step and request (K3, K5, K6,
+    K4; UONNb K3, the draw, K8, K9, K4; K1, K2 a request); then
+    ``run_sweep --population --fused-train`` on phase 19's grid cut to 2
+    members under ``torchrun --standalone --nproc-per-node 2`` (gloo, both
+    ranks on the card), each member's weights bit for bit a one-process
+    population's and one row a member; (b) a 1-rank NCCL world's fused UONN
+    step, held the same way; (c) with two cards, (a)'s float32 request and
+    UONN step over NCCL with a card a rank, otherwise one line saying why
+    not; (d) the host ms of each sharded step and request beside the one
+    process's, a rehearsal on one shared card, not a scaling figure.
 
 Every kernel's line carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -3465,6 +3487,275 @@ def phase_21(dev, rng, smi, tree_root):
         f"{took[2] - took[1]:.1f}, (c) {took[3] - took[2]:.1f}, (d) {took[4] - took[3]:.1f}")
 
 
+# -- phase 22: several ranks: sharded serving and training, a population over a mesh ---------
+
+RANKS = 2             # the rehearsal world: two ranks on the one card
+RANK_STEPS = 4        # a held first step or request, then three more timed
+POP_RANK_NUMS = POP_NUMS[:2]
+# The sweep command as torchrun starts each rank, with jax and pandas blocked.
+_RANK_SWEEP = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["pandas"] = None
+runpy.run_module("fiude_tpu_torch.scripts.run_sweep", run_name="__main__", alter_sys=True)
+"""
+
+
+def rank_cases(dev, rng):
+    """Phase 22's cases on the ``state`` preset, seeded weights and numpy inputs:
+    {name: Case} for the float32 and bfloat16 sharded requests (32 windows x 64
+    samples, T = 85) and the fused steps of UONN in stats and aux-streaming mode
+    and of UONNb (32 x 64 over 8 weekly points), each over a 2-way sample mesh;
+    the steps' eps kept off the freeze bounds (``held_eps``)."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.parallel.rehearsal import Case
+    from fiude_tpu_torch.train import checkpoint as ckpt
+    axes = (("sample", RANKS),)
+    out = {}
+    for ode_name in ("FaFp", "UONNb"):
+        config = dict(STATE, ode_name=ode_name)
+        model = UDEForecaster.build(device=dev, generator=torch.Generator().manual_seed(SEED + 71),
+                                    **config)
+        weights = {k: v for part in ckpt.PARTS for k, v in ckpt.flat_from_module(model,
+                                                                                part).items()}
+        if ode_name == "FaFp":
+            x = rng.uniform(0, 1, (BATCH, T_IN, model.encoder.input_size)).astype(np.float32)
+            eps = rng.standard_normal((SAMPLES, BATCH, model.n_regions,
+                                       model.encoder.latent_dim)).astype(np.float32)
+            grid = np.arange(T_OUT) * DT
+            for dtype in ("float32", "bfloat16"):
+                out[f"request {dtype}"] = Case("fused_forecast", axes, config, weights, x, None,
+                                               grid, eps, steps=RANK_STEPS, compute_dtype=dtype)
+        x, y = training_inputs(model, rng, BATCH)
+        seed = SEED + 31 if ode_name == "UONNb" else None
+        eps = held_eps(model, torch.tensor(x, device=dev), rng, noise_seed=seed).cpu().numpy()
+        modes = ((True, "UONNb"),) if ode_name == "UONNb" else ((True, "UONN stats"),
+                                                                (False, "UONN aux-streaming"))
+        for stats, name in modes:
+            out[name] = Case("fused_step", axes, dict(config, fused_train=True, fused_stats=stats),
+                             weights, x, y, np.arange(WEEKS, dtype=np.float64), eps,
+                             family="UONNb" if ode_name == "UONNb" else "UONN",
+                             ode_kl_w=ODE_KL_W if ode_name == "UONNb" else None,
+                             noise_seed=seed, steps=RANK_STEPS)
+    return out
+
+
+def hold_rank_launches(tag, launches, want):
+    """Every listed kernel once in each step or request of a rank."""
+    for i, got in enumerate(launches):
+        if any(got[k] != 1 for k in want):
+            raise RuntimeError(f"{tag}, step {i}: launches {got}, expected {want} once each")
+
+
+def hold_rank_step(tag, got, ref):
+    """A rank's first step against the one-process step: every metric within
+    rel 2e-4, every parameter's gradient to the gradient bound, the post-Adam
+    parameters as phase 6 holds them.  Returns the largest metric rel."""
+    import numpy as np
+    import torch
+    worst = 0.0
+    for k, v in sorted(ref["metrics"][0].items()):
+        rel = abs(got["metrics"][0][k] - v) / max(abs(v), 1e-30)
+        worst = max(worst, rel)
+        if rel > 2e-4:
+            raise RuntimeError(f"{tag}: metric {k} {got['metrics'][0][k]!r} vs the one-process "
+                               f"{v!r}, rel {rel:.3g}")
+    at, grad_err, small = 0, 0.0, 0
+    for name, shape in ref["shapes"].items():
+        n = int(np.prod(shape))
+        g, g_ref = (torch.from_numpy(r["grad"][at:at + n]) for r in (got, ref))
+        p, p_ref = (torch.from_numpy(r["flat"][at:at + n]) for r in (got, ref))
+        at += n
+        bound = GRAD_RTOL * g_ref.abs().max().item() + GRAD_ATOL
+        err = (g - g_ref).abs().max().item()
+        grad_err = max(grad_err, err / bound)
+        if err > bound:
+            raise RuntimeError(f"{tag}: d/d {name} off by {err:.3g}, bound {bound:.3g}")
+        under = g_ref.abs() <= bound
+        small += int(under.sum())
+        p_bound = torch.where(under, torch.full_like(p_ref, 2 * LR), 1e-6 + 1e-4 * p_ref.abs())
+        if ((p - p_ref).abs() > p_bound).any():
+            raise RuntimeError(f"{tag}: post-Adam {name} disagrees")
+    log(f"  {tag}: metrics within rel {worst:.3g} of the one-process step; the all-reduced "
+        f"gradient within {grad_err:.3g} of its bound (2e-3 max|ref| + 1e-5, by parameter); "
+        f"post-Adam parameters agree ({small} entries with a reference gradient under the "
+        f"bound held to {2 * LR:g})")
+    return worst
+
+
+def hold_rank_request(tag, got, ref, ref32, served, case):
+    """A rank's sharded request against the one-process request: float32 at the
+    serving tolerance on the held rows, bfloat16 by phase 15's rule for an
+    85-point request (its bulk against the mode's own deviation from float32).
+    Returns the max abs difference over every entry."""
+    import torch
+    from fiude_tpu_torch.models.vae import reparam
+    y, y_ref = torch.from_numpy(got["y"]), torch.from_numpy(ref["y"])
+    diff = (y - y_ref).abs().max().item()
+    if case.compute_dtype == "float32":
+        dev = next(served.parameters()).device
+        x, eps = torch.tensor(case.x, device=dev), torch.tensor(case.eps, device=dev)
+        with torch.no_grad():
+            mean, std = served.encoder(x)
+        z = reparam(eps, std, mean) + served.ic_jitter
+        rows = held_rows(served.rhs_fn(1.0), z, case.t).reshape(SAMPLES, BATCH).T.reshape(-1)
+        flat = (BATCH * SAMPLES, T_OUT, served.n_regions)
+        compare(f"{tag} vs the one-process request", y.reshape(flat).transpose(0, 1),
+                y_ref.reshape(flat).transpose(0, 1), rows.cpu())
+    else:
+        e, m = (y - y_ref).abs(), (y - torch.from_numpy(ref32["y"])).abs()
+        log(f"  {tag} vs the one-process bfloat16 request: median abs err {e.median().item():.3g}"
+            f", max {e.max().item():.3g}; the mode's own deviation from float32: median "
+            f"{m.median().item():.3g}, max {m.max().item():.3g}")
+        if not torch.isfinite(y).all() or e.max() > 2 * m.max() \
+                or e.median() > BF16_BULK["K2"] * m.median():
+            raise RuntimeError(f"{tag}: beyond phase 15's rule for an 85-point request")
+    log(f"  {tag}: max abs difference from the one-process request over every entry {diff!r}")
+    return diff
+
+
+def rank_population(dev, smi):
+    """Phase 22 (a)'s population: the sweep command with ``--population
+    --fused-train`` on phase 19's grid cut to 2 members, under ``torchrun
+    --standalone --nproc-per-node 2`` on the one card (gloo), jax and pandas
+    blocked; each member's weights against a one-process population of the
+    same 2 members bit for bit, each row in the table once."""
+    import numpy as np
+    import torch
+    from fiude_tpu_torch.parallel import run_population_experiment
+    from fiude_tpu_torch.utils.config import ExperimentConfig
+    from fiude_tpu_torch.utils.results import read_table
+    group = [ExperimentConfig(region="state", ode_name="UONN", epochs=4, window_size=28,
+                              gamma=28, num=n) for n in POP_RANK_NUMS]
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = ["--synthetic", "--population", "--fused-train", "--regions", "state", "--models",
+            "UONN", "--seasons", "2016", "--epochs", "4", "--windows", "28", "--gammas", "28",
+            "--nums", *map(str, POP_RANK_NUMS), "--device", "cuda:0", "--backend", "gloo",
+            "--out", "results_table"]
+    with tempfile.TemporaryDirectory() as tmp:
+        script = f"{tmp}/rank_sweep.py"
+        with open(script, "w") as fh:
+            fh.write(_RANK_SWEEP)
+        os.makedirs(f"{tmp}/ranks")
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                              "--nproc-per-node", str(RANKS), script, *args, "--work-dir",
+                              f"{tmp}/ranks"], cwd=root, capture_output=True, text=True,
+                             env=dict(os.environ, PYTHONPATH=root), timeout=600)
+        seconds = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise RuntimeError(f"torchrun run_sweep failed ({out.returncode}):\n"
+                               f"{out.stderr[-6000:]}")
+        lines = [ln for ln in out.stdout.splitlines() if ln.strip()]
+        for line in lines:
+            log(f"    | {line}")
+        if lines.count(f"processed {len(group)}/{len(group)} configs (population mode)") != 1:
+            raise RuntimeError("the ranks' sweep did not report its population once")
+        _, _, rows = read_table(f"{tmp}/ranks/results_table.csv")
+        if sorted(r.get("num") for r in rows) != list(POP_RANK_NUMS):
+            raise RuntimeError(f"the results table holds rows {[r.get('num') for r in rows]}")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run_population_experiment(group, synthetic=True, fused_train=True,
+                                  weights_root=f"{tmp}/alone", device=dev)
+        torch.cuda.synchronize()
+        alone = time.perf_counter() - t1
+        worst, n = 0.0, 0
+        for cfg in group:
+            for part in ("enc", "ode", "dec"):
+                a = np.load(f"{tmp}/ranks/weights/{cfg.key}{part}.npz")
+                b = np.load(f"{tmp}/alone/weights/{cfg.key}{part}.npz")
+                if set(a.files) != set(b.files):
+                    raise RuntimeError(f"member {cfg.num}: the {part} checkpoints differ")
+                for k in a.files:
+                    worst = max(worst, float(np.abs(a[k] - b[k]).max()))
+                    n += 1
+    log(f"  population of {len(group)} over {RANKS} ranks (torchrun, gloo, one card): "
+        f"{seconds:.4f} s for the command (process starts included), one row a member; "
+        f"each member against the one-process population of the same members ({alone:.4f} s): "
+        f"{n} arrays, max abs diff {worst} [{smi}]")
+    if worst != 0.0:
+        raise RuntimeError("a member trained over the ranks is not its one-process member")
+
+
+def phase_22(dev, rng, smi):
+    """Phase 22: (a) a world of 2 ranks on the one card (gloo): the sharded
+    requests, the fused sharded steps and the population command; (b) a 1-rank
+    NCCL world's fused step; (c) the same over NCCL with a card a rank, where
+    the machine has two; (d) the times."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from fiude_tpu_torch.models import UDEForecaster
+    from fiude_tpu_torch.parallel.launch import run_world
+    from fiude_tpu_torch.parallel.rehearsal import run_case, run_cases
+    took = [time.perf_counter()]
+    cases = rank_cases(dev, rng)
+    names = list(cases)
+    refs = {n: run_case(c, dev) for n, c in cases.items()}
+    served = UDEForecaster.build(device=dev, generator=torch.Generator().manual_seed(SEED + 71),
+                                 **dict(STATE, ode_name="FaFp"))
+    want = {"request float32": ("K1", "K2"), "request bfloat16": ("K1", "K2"),
+            "UONN stats": ("K3", "K5", "K6", "K4"), "UONN aux-streaming": ("K3", "K5", "K6", "K4"),
+            "UONNb": ("K3", "draw", "K8", "K9", "K4")}
+
+    def hold(tag, results, held):
+        for r, got in enumerate(results):
+            for n in held:
+                hold_rank_launches(f"{tag} rank {r}, {n}", got[n]["launches"], want[n])
+                if n.startswith("request"):
+                    hold_rank_request(f"{tag} rank {r}, {n}", got[n], refs[n],
+                                      refs["request float32"], served, cases[n])
+                else:
+                    hold_rank_step(f"{tag} rank {r}, {n}", got[n], refs[n])
+            log(f"  {tag} rank {r}: launches each step or request "
+                f"{ {n: got[n]['launches'][0] for n in held} }")
+
+    log(f"  (a) {RANKS} ranks on one card through gloo: NCCL takes one rank a device, and "
+        f"gloo carries all_reduce, broadcast and all_gather of CUDA tensors through the host")
+    world = run_world(RANKS, run_cases, [cases[n] for n in names], str(dev), device=str(dev),
+                      backend="gloo", timeout=600)
+    ranks = [dict(zip(names, rank)) for rank in world]
+    hold(f"{RANKS}-rank gloo world", ranks, names)
+    took.append(time.perf_counter())
+    rank_population(dev, smi)
+    took.append(time.perf_counter())
+
+    log("  (b) a 1-rank world through the library's default backend on a card (NCCL)")
+    one = dataclasses.replace(cases["UONN stats"], axes=(("sample", 1),))
+    nccl = run_world(1, run_cases, [one], str(dev), device=str(dev), timeout=600)
+    hold("1-rank NCCL world", [{"UONN stats": nccl[0][0]}], ["UONN stats"])
+    took.append(time.perf_counter())
+
+    if torch.cuda.device_count() >= 2:
+        devices = [f"cuda:{r}" for r in range(RANKS)]
+        log(f"  (c) {RANKS} ranks over NCCL, a card a rank ({', '.join(devices)})")
+        held = ["request float32", "UONN stats"]
+        multi = run_world(RANKS, run_cases, [cases[n] for n in held], devices, device=devices,
+                          timeout=600)
+        hold(f"{RANKS}-rank NCCL world", [dict(zip(held, rank)) for rank in multi], held)
+    else:
+        log(f"  (c) not run: {torch.cuda.device_count()} card on this machine; NCCL over "
+            f"several cards needs one a rank")
+    took.append(time.perf_counter())
+
+    log(f"  (d) host ms (median of steps or requests 2-{RANK_STEPS}, each ending in a "
+        f"synchronize), {RANKS} ranks sharing one card beside one process: a rehearsal on one "
+        f"shared card, not a scaling figure [{smi}]")
+    for n in names:
+        sharded = [statistics.median(rank[n]["ms"][1:]) for rank in ranks]
+        alone = statistics.median(refs[n]["ms"][1:])
+        log(f"    {n}: one process {alone:.4f} ms; sharded over {RANKS} ranks "
+            + ", ".join(f"rank {r} {v:.4f} ms" for r, v in enumerate(sharded)) + f" [{smi}]")
+    if dist.is_initialized():
+        raise RuntimeError("phase 22 left a process group in the parent")
+    log(f"  phase 22 took {took[-1] - took[0]:.1f} s: (a) steps and requests "
+        f"{took[1] - took[0]:.1f}, population {took[2] - took[1]:.1f}, (b) "
+        f"{took[3] - took[2]:.1f}, (c) {took[4] - took[3]:.1f}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3830,6 +4121,12 @@ def main() -> int:
         "config under fused_train, run_sweep --summary; bayes_workflow with update_priors, "
         "plain and fused; checkpoint_solver off and on")
     phase_21(dev, rng, smi, f"{tree_dir}/Data")
+
+    # -- 22. several ranks: sharded serving and training, a population over a mesh ----------
+    log(f"phase 22: {RANKS} ranks (parallel/): ShardedFusedForecaster in float32 and bfloat16, "
+        f"make_fused_sharded_train_step for UONN (stats, aux-streaming) and UONNb, each held to "
+        f"one process; run_sweep --population over {RANKS} ranks; a 1-rank NCCL world; times")
+    phase_22(dev, rng, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms=None,
               **extra):

@@ -650,16 +650,20 @@ class FusedForecaster:
         self.rounded = bf16_matrices(self.weights) if is_bf16(compute_dtype) else None
 
     @torch.no_grad()
-    def __call__(self, x: torch.Tensor, t, eps: torch.Tensor) -> torch.Tensor:
-        """x: (B, T_in, F); t: uniform (T,) grid; eps: (S, B, R, Le)."""
+    def solve(self, x: torch.Tensor, eps: torch.Tensor, T: int, dt: float) -> torch.Tensor:
+        """Encode ``x`` and run the decoded trajectories of ``eps``'s draws:
+        (T, S*B, R), the samples folded s-major into the rows."""
         from fiude_tpu_torch.models.vae import reparam  # models import ops: import late
 
-        dt = uniform_step(t)
-        T = len(t)
-        n_samples, batch = eps.shape[0], eps.shape[1]
         mean, std = self.encoder(x)
         z = reparam(eps, std, mean) + self.model.ic_jitter
-        y = trajectory_decode(z, self.weights, T=T, dt=dt, fa_w=self.fa_w,
-                              compute_dtype=self.compute_dtype, rounded=self.rounded)
+        return trajectory_decode(z, self.weights, T=T, dt=dt, fa_w=self.fa_w,
+                                 compute_dtype=self.compute_dtype, rounded=self.rounded)
+
+    def __call__(self, x: torch.Tensor, t, eps: torch.Tensor) -> torch.Tensor:
+        """x: (B, T_in, F); t: uniform (T,) grid; eps: (S, B, R, Le)."""
+        T = len(t)
+        n_samples, batch = eps.shape[0], eps.shape[1]
+        y = self.solve(x, eps, T, uniform_step(t))
         y = y.reshape(T, n_samples, batch, self.model.n_regions)
         return y.permute(2, 1, 0, 3)

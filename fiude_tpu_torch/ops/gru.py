@@ -61,6 +61,10 @@ class RecurrentLayer(nn.Module):
         """``x @ W_ih^T + b_ih`` over any leading dims."""
         return x @ self.weight_ih_l0.T + self.bias_ih_l0
 
+    def hidden_projection(self, h: torch.Tensor) -> torch.Tensor:
+        """``h @ W_hh^T + b_hh``: a step's recurrent projection."""
+        return h @ self.weight_hh_l0.T + self.bias_hh_l0
+
 
 class GRULayer(RecurrentLayer):
     """One GRU layer: ``weight_ih_l0`` (3H, I), ``weight_hh_l0`` (3H, H),
@@ -88,7 +92,7 @@ def gru_gates(x_proj: torch.Tensor, h_proj: torch.Tensor, h: torch.Tensor) -> to
 
 def gru_cell(layer: GRULayer, h: torch.Tensor, x_proj: torch.Tensor) -> torch.Tensor:
     """One GRU step given the precomputed input projection ``x @ W_ih^T + b_ih``."""
-    return gru_gates(x_proj, h @ layer.weight_hh_l0.T + layer.bias_hh_l0, h)
+    return gru_gates(x_proj, layer.hidden_projection(h), h)
 
 
 def gru_stack_last(layers: Sequence[GRULayer], x: torch.Tensor) -> torch.Tensor:
@@ -142,7 +146,7 @@ def lstm_cell(layer: LSTMLayer, carry, x_proj: torch.Tensor):
     """One LSTM step ``(h, c) -> (h', c')`` given the precomputed input
     projection ``x @ W_ih^T + b_ih``."""
     h, c = carry
-    i, f, g, o = (x_proj + (h @ layer.weight_hh_l0.T + layer.bias_hh_l0)).chunk(4, dim=-1)
+    i, f, g, o = (x_proj + layer.hidden_projection(h)).chunk(4, dim=-1)
     c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     return torch.sigmoid(o) * torch.tanh(c), c
 

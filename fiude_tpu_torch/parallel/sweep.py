@@ -26,9 +26,13 @@ file-locked ledgers (``run_stuff_linux.sh:3-6``, ``run_ode.py:106-119``).
 * :func:`run_work_queue`: the host-side queue over heterogeneous configs,
   with the reference's claim / mark ledger protocol.
 
+With a ``mesh`` (``parallel/mesh.py::config_mesh``),
+:func:`run_population_experiment` splits a group's members over the mesh's
+ranks in contiguous blocks, as ``P("config")`` splits the JAX package's
+stacked member axis: each rank trains its block, rank 0 writes every row.
+
 Not ported: ``stack_trees`` / ``unstack_tree`` (nothing is stacked: a member
-is a module of its own) and the ``mesh`` argument (the member axis sharded
-over devices waits for the multi-device slice, ROADMAP.md, queue A, item 8).
+is a module of its own).
 """
 
 from __future__ import annotations
@@ -36,13 +40,17 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fiude_tpu_torch.data.loader import ArrayLoader
 from fiude_tpu_torch.models.vae import UDEForecaster
+from fiude_tpu_torch.parallel.distributed import is_primary_host
+from fiude_tpu_torch.parallel.mesh import Mesh
 from fiude_tpu_torch.train.checkpoint import save_params
 from fiude_tpu_torch.train.experiment import _build_data, daily_grid
 from fiude_tpu_torch.train.losses import TRAINING_INFO, AnnealConfig, LossConfig
@@ -195,6 +203,7 @@ def run_population_experiment(group: Sequence[Any], *,
                               synthetic: bool = False,
                               weights_root: str = ".",
                               results_file: Optional[str] = None,
+                              mesh: Optional[Mesh] = None,
                               fused_train: bool = False,
                               seed: int = 0,
                               device=None) -> List[Dict]:
@@ -209,15 +218,65 @@ def run_population_experiment(group: Sequence[Any], *,
     ``weights_root/weights/<key>{enc,ode,dec}.npz``; its test forecast (128
     samples over the daily grid, through the model's own forward, with
     ``fa_w`` 1 as ``model.apply`` defaults it) draws from
-    :func:`forecast_generator`; each row is upserted into ``results_file``."""
+    :func:`forecast_generator`; each row is upserted into ``results_file``.
+
+    ``mesh``: the members split over its ranks (its one axis, ``config``) in
+    contiguous blocks; every rank of the mesh calls this with the same
+    arguments.  Each rank trains and saves its own members, which are bit for
+    bit what a one-process population gives them (a member is a module of its
+    own, its draws its own generator's); the results are gathered to every
+    rank, rank 0 writing the rows, and a failure on any rank raises on all.
+    The fused member step stays on the mesh: the JAX package keeps its mesh
+    population on the XLA path only because Mosaic cannot batch the Pallas
+    pair under ``vmap`` (``:104-112``), and the port stacks nothing.
+    Returns every member's results, in ``group``'s order.
+    """
+    members = range(len(group))
+    if mesh is not None:
+        axis = mesh.axis_names[0]
+        n, k = mesh.size(axis), mesh.index(axis)
+        members = [m for m in members if m * n // len(group) == k]
+    try:
+        results = _train_members(group, list(members), data_root=data_root,
+                                 synthetic=synthetic, weights_root=weights_root,
+                                 fused_train=fused_train, seed=seed, device=device)
+    except Exception:
+        if mesh is None:
+            raise
+        results = traceback.format_exc()
+    if mesh is not None:
+        everyone = [None] * mesh.size(axis)
+        dist.all_gather_object(everyone, results, group=mesh.group(axis))
+        failed = [r for r in everyone if isinstance(r, str)]
+        if failed:
+            raise RuntimeError(f"a population member failed on {len(failed)} rank(s):\n"
+                               f"{failed[0]}")
+        results = {m: v for r in everyone for m, v in r.items()}
+    if results_file is not None and is_primary_host():
+        for m, cfg in enumerate(group):
+            upsert_results_row(results_file,
+                               {"epochs": cfg.epochs, "gamma": cfg.gamma,
+                                "ode_name": cfg.ode_name, "region": cfg.region,
+                                "latent_dim": cfg.latent_dim,
+                                "window_size": cfg.window_size, "num": cfg.num},
+                               results[m])
+    return [results[m] for m in range(len(group))]
+
+
+def _train_members(group: Sequence[Any], members: List[int], *, data_root, synthetic,
+                   weights_root, fused_train, seed, device) -> Dict[int, Dict]:
+    """Train ``group``'s members ``members`` as one population, save their
+    weights and return their results by member index."""
+    if not members:
+        return {}
     cfg0 = group[0]
     x_tr, y_tr, x_te, y_te, scaler = _build_data(cfg0, data_root, synthetic, seed=seed)
     loader = ArrayLoader(x_tr, y_tr, batch_size=cfg0.batch_size, seed=seed)
     build = functools.partial(UDEForecaster.build, **cfg0.model_kwargs(), fused_train=fused_train,
                               fused_stats=fused_train, device=device)
     pop = PopulationTrainer(
-        build, len(group), TRAINING_INFO[cfg0.ode_name], lr=cfg0.lr, seed=seed,
-        member_seeds=[seed + c.num for c in group],
+        build, len(members), TRAINING_INFO[cfg0.ode_name], lr=cfg0.lr, seed=seed,
+        member_seeds=[seed + group[m].num for m in members],
         ode_kl_w=1 / 153 if cfg0.ode_name.endswith("b") else None)
 
     t = daily_grid(cfg0)
@@ -228,23 +287,15 @@ def run_population_experiment(group: Sequence[Any], *,
         pop.train(loader, t[: eval_pts[-1] + 1], epochs_per_cycle, eval_pts,
                   n_samples=cfg0.n_samples, grad_lim=cfg0.grad_lim)
 
-    results = []
-    for m, cfg in enumerate(group):
-        member = pop.members[m]
+    results = {}
+    for member, m in zip(pop.members, members):
+        cfg = group[m]
         save_params(os.path.join(weights_root, "weights", cfg.key), member.model)
         y_pred = member.forecast(x_te, t, n_samples=128, fa_w=1.0,
                                  generator=forecast_generator(seed, m, member.device))
-        values = evaluate_forecast(y_pred.cpu().numpy(), np.asarray(y_te[:, : len(t)]),
-                                   np.asarray(scaler), window_size=cfg.window_size,
-                                   test_season=cfg.test_season)
-        if results_file is not None:
-            upsert_results_row(results_file,
-                               {"epochs": cfg.epochs, "gamma": cfg.gamma,
-                                "ode_name": cfg.ode_name, "region": cfg.region,
-                                "latent_dim": cfg.latent_dim,
-                                "window_size": cfg.window_size, "num": cfg.num},
-                               values)
-        results.append(values)
+        results[m] = evaluate_forecast(y_pred.cpu().numpy(), np.asarray(y_te[:, : len(t)]),
+                                       np.asarray(scaler), window_size=cfg.window_size,
+                                       test_season=cfg.test_season)
     return results
 
 

@@ -10,17 +10,41 @@ configs that differ only in ``num`` as one population
 JAX script does.  ``--summary`` prints the region x model table of the
 results (``scripts/summarize_results.py``) after the sweep.
 
+Under ``torchrun`` (``MASTER_ADDR``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``
+set) the ranks make one process group (``parallel/distributed.py``), each on
+``cuda:LOCAL_RANK`` unless ``--device`` names its device, NCCL on a card
+unless ``--backend`` names another.  With ``--population`` rank 0 claims
+each group in the ledger and tells the others; a group of ``n > 1``
+members on a world of at least ``n`` ranks is split over a ``config`` mesh
+of its ``n`` first ranks (the JAX script's rule, ``scripts/run_sweep.py:
+136``), any other group trains on rank 0; rank 0 writes the rows.  The
+config mesh of each group size is made once, in the same order on every
+rank (a mesh's process groups live as long as the world).  A rank with no
+place in a group waits in the next claim's broadcast while the group
+trains, for hours at the default epochs: so the sweep's process group waits
+``SWEEP_TIMEOUT`` (a year) where the library waits ten minutes
+(``distributed.TIMEOUT``).  A rank that fails hangs no one: torchrun stops
+every rank of the world when one exits with an error.  Without
+``--population`` every rank runs the queue and the ledger shares the
+configs out.
+
 Examples:
     python -m fiude_tpu_torch.scripts.run_sweep --synthetic --regions US \\
         --nums 1 2 --seasons 2016 --epochs 24 --windows 7 --gammas 28
     python -m fiude_tpu_torch.scripts.run_sweep --synthetic --population \\
         --fused-train --skip-done --regions state --models UONN \\
         --seasons 2016 --epochs 4 --windows 28 --gammas 28 --nums 15 16 17
+    torchrun --nproc-per-node 2 -m fiude_tpu_torch.scripts.run_sweep \\
+        --synthetic --population --fused-train --regions state --models UONN \\
+        --seasons 2016 --epochs 4 --windows 28 --gammas 28 --nums 15 16
 """
 import argparse
+import datetime
 import os
 
 from fiude_tpu_torch.models.vae import resolve_device
+from fiude_tpu_torch.parallel import distributed
+from fiude_tpu_torch.parallel.mesh import config_mesh
 from fiude_tpu_torch.parallel.sweep import (
     group_configs_for_population, run_population_experiment, run_work_queue,
 )
@@ -29,6 +53,10 @@ from fiude_tpu_torch.train.experiment import run_experiment
 from fiude_tpu_torch.utils.config import grid
 from fiude_tpu_torch.utils.ledger import Ledger
 from fiude_tpu_torch.utils.results import read_table
+
+#: How long a rank of the sweep's process group waits for its peers: a rank
+#: outside a population's mesh waits while the population trains.
+SWEEP_TIMEOUT = datetime.timedelta(days=365)
 
 #: A results row's identity (``run_experiment``'s ``variables``).
 ROW_KEYS = ("epochs", "gamma", "ode_name", "region", "latent_dim", "window_size", "num")
@@ -88,11 +116,24 @@ def main(argv=None):
                     help="drop configs whose (config, season) cell already has an NLL in the "
                          "output CSV: resumable from the results table when the ledger is gone")
     ap.add_argument("--device", default=None,
-                    help="torch device (the card when omitted; `cpu` runs the kernels' plain "
-                         "twins)")
+                    help="torch device (the card when omitted, cuda:LOCAL_RANK under torchrun; "
+                         "`cpu` runs the kernels' plain twins)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the process group's backend under torchrun (NCCL on a card, gloo on "
+                         "the CPU when omitted; gloo lets ranks share one card)")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    if distributed.initialize(backend=args.backend, device=args.device, timeout=SWEEP_TIMEOUT):
+        device = distributed.rank_device(args.device)
+    else:
+        device = resolve_device(args.device)
+    try:
+        sweep(args, device)
+    finally:
+        distributed.shutdown()
 
+
+def sweep(args, device) -> None:
+    """The sweep of ``main``'s arguments on ``device`` (this rank's)."""
     configs = grid(region=args.regions, epochs=args.epochs, window_size=args.windows,
                    gamma=args.gammas, latent_dim=[8], num=args.nums,
                    test_season=args.seasons, ode_name=args.models)
@@ -105,23 +146,38 @@ def main(argv=None):
     ledger = Ledger(os.path.join(args.work_dir, args.ledger))
 
     if args.population:
+        primary = distributed.is_primary_host()
+        meshes = {}                 # one config mesh a group size
         done = 0
         for g in group_configs_for_population(configs):
             key = g[0].key + f"_pop{len(g)}"
-            if not ledger.claim(key):
+            if not distributed.broadcast_from_primary(ledger.claim(key) if primary else None):
                 continue
-            print("population:", [c.key for c in g], flush=True)
+            mesh = None
+            if distributed.world_size() >= len(g) > 1:
+                if len(g) not in meshes:
+                    meshes[len(g)] = config_mesh(len(g))
+                    if primary:
+                        print(f"config mesh of {len(g)} ranks", flush=True)
+                mesh = meshes[len(g)]
+            if mesh is None and not primary or mesh is not None and not mesh.is_member:
+                continue
+            if primary:
+                print("population:", [c.key for c in g], flush=True)
             try:
                 run_population_experiment(g, data_root=args.data_root, synthetic=args.synthetic,
                                           weights_root=args.work_dir, results_file=results_file,
-                                          fused_train=args.fused_train, device=device)
-                ledger.mark(key, "finished")
+                                          mesh=mesh, fused_train=args.fused_train, device=device)
+                if primary:
+                    ledger.mark(key, "finished")
                 done += len(g)
             except Exception as e:
-                print("population failed:", e, flush=True)
-                ledger.mark(key, "failed")
-        print(f"processed {done}/{len(configs)} configs (population mode)")
-        print_summary(args, results_file)
+                if primary:
+                    print("population failed:", e, flush=True)
+                    ledger.mark(key, "failed")
+        if primary:
+            print(f"processed {done}/{len(configs)} configs (population mode)")
+            print_summary(args, results_file)
         return
 
     def worker(cfg):

@@ -22,8 +22,10 @@ reach the terms as tensors of :class:`LossConstants`: made
 from the host by :func:`loss_constants`, which the trainer calls once a
 training call, so that a step copies nothing from the host to the card.
 
-``compute_loss_sharded`` waits for the multi-device slice (``ROADMAP.md``,
-queue A, "Multi-device").
+:func:`compute_loss_sharded` is the loss of the sharded steps
+(``parallel/train_step.py``): the Monte-Carlo samples, and the batch rows
+too, split over a process group, the cross-rank statistics summed by one
+differentiable all-reduce (``ops/collectives.py``).
 """
 
 from __future__ import annotations
@@ -33,9 +35,11 @@ import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from fiude_tpu_torch.models.rhs import empirical_rate_posterior
 from fiude_tpu_torch.models.vae import make_prior
+from fiude_tpu_torch.ops.collectives import Group, all_reduce, reduce_
 from fiude_tpu_torch.ops.fused_train import RATE_SHIFT
 from fiude_tpu_torch.ops.stats import kl_normal, masked_mean_std, normal_logpdf
 
@@ -288,3 +292,183 @@ def compute_loss(loss_cfg: LossConfig, y_pred, y_true, extras, *, kl_w,
     metrics["loss"] = loss
     metrics["kl_w"] = torch.as_tensor(kl_w, dtype=y_pred.dtype).to(y_pred.device)
     return loss, metrics
+
+
+def _packed(stats: Dict[str, torch.Tensor], reduce) -> Dict[str, torch.Tensor]:
+    """``stats`` summed over the ranks as one flat vector: ``reduce(flat)``."""
+    names = sorted(stats)
+    flat = reduce(torch.cat([stats[k].reshape(-1) for k in names]))
+    out, at = {}, 0
+    for k in names:
+        n = stats[k].numel()
+        out[k] = flat[at:at + n].reshape(stats[k].shape)
+        at += n
+    return out
+
+
+def compute_loss_sharded(loss_cfg: LossConfig, y_pred, y_true, extras, *, group: Group,
+                         kl_w, latent_dim: int, len_tr: int,
+                         prior_params: Optional[Dict[str, Any]] = None,
+                         time_mask=None, eval_mask=None, ode_kl=None,
+                         consts: Optional[LossConstants] = None,
+                         rows: Optional[Tuple[int, int]] = None
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`compute_loss` with the Monte-Carlo samples split over the ranks
+    of ``group`` (``fiude_tpu/train/losses.py:211-414``, where ``axis`` names
+    the mesh axis inside ``shard_map``).
+
+    ``y_pred`` (B_l, S_l, T, R) holds this rank's samples; ``extras.latent``
+    and ``extras.aux`` the matching folded rows.  ``y_true`` is the whole
+    (B, T, R) batch on every rank.  ``rows=None``: every rank holds the whole
+    batch (B_l = B; ``extras.mean``/``std`` replicated), as in the JAX
+    function.  ``rows=(first, n_data)``: the batch is split too, over
+    ``n_data`` of the group's ranks, and this rank holds rows ``[first,
+    first + B_l)`` of it in ``y_pred`` and ``extras`` (the plain sharded step,
+    where GSPMD placed these reductions for the JAX package).
+
+    Every cross-rank statistic (the ensemble's moments for the NLL, with the
+    batch rows of other ranks zero; the MSE's sums; KL_z's sum, divided by
+    the ranks that hold the same rows; the empirical rate posterior's
+    moments; the Fa and reg sums) is summed in ONE differentiable
+    all-reduce of a few KB, after a centering round outside autograd: the
+    exact cross-rank means as shifts, which the moments' value does not
+    depend on.  In stats mode (``rate_stats`` / ``fa_sq`` in the aux, from
+    K5/K8) the kernels' sums are summed as they are, around ``RATE_SHIFT``.
+
+    The gradient contract is the JAX function's: the all-reduce's backward
+    sums the cotangents over the group (the transpose of ``psum``), the loss
+    returned is the full loss divided by the group's size, so that the
+    gradients summed over the group are the one-process gradient.  The
+    metrics are the full ensemble's, equal on every rank.
+    """
+    if consts is None:
+        consts = loss_constants(prior_params, y_pred.dtype, y_pred.device)
+    dtype, device = y_pred.dtype, y_pred.device
+    n_shards = 1 if group is None else dist.get_world_size(group)
+    first, n_data = (0, 1) if rows is None else rows
+    B, B_l, S_l = y_true.shape[0], y_pred.shape[0], y_pred.shape[1]
+    S = S_l * (n_shards // n_data)
+    aux = extras.aux if isinstance(extras.aux, dict) else {}
+    aux_stats = "rate_stats" in aux or "fa_sq" in aux
+    latent_mask = None
+    if time_mask is not None:
+        latent_mask = torch.cat([torch.ones_like(time_mask[:1]), time_mask])
+
+    def padded(v):
+        """(B_l, ...) -> (B, ...), zero outside this rank's rows."""
+        if B_l == B:
+            return v
+        return torch.cat([v.new_zeros((first,) + v.shape[1:]), v,
+                          v.new_zeros((B - first - B_l,) + v.shape[1:])])
+
+    d = y_pred - y_true[first:first + B_l, None]               # (B_l, S_l, T, R)
+
+    # -- the centering round, outside autograd ------------------------------------
+    center: Dict[str, torch.Tensor] = {}
+    if loss_cfg.nll:
+        center["d1"] = padded(d.detach().sum(dim=1))
+    if loss_cfg.kl_p and not aux_stats:
+        rflat = aux["rates"].reshape(-1, 2)
+        if time_mask is None:
+            rmask = torch.ones_like(rflat[:, :1])
+        else:
+            rmask = _broadcast_mask(time_mask.to(dtype), aux["rates"]).reshape(-1, 2)
+        center["r1"] = (rflat.detach() * rmask).sum(dim=0)
+        center["rc"] = rmask.expand(rflat.shape).sum(dim=0)
+    if center:
+        center = _packed(center, lambda flat: reduce_(flat, group))
+
+    # -- the statistics, summed in one differentiable all-reduce --------------------
+    stats: Dict[str, torch.Tensor] = {}
+    if loss_cfg.nll:
+        c_d = center["d1"] / S                                 # (B, T, R)
+        dc = d - c_d[first:first + B_l, None]
+        stats["d1"] = padded(dc.sum(dim=1))
+        stats["d2"] = padded(torch.square(dc).sum(dim=1))
+    if loss_cfg.mse:
+        stats["dsq"] = torch.square(d).sum(dim=(0, 1, 3))      # (T,)
+    if loss_cfg.kl_z and rows is not None:
+        pm, ps = make_prior(extras.mean, latent_dim=latent_dim, z_prior=consts.z_prior)
+        stats["klz"] = (kl_normal(pm, ps, extras.mean, extras.std).sum()
+                        / (n_shards // n_data))
+    if loss_cfg.kl_p:
+        if aux_stats:
+            r1_l, r2_l, rc_l = aux["rate_stats"]
+            stats["r1"], stats["r2"] = r1_l, r2_l
+            stats["rc"] = torch.as_tensor(rc_l, dtype=dtype, device=device).expand(2)
+        else:
+            c_r = center["r1"] / torch.clamp(center["rc"], min=1.0)
+            rcent = rflat - c_r
+            stats["r1"] = (rcent * rmask).sum(dim=0)
+            stats["r2"] = (torch.square(rcent) * rmask).sum(dim=0)
+    if loss_cfg.fa_norm and loss_cfg.fa_norm > 0:
+        if aux_stats:
+            stats["f2"] = aux["fa_sq"]
+        else:
+            sq = torch.square(aux["fa"])
+            if time_mask is not None:
+                sq = sq * _broadcast_mask(time_mask.to(dtype), aux["fa"])
+            stats["f2"] = sq.sum()
+    if loss_cfg.reg_loss:
+        stats["reg"] = latent_init_loss(extras.latent[..., :3], mask=latent_mask)
+    stats = _packed(stats, lambda flat: all_reduce(flat, group))
+
+    loss = torch.zeros((), dtype=dtype, device=device)
+    metrics: Dict[str, torch.Tensor] = {}
+    if loss_cfg.mse:
+        if eval_mask is None:
+            mse = stats["dsq"].sum() / (S * B * d.shape[2] * d.shape[3])
+        else:
+            w = eval_mask.to(dtype)
+            mse = (stats["dsq"] * w).sum() / _masked_denominator(eval_mask, dtype, S, B,
+                                                                 d.shape[3])
+        metrics["mse"] = mse
+        loss = loss + mse
+    if loss_cfg.nll:
+        mc = stats["d1"] / S                                   # the mean past the center
+        mean_d = c_d + mc
+        var = torch.clamp((stats["d2"] - S * torch.square(mc)) / (S - 1.0), min=1e-30)
+        nll = 0.5 * torch.log(2.0 * math.pi * var) + torch.square(mean_d) / (2.0 * var)
+        nll = nll * (y_true != -1.0).to(dtype)
+        if eval_mask is None:
+            nll = torch.mean(nll)
+        else:
+            nll = torch.sum(nll * eval_mask.to(dtype).reshape(1, -1, 1)) / _masked_denominator(
+                eval_mask, dtype, B, y_true.shape[2])
+        metrics["nll"] = nll
+        loss = loss + nll
+    if loss_cfg.kl_z:
+        if rows is None:
+            klz = kl_z_loss(extras.mean, extras.std, latent_dim=latent_dim, len_tr=len_tr,
+                            z_prior=consts.z_prior)
+        else:
+            klz = stats["klz"] / (B * extras.mean.shape[1]) / len_tr
+        metrics["kl_latent"] = kl_w * klz
+        loss = loss + metrics["kl_latent"]
+    if loss_cfg.kl_p:
+        if aux_stats:
+            klp = kl_params_from_stats(stats["r1"], stats["r2"], stats["rc"],
+                                       prior_means=consts.prior_means,
+                                       prior_stds=consts.prior_stds)
+        else:
+            cnt = center["rc"]                                 # summed in the centering round
+            post_mean = c_r + stats["r1"] / torch.clamp(cnt, min=1.0)
+            sq = stats["r2"] - torch.square(stats["r1"]) / torch.clamp(cnt, min=1.0)
+            post_std = torch.sqrt(torch.clamp(sq, min=0.0) / torch.clamp(cnt - 1.0, min=1.0))
+            klp = torch.mean(kl_normal(consts.prior_means, consts.prior_stds, post_mean,
+                                       post_std))
+        metrics["kl_params"] = klp
+        loss = loss + klp
+    if loss_cfg.fa_norm and loss_cfg.fa_norm > 0:
+        metrics["Fa_norm"] = torch.sqrt(stats["f2"])
+        loss = loss + loss_cfg.fa_norm * metrics["Fa_norm"]
+    if loss_cfg.reg_loss:
+        metrics["reg_loss"] = 0.1 * stats["reg"]
+        loss = loss + metrics["reg_loss"]
+    if ode_kl is not None:
+        metrics["ode_kl"] = loss_cfg.ode_kl_w * ode_kl
+        loss = loss + metrics["ode_kl"]
+
+    metrics["loss"] = loss
+    metrics["kl_w"] = torch.as_tensor(kl_w, dtype=dtype).to(device)
+    return loss / n_shards, metrics

@@ -266,12 +266,18 @@ class Trainer:
 
     def _device_step(self, x: torch.Tensor, y: torch.Tensor, c: StepConstants, eps=None, *,
                      epoch: int, grad_lim: float, n_samples: int,
-                     noise_seed: Optional[int]) -> Tuple[List[str], torch.Tensor]:
+                     noise_seed: Optional[int], sharding=None) -> Tuple[List[str], torch.Tensor]:
         """One training step (``fiude_tpu/train/trainer.py:281-348``) with no
         host read: loss, backward, the global grad norm, then Adam unless the
         skip rule holds it, decided on the device.  Returns the metric names,
         sorted, and their values stacked in one device tensor in that order
-        (as the JAX ``epoch_fn`` packs them)."""
+        (as the JAX ``epoch_fn`` packs them).
+
+        ``sharding``: how a step of :mod:`fiude_tpu_torch.parallel.train_step`
+        differs, an object with ``loss(loss_cfg, y_pred, y, extras, **kw) ->
+        (loss, metrics)`` in place of :func:`compute_loss` and
+        ``reduce_grad(opt) -> grad_norm``, which sums the gradient buffer over
+        the ranks before the norm; None is this process alone."""
         model = self.model
         if eps is None:
             eps = model.sample_eps(x.shape[0], n_samples, generator=self.generator,
@@ -286,12 +292,14 @@ class Trainer:
         y_pred, extras = model(x, c.t, eps, fa_w=c.fa_w, time_mask=c.time_mask,
                                noise_seed=noise_seed, dts=c.dts)
         ode_kl = variational_kl(model.ode, model.ode.prior_std) if model.is_bayes else None
-        loss, metrics = compute_loss(
+        loss_fn = compute_loss if sharding is None else sharding.loss
+        loss, metrics = loss_fn(
             self.loss_cfg, y_pred, y, extras, kl_w=kl_w, latent_dim=model.latent_dim,
             len_tr=self.len_tr, consts=c.loss,
             time_mask=c.time_mask, eval_mask=c.eval_mask, ode_kl=ode_kl)
         loss.backward()
-        metrics["grad_norm"] = self.opt.grad_norm()
+        metrics["grad_norm"] = (self.opt.grad_norm() if sharding is None
+                                else sharding.reduce_grad(self.opt))
         # the skip-not-clip rule (reference lib/VAE.py:208-212)
         skip_count = self.state.skip_count
         if epoch <= 3:

@@ -206,7 +206,9 @@ def test_port_and_chip_smoke_import_no_jax_or_pandas():
         " 'scripts.rerun_best_tuning', 'ops.adjoint', 'scripts.tune_encoders',"
         " 'data.legacy', 'data.embedding', 'utils.logging', 'utils.latent_ode',"
         " 'scripts.validate_data_tree', 'scripts.summarize_results',"
-        " 'scripts.demo_accuracy', 'scripts.bayes_workflow'):\n"
+        " 'scripts.demo_accuracy', 'scripts.bayes_workflow', 'ops.collectives',"
+        " 'parallel.distributed', 'parallel.mesh', 'parallel.serving', 'parallel.tp',"
+        " 'parallel.train_step', 'parallel.launch', 'parallel.rehearsal', 'parallel.dryrun'):\n"
         "    assert 'fiude_tpu_torch.' + new in names, new\n"
         "import chip_smoke\n"
         "assert not any(m in ('fiude_tpu', 'pandas', 'filelock')"
