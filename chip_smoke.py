@@ -83,7 +83,16 @@ no result, when there is no card.  Phases, each printing its lines:
     of K3, K4, the draw, K8 and K9, ``w_std`` moving, and the first step held
     against the plain step under the same noise seed (the encoder's gradients
     in a second pair of steps whose loss leaves out KL_z);
-12. times of the draw, K7, K8 and K9 against their twins (K9 split, planned
+12. the draw in each of its modes (a weekly training step's w, w^T and z,
+    the same at the daily shape, a request's w, a bfloat16 request's), each
+    held against its plain version on the same seed (float32 outputs within
+    1e-5, the bfloat16 w within one bfloat16 ulp) and timed against it, with
+    the kernel's device time beside its events time, its bound (its bytes,
+    or its normals times the instructions a normal of the function alone
+    issues, counted in the SASS of the never-launched draw_normal_probe, over
+    132 SMs x 128 lanes at the SM clock read under load) and the yardstick ``torch.randn`` + ``torch.addcmul`` (the same count of
+    normals from torch's own stream, not the same function); times of K7, K8
+    and K9 against their twins (K9 split, planned
     and its contraction held and timed as K6's in phase 7; K7 also an RHS
     evaluation, and its launch plan in both modes), of a Bayes request and a
     Bayes training step, a trace of Bayes steps, and one K8 + K9 pass at the
@@ -223,7 +232,9 @@ Every kernel's line carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s (the H100 SXM data sheet's rate outside
 the tensor cores; the kernels are IEEE float32; the bfloat16 rows take the
-field's products at 989 TFLOP/s, the tensor cores' dense bfloat16 rate), and,
+field's products at 989 TFLOP/s, the tensor cores' dense bfloat16 rate; the
+draw's lines its issued instructions, as phase 12 says, since Philox's
+integer work and the accurate logf, cosf and sqrtf have no FLOP rate), and,
 for the encoder
 kernels, the time of the library's call for the same function (two
 ``torch.nn.GRU`` layers through cuDNN plus the head's linears, TF32 off).
@@ -938,9 +949,11 @@ def library_encoder(model, x):
     return forward, params
 
 
-def device_us_by_kernel(fn, n: int) -> dict:
+def device_us_by_kernel(fn, n: int, per_launch: bool = False) -> dict:
     """Device time (us) a call of ``fn`` by kernel name, from a torch.profiler
-    trace of ``n`` calls ({} when the profiler saw no device time)."""
+    trace of ``n`` calls ({} when the profiler saw no device time); with
+    ``per_launch``, a launch's: the mean over the launches traced, which
+    holds where a long-lived process's trace drops some."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -949,12 +962,13 @@ def device_us_by_kernel(fn, n: int) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, count = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and \
                 not getattr(e, "is_user_annotation", False):
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / n
-    return by_name
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            count[e.name] = count.get(e.name, 0) + 1
+    return {name: us / (count[name] if per_launch else n) for name, us in by_name.items()}
 
 
 def backward_split(fn, n: int = 5) -> dict:
@@ -984,6 +998,101 @@ def backward_split(fn, n: int = 5) -> dict:
             "contraction_ms": ms.get("train_contract_kernel", 0.0)
             + ms.get("train_reduce_kernel", 0.0),
             "launches_traced": {k: count for k, (_, count) in seen.items()}}
+
+
+# The draw's modes on the main path: (evaluations, w^T and z kept, bfloat16).
+# "train" is a weekly training step's draw (4 (WEEKS - 1) evaluations), and
+# "train-daily" the same at bench.py's daily shape; "serve" a request's.
+DRAW_MODES = {"train": (4 * (WEEKS - 1), True, False),
+              "train-daily": (4 * (T_OUT - 1), True, False), "serve": (4 * (T_OUT - 1), False, False),
+              "serve-bf16": (4 * (T_OUT - 1), False, True)}
+
+
+def draw_plain(mean_flat, std_flat, like, E, seed, train, bf16):
+    """The draw in plain torch, the kernel's outputs: w (or bfloat16 w and the
+    biases), with ``train`` w^T (each matrix transposed in its slot) and z."""
+    import torch
+    from fiude_tpu_torch.ops import fused_bayes, philox
+    arrays = fused_bayes.field_arrays(like)
+    z = philox.packed_normal(seed, torch.arange(E, device=mean_flat.device).reshape(E, 1),
+                             [a.numel() for a in arrays], device=mean_flat.device)
+    w = mean_flat + z * std_flat
+    if bf16:
+        parts = fused_bayes.noise_arrays(w, like)
+        return w.to(torch.bfloat16), torch.cat([p for p, a in zip(parts, arrays) if a.dim() == 1],
+                                               dim=1)
+    if not train:
+        return (w,)
+    wt = torch.cat([p.transpose(1, 2).reshape(E, -1) if a.dim() == 2 else p
+                    for p, a in zip(fused_bayes.noise_arrays(w, like), arrays)], dim=1)
+    return w, wt, z
+
+
+def draw_errors(got, want, bf16: bool) -> float:
+    """The largest abs distance of a draw's outputs from its plain version's;
+    raises past the tolerance: float32 w, w^T, z and the biases 1e-5 (phase
+    8's for z; w = mean + z |std| adds the fused multiply-add's one rounding);
+    the bfloat16 w that 1e-5 plus one bfloat16 ulp of the larger of the two
+    (two float32 weights that far apart round once each, maybe either side of
+    a boundary)."""
+    import torch
+    got = [got[0].w, got[0].bias] if bf16 else [t for t in got if t is not None]
+    if len(got) != len(want) or any(g.shape != w.shape for g, w in zip(got, want)):
+        raise RuntimeError("the draw's outputs are not its plain version's")
+    errs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
+    if bf16:
+        top = torch.maximum(got[0].float().abs(), want[0].float().abs())
+        ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top).exponent - 8)
+        miss = bool((errs[0] > ulp + 1e-5).any()) or errs[1].max().item() > 1e-5
+    else:
+        miss = max(e.max().item() for e in errs) > 1e-5
+    if miss:
+        raise RuntimeError(f"the draw misses its plain version: {[e.max().item() for e in errs]}")
+    return max(e.max().item() for e in errs)
+
+
+def draw_times(dev, mean_flat, std_flat, like) -> dict:
+    """Phase 12's draw: each mode of DRAW_MODES held against its plain version
+    on the same seed (:func:`draw_errors`), timed against it (CUDA events, in
+    turns) and by the profiler (the kernel alone: at 28 evaluations the
+    wrapper's host time exceeds the kernel's), its bound
+    (``utils/sass.py::draw_bound``), and the yardstick: ``torch.randn`` of
+    E x P normals then ``torch.addcmul``, the same count of normals from
+    torch's own stream (not the same function, so not a library call)."""
+    import torch
+    from fiude_tpu_torch.ops import _build, fused_bayes
+    from fiude_tpu_torch.utils import sass
+    P = mean_flat.numel()
+    per_normal = sass.draw_normal_instructions(_build.build())
+    if per_normal is None:
+        raise RuntimeError("the library has no draw_normal_probe kernels to count")
+    mhz = sass.busy_sm_mhz(lambda: fused_bayes.bayes_draw_cuda(mean_flat, std_flat, like,
+                                                               4 * (T_OUT - 1), seed=SEED))
+    out = {"per_normal": per_normal, "mhz": mhz}
+    for mode, (E, train, bf16) in DRAW_MODES.items():
+        def launch():
+            return fused_bayes.bayes_draw_cuda(mean_flat, std_flat, like, E, seed=SEED,
+                                               transposed=train, keep_noise=train, bf16=bf16)
+
+        def plain(n):
+            return cuda_ms(lambda: draw_plain(mean_flat, std_flat, like, E, SEED, train, bf16), n)
+
+        def yardstick():
+            return torch.addcmul(mean_flat, torch.randn(E, P, device=dev), std_flat)
+
+        got = launch()
+        err = draw_errors(got, draw_plain(mean_flat, std_flat, like, E, SEED, train, bf16), bf16)
+        written = nbytes(*got[0]) if bf16 else nbytes(*(t for t in got if t is not None))
+        del got
+        traced = [us for name, us in device_us_by_kernel(launch, 20, per_launch=True).items()
+                  if "bayes_draw_kernel" in name]
+        out[mode] = {
+            "E": E, "max_abs_err": err,
+            "times": in_turns(plain, lambda n: cuda_ms(launch, n), 1 if E > 100 else 3, 20),
+            "device_ms": sum(traced) / 1e3 if traced else None,
+            "bound": sass.draw_bound(E, P, 8 * P + written, per_normal, mhz),
+            "yardstick_ms": cuda_ms(yardstick, 20)}
+    return out
 
 
 def backward_plan_summary(plan) -> dict:
@@ -1497,7 +1606,7 @@ def bayes_times(dev, model, z0, z_train, forecaster, served, request, grid, step
     """Phase 12: a dict of (plain ms, kernel ms) pairs, bounds and other times."""
     import numpy as np
     import torch
-    from fiude_tpu_torch.ops import fused_bayes, fused_bayes_train, philox
+    from fiude_tpu_torch.ops import fused_bayes, fused_bayes_train
     out = {}
     w = fused_bayes.pack_bayes(model.ode, model.decoder)
     bw, like = w.field, w.field.mean
@@ -1509,17 +1618,8 @@ def bayes_times(dev, model, z0, z_train, forecaster, served, request, grid, step
     hot = field_macs(like, True)
     dec_macs = w.dec_w.numel()
     with torch.no_grad():
-        # the draw, as a training step launches it (w, w^T and z of 28 evaluations)
-        ev = torch.arange(E_w, device=dev).reshape(E_w, 1)
-        out["draw"] = in_turns(
-            lambda n: cuda_ms(lambda: mean_flat + philox.packed_normal(
-                SEED, ev, sizes, device=dev) * std_flat, n),
-            lambda n: cuda_ms(lambda: fused_bayes.bayes_draw_cuda(
-                mean_flat, std_flat, like, E_w, seed=SEED, transposed=True, keep_noise=True),
-                n), 3, 20)
-        out["draw_bound"] = bound_ms(E_w * P * 122, 4 * P * (2 + 3 * E_w))
-        out["draw_request"] = cuda_ms(lambda: fused_bayes.bayes_draw_cuda(
-            mean_flat, std_flat, like, E_d, seed=SEED), 10)
+        # the draw in every mode, each with its bound and the yardstick
+        out["draw"] = draw_times(dev, mean_flat, std_flat, like)
         # K7 on drawn weights; its twin reads the same noise from memory
         kw = dict(T=T_OUT, dt=DT, fa_w=1.0)
         weff, _, z = fused_bayes.bayes_draw_cuda(mean_flat, std_flat, like, E_d, seed=SEED,
@@ -1587,8 +1687,6 @@ def bayes_times(dev, model, z0, z_train, forecaster, served, request, grid, step
                                                       tm_d, stats_mode=True)[0]
     g_traj = torch.ones_like(traj)
     out["daily"] = (
-        cuda_ms(lambda: fused_bayes.bayes_draw_cuda(mean_flat, std_flat, like, E_d, seed=SEED,
-                                                    transposed=True, keep_noise=True), 3),
         cuda_ms(lambda: fused_bayes_train.bayes_train_forward_cuda(
             head0, tail0, like, weff, fa_w, dts_d, tm_d, stats_mode=True), 3),
         cuda_ms(lambda: fused_bayes_train.bayes_train_backward_cuda(
@@ -1950,8 +2048,6 @@ def bf16_serving(dev, model, bayes, z0, grid, rng, smi):
             lambda n: cuda_ms(lambda: fused_bayes.bayes_trajectory_cuda(z0, wb, drawn, **kw), n),
             2, 5)
         del noise, z
-        out["draw_request"] = cuda_ms(lambda: fused_bayes.bayes_draw_cuda(
-            mean_flat, std_flat, like, E_d, seed=SEED, bf16=True), 10)
         xr, er = requests[0]
         out["request"] = (host_ms(lambda: f32(xr, grid, er), 10),
                           host_ms(lambda: f16(xr, grid, er), 10))
@@ -3981,7 +4077,7 @@ def main() -> int:
     # -- 8. the Bayes serving kernel and the draw --------------------------------
     log(f"phase 8: the weight draw and K7 vs their plain versions, UONNb at the serving "
         f"shape ({z0.shape[0]} systems, T={T_OUT}), CONNb and SONNb at B={SMALL_B}")
-    bayes, k7_err, draw_err = bayes_kernel_checks(dev, z0, grid)
+    bayes, k7_err, _ = bayes_kernel_checks(dev, z0, grid)
 
     # -- 9. Bayes serving end to end ----------------------------------------------
     log(f"phase 9: Bayes serving, {REQUESTS} requests of {BATCH} windows x {SAMPLES} samples, "
@@ -4003,8 +4099,19 @@ def main() -> int:
     log(f"phase 12: Bayes times on {card}")
     bt = bayes_times(dev, bayes, z0, z_train, b_forecaster, b_served, b_request, grid,
                      b_step_inputs, smi)
-    for key, name in (("draw", "draw, 28 evaluations with w, w^T and z"),
-                      ("K7", f"K7 Bayes trajectory z0 {tuple(z0.shape)}, T={T_OUT}"),
+    draws = bt["draw"]
+    log(f"  draw: {draws['per_normal']} instructions a normal (the SASS of the function alone, "
+        f"draw_normal_probe, fiude_tpu_torch/utils/sass.py), SM clock {draws['mhz']:.0f} MHz "
+        f"under a burst of draws [{smi}]")
+    for mode in DRAW_MODES:
+        d = draws[mode]
+        device = "not measured" if d["device_ms"] is None else f"{d['device_ms']:.4f} ms"
+        log(f"  draw {mode} ({d['E']} evaluations): max abs err {d['max_abs_err']:.3g} against "
+            f"its plain version, kernel {d['times'][1]:.4f} ms a call (events), "
+            f"{device} a launch (profiler), plain {d['times'][0]:.4f} ms, bound "
+            f"{d['bound'][0]:.4f} ms by {d['bound'][1]}, yardstick (same count, torch's stream: "
+            f"randn + addcmul) {d['yardstick_ms']:.4f} ms [{smi}]")
+    for key, name in (("K7", f"K7 Bayes trajectory z0 {tuple(z0.shape)}, T={T_OUT}"),
                       ("K8", "K8 Bayes trajectory forward"),
                       ("K9", "K9 Bayes trajectory backward")):
         plain, ms = bt[key]
@@ -4026,14 +4133,13 @@ def main() -> int:
     trajectory_plan_report(fused_bayes.pack_bayes_field(bayes.ode).mean, "K7", bayes.n_regions,
                            bayes.n_regions * (z0.shape[2] - 3), bayes.decoder.linear.out_features,
                            True, smi)
-    log(f"  draw for a request (336 evaluations, w only): {bt['draw_request']:.4f} ms [{smi}]")
     log(f"  Bayes request ({BATCH} windows x {SAMPLES} samples, T={T_OUT}): kernels "
         f"{bt['request'][1]:.4f} ms, plain {bt['request'][0]:.4f} ms [{smi}]")
     log(f"  Bayes training step ({BATCH} windows x {SAMPLES} samples, {WEEKS} weekly points): "
         f"kernels {bt['step'][1]:.4f} ms, plain {bt['step'][0]:.4f} ms [{smi}]")
     log(f"  one pass at the daily shape (T={T_OUT}, 336 evaluations, {z_train.shape[0]} "
-        f"systems): draw {bt['daily'][0]:.4f} ms, K8 {bt['daily'][1]:.4f} ms, K9 "
-        f"{bt['daily'][2]:.4f} ms [{smi}]")
+        f"systems): draw {draws['train-daily']['times'][1]:.4f} ms, K8 {bt['daily'][0]:.4f} ms, "
+        f"K9 {bt['daily'][1]:.4f} ms [{smi}]")
 
     # -- 13. the aux-streaming mode of K5/K6 and K8/K9 vs the twins ------------------
     log("phase 13: K5/K6 and K8/K9 in aux-streaming mode vs autograd of their twins at the "
@@ -4071,8 +4177,6 @@ def main() -> int:
         log(f"  {name}: kernel {bf[key][1]:.4f} ms ({bf[key][1] * 1e3 / (4 * (T_OUT - 1)):.2f} "
             f"us an evaluation), plain {bf[key][0]:.4f} ms, bound "
             f"{bf[key + '_bound'][0]:.4f} ms by {bf[key + '_bound'][1]} [{smi}]")
-    log(f"  draw for a bfloat16 request (336 evaluations, bfloat16 w and float32 biases): "
-        f"{bf['draw_request']:.4f} ms [{smi}]")
     log(f"  request: float32 {bf['request'][0]:.4f} ms, bfloat16 {bf['request'][1]:.4f} ms; "
         f"Bayes request: float32 {bf['bayes_request'][0]:.4f} ms, bfloat16 "
         f"{bf['bayes_request'][1]:.4f} ms [{smi}]")
@@ -4135,6 +4239,26 @@ def main() -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms, **extra}
 
+    def draw_entry(mode, launches, daily=None):
+        d = bt["draw"][mode]
+        extra = {"mode": mode, "evaluations": d["E"], "device_ms": d["device_ms"],
+                 "yardstick_ms": d["yardstick_ms"],
+                 "yardstick": "torch.randn + torch.addcmul: the same count of normals from "
+                              "torch's own stream, not the same function",
+                 "instructions_a_normal": bt["draw"]["per_normal"], "sm_mhz": bt["draw"]["mhz"]}
+        if daily:
+            dd = bt["draw"][daily]
+            extra[daily] = {"evaluations": dd["E"], "max_abs_err": dd["max_abs_err"],
+                            "ms": dd["times"][1], "device_ms": dd["device_ms"],
+                            "plain_ms": dd["times"][0],
+                            "bound_ms": dd["bound"][0], "bound_by": dd["bound"][1],
+                            "yardstick_ms": dd["yardstick_ms"]}
+        # ms: CUDA events around calls, as every entry's; device_ms: the kernel alone
+        # in a profiler trace (at 28 evaluations the wrapper's host time exceeds it)
+        return entry(f"bayes_weight_draw[{mode}]", "fused_bayes.cu", "pallas_bayes_train.py:95",
+                     launches, d["max_abs_err"], d["times"][1], d["times"][0], d["bound"],
+                     **extra)
+
     k6_extra = {"plan": backward_plan_summary(k6_plan)}
     k9_extra = {"plan": backward_plan_summary(k9_plan)}
     k5_extra = {"plan": forward_plan_summary(k5_plan)}
@@ -4167,9 +4291,11 @@ def main() -> int:
         entry("fused_bayes_train_cotangent_contraction", "fused_train.cu",
               "pallas_bayes_train.py:377", bt_launches["contraction"], k9c_err, k9c_times[1],
               k9c_times[0], k9c_bound),
-        entry("bayes_weight_draw", "fused_bayes.cu", "pallas_bayes_train.py:95",
-              b_launches["draw"] + bt_launches["draw"], draw_err, bt["draw"][1], bt["draw"][0],
-              bt["draw_bound"]),
+        # the draw, a line a mode: a training step's (w, w^T and z; at the daily shape
+        # too), a request's (w) and a bfloat16 request's (bfloat16 w and float32 biases)
+        draw_entry("train", bt_launches["draw"] + sb_launches["draw"], "train-daily"),
+        draw_entry("serve", b_launches["draw"]),
+        draw_entry("serve-bf16", bf["launches"]["draw"]),
         # the kernels' other modes: aux-streaming (launches of phase 14's training) and
         # the bfloat16 compute mode (launches of phase 15's requests)
         entry("fused_train_trajectory_forward[aux-streaming]", "fused_train.cu",

@@ -51,6 +51,60 @@
 // the float32 one (half the bytes K7 then reads) and the biases, which stay
 // float32, into a compact buffer (E, PB) of their own; K7 runs fused_ude.cuh
 // with kBf16.
+//
+// The draw's design (bayes_draw_kernel).  Its outputs, each optional: w
+// (E, P); w^T, each matrix transposed in its own slot, for K9's products
+// with the weights' transposes; z (E, P), the noise K9 replays; or, in the
+// bfloat16 mode, wb (E, P) bfloat16 with the biases in float32 in bias
+// (E, PB).  P = 73,493 at the `state` widths is odd, so every evaluation's
+// row, and every array in it, starts at any 4-byte (bfloat16: 2-byte)
+// boundary; the layout is K7/K8/K9's and is never padded.
+// * A block owns one tile of one array (32 rows x 32 columns; a 1-row array,
+//   a bias, walks as rows of 32 elements and is its own transpose) and a
+//   group of consecutive evaluations.  The tiles are numbered array by array,
+//   row by row (blockIdx.x); the plan (ops/fused_bayes.py::draw_plan) gives
+//   the arrays and the group, grid.y = ceil(E / group), and read_draw_plan
+//   checks it and lays out a table of each tile's (array, tile row, tile
+//   column) in the kernel's parameters.  A block reads its entry once, into
+//   uniform registers; no thread searches the arrays or divides an index.
+//   (A block that finds its array among the arrays' first tiles and divides
+//   for its tile row and column, once, keeps those values in more
+//   registers, 61-62 a thread against 48 (or spills at 48), and draws 3-30%
+//   slower on the H100: PERF.md, the weight draw's findings.)
+// * Each thread draws 4 elements of the tile (column t % 32, rows t / 32 +
+//   8j) in every evaluation of the group; their means and |stds| are loaded
+//   once, and so is every part of Philox that does not change with the
+//   evaluation in the source: the 10 round keys (the seed's) and rounds
+//   0-1's products of the element index (philox.cuh).  An evaluation adds
+//   its own rounds 0-1 product (one for the block) and runs rounds 2-9.
+//   (ptxas keeps the keys as the seed plus a constant and adds them again on
+//   the uniform datapath where a round needs them.)
+// * The tile's w and z go to shared memory (two buffers of 32 x 33 floats
+//   each, so a bank never serves two lanes of a row or of a column, and one
+//   barrier an evaluation), then out: the tile's rows to w, z, wb and bias,
+//   its columns to w^T, each row or column a segment stored by 8 lanes, one
+//   16-byte vector a lane (bfloat16: 8 bytes, 4 elements) between a scalar
+//   head up to the first aligned address and a scalar tail, all streaming
+//   stores (st.global.cs).  Both sides of the transpose are coalesced.
+// * The weight is fmaf(z, |std|, mean): one rounding, as the expression
+//   mean + z * |std| compiles to under nvcc's default -fmad=true.
+// What bounds it.  A normal of the function costs Philox's 8 remaining
+// rounds (two wide multiplies and two three-way XORs each), the map to
+// uniforms, the accurate logf, cosf and sqrtf and the multiply-add:
+// utils/sass.py counts them in draw_normal_probe below, the function alone,
+// for the issue bound.  This kernel issues more a normal: the key adds
+// above, its staging and stores, and a few bytes of spills (sqrtf's slow
+// path is a CALL, and ptxas saves some of the elements' registers around it;
+// the kernel uses 48 registers of the 255 its launch bounds allow, so the
+// spills are not a register limit's).  The serving modes write 4 bytes a
+// weight (w) or 2 (bfloat16) and are bound by the issue rate; a block there
+// draws up to 4 evaluations, setting up its tile once.  The training modes
+// write 12 (w, w^T and z) and are bound by their stores: a segment's first
+// and last 32-byte sectors are shared with the neighbouring tile's (P is
+// odd, so no layout of the tiles aligns them), and on the H100 such stores
+// drain fastest from blocks of one evaluation each, which the plan then
+// gives, and as streaming stores (scripts/port_draw_times.py --groups times
+// each mode at other groups).
 
 #include "fused_ude.cuh"
 #include "philox.cuh"
@@ -58,49 +112,176 @@
 namespace {
 
 constexpr int kMaxArrays = 3 + 4 * kMaxDeep;   // w0_head, w0_tail, b0, (w, b) per later layer
+constexpr int kDrawThreads = 256;
+constexpr int kDrawTile = 32;                  // a tile's rows and columns
+constexpr int kDrawPitch = kDrawTile + 1;      // a staged tile's row, in floats
+constexpr int kDrawRows = kDrawTile * kDrawTile / kDrawThreads;   // elements a thread draws
+constexpr int kDrawMaxTiles = 768;             // the tile table's room in the parameters
 
-struct Packed {           // the packed arrays, end to end
-  int n;
-  int off[kMaxArrays + 1];
-  int rows[kMaxArrays];   // a bias is one row
-  int cols[kMaxArrays];
-  int boff[kMaxArrays];   // a bias's offset among the biases, -1 for a matrix
-  int PB;                 // floats of all biases
+struct DrawArray { int off, rows, cols, boff; };   // boff: among the biases, or -1
+struct DrawPlan {          // read_draw_plan's reading of DrawPlan.flat()
+  int E, group, P, PB, n_arr, n_tiles;
+  DrawArray arr[kMaxArrays];
+  unsigned tile[kDrawMaxTiles];   // array | tile row << 8 | tile column << 20
 };
+static_assert(sizeof(DrawPlan) + 10 * sizeof(void*) <= 4096, "the draw's parameters");
 
 // b0 is array 2, and every later layer is a (w, b) pair from array 3 on.
 __host__ __device__ inline bool is_bias(int k) { return k == 2 || (k >= 3 && (k - 3) % 2 == 1); }
 
-// w[e][p] = mean[p] + z * std[p] with z = noise[e][p] or the Philox normal of
-// (seed, e, array, element); every output is optional: w (E, P) float32; wt
-// each matrix transposed in its own slot; zout keeps z for the backward; wb
-// (E, P) the same weights rounded to bfloat16 with the biases in float32 in
-// bias (E, PB).
-__global__ void bayes_draw_kernel(const float* __restrict__ mean, const float* __restrict__ stdabs,
-                                  const float* __restrict__ noise, unsigned long long seed,
-                                  int P, Packed pk, float* __restrict__ w,
-                                  float* __restrict__ wt, float* __restrict__ zout,
-                                  __nv_bfloat16* __restrict__ wb, float* __restrict__ bias) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int e = blockIdx.y;
-  if (p >= P) return;
-  int k = 0;
-  while (k + 1 < pk.n && p >= pk.off[k + 1]) ++k;
-  const int i = p - pk.off[k];
-  const size_t base = (size_t)e * P;
-  const float z = noise != nullptr ? noise[base + p]
-                                   : philox::normal(seed, (uint32_t)e, (uint32_t)k, (uint32_t)i);
-  const float v = mean[p] + z * stdabs[p];
-  if (w != nullptr) w[base + p] = v;
-  if (zout != nullptr) zout[base + p] = z;
-  if (wb != nullptr) {
-    wb[base + p] = __float2bfloat16_rn(v);
-    if (pk.boff[k] >= 0) bias[(size_t)e * pk.PB + pk.boff[k] + i] = v;
+// A 1-row array walks as rows of kDrawTile elements.
+__host__ __device__ inline int walk_cols(const DrawArray& a) {
+  return a.rows == 1 ? kDrawTile : a.cols;
+}
+__host__ __device__ inline int walk_rows(const DrawArray& a) {
+  return a.rows == 1 ? (a.cols + kDrawTile - 1) / kDrawTile : a.rows;
+}
+
+// Streaming stores (st.global.cs): the outputs are written once and read by the
+// next kernel, and a store that lingers in L2 beside them only slows the draw.
+__device__ __forceinline__ void put(float* d, float v) { __stcs(d, v); }
+__device__ __forceinline__ void put(__nv_bfloat16* d, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(d), __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+__device__ __forceinline__ void put4(float* d, float a, float b, float c, float e) {
+  __stcs(reinterpret_cast<float4*>(d), make_float4(a, b, c, e));
+}
+__device__ __forceinline__ void put4(__nv_bfloat16* d, float a, float b, float c, float e) {
+  const auto h = [](float v) { return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v)); };
+  __stcs(reinterpret_cast<uint2*>(d), make_uint2(h(a) | h(b) << 16, h(c) | h(e) << 16));
+}
+
+// Lanes l = 0-7 store a segment of n <= 32 staged elements (element j at
+// src[j * step] in shared memory) to dst[0, n): a scalar head up to the first
+// address a vector of 4 elements may start at, one vector a lane, a scalar tail.
+template <typename T>
+__device__ __forceinline__ void store_segment(T* dst, const float* src, int step, int n, int l) {
+  constexpr unsigned kVector = 4 * sizeof(T);
+  const int head = min(n, (int)(((0u - (unsigned)(uintptr_t)dst) & (kVector - 1)) / sizeof(T)));
+  const int body = (n - head) >> 2, tail = n - head - 4 * body;
+  if (l < head) put(dst + l, src[l * step]);
+  if (l < body) {
+    const int j = head + 4 * l;
+    put4(dst + j, src[j * step], src[(j + 1) * step], src[(j + 2) * step], src[(j + 3) * step]);
   }
-  if (wt != nullptr) {
-    const int r = i / pk.cols[k], c = i % pk.cols[k];
-    wt[base + pk.off[k] + (size_t)c * pk.rows[k] + r] = v;
+  if (l < tail) {
+    const int j = head + 4 * body + l;
+    put(dst + j, src[j * step]);
   }
+}
+
+// w[e][p] = mean[p] + z * std[p] with z = noise[e][p] (kNoise) or the Philox
+// normal of (seed, e, array, element), for the plan's tile blockIdx.x and
+// evaluations [group * blockIdx.y, + group); every output is optional.
+template <bool kNoise>
+__global__ void __launch_bounds__(kDrawThreads)
+bayes_draw_kernel(const float* __restrict__ mean, const float* __restrict__ stdabs,
+                  const float* __restrict__ noise, unsigned long long seed,
+                  const __grid_constant__ DrawPlan plan, float* __restrict__ w,
+                  float* __restrict__ wt, float* __restrict__ zout,
+                  __nv_bfloat16* __restrict__ wb, float* __restrict__ bias) {
+  __shared__ float sw[2][kDrawTile * kDrawPitch];
+  __shared__ float sz[2][kDrawTile * kDrawPitch];
+  const unsigned code = plan.tile[blockIdx.x];
+  const int k = (int)(code & 255u);
+  const DrawArray a = plan.arr[k];
+  const bool flat = a.rows == 1;
+  const int wcols = walk_cols(a), n = a.rows * a.cols;
+  const int r0 = (int)((code >> 8) & 4095u) * kDrawTile, c0 = (int)(code >> 20) * kDrawTile;
+  const int nr = min(kDrawTile, walk_rows(a) - r0), nc = min(kDrawTile, wcols - c0);
+  // a tile row's elements: a matrix's all nc; a walked 1-row array's last may be short
+  auto row_len = [&](int r) { return flat ? min(kDrawTile, n - (r0 + r) * kDrawTile) : nc; };
+
+  // the draw: column c of rows rq + 8j
+  const int c = threadIdx.x % kDrawTile, rq = threadIdx.x / kDrawTile;
+  const philox::Keys keys = philox::keys(seed);
+  bool ok[kDrawRows];
+  int idx[kDrawRows];
+  float mu[kDrawRows], sd[kDrawRows];
+  philox::Element el[kDrawRows];
+#pragma unroll
+  for (int j = 0; j < kDrawRows; ++j) {
+    const int r = rq + j * (kDrawThreads / kDrawTile);
+    ok[j] = r < nr && c < row_len(r);
+    idx[j] = (r0 + r) * wcols + c0 + c;
+    mu[j] = ok[j] ? mean[a.off + idx[j]] : 0.f;
+    sd[j] = ok[j] ? stdabs[a.off + idx[j]] : 0.f;
+    if (!kNoise) el[j] = philox::element(keys, (uint32_t)idx[j]);
+  }
+  // the stores: segment q (a tile row, or for w^T a tile column) by lanes l
+  const int q = threadIdx.x / 8, l = threadIdx.x % 8;
+  const int e0 = (int)blockIdx.y * plan.group, ne = min(plan.group, plan.E - e0);
+  for (int g = 0; g < ne; ++g) {
+    const int e = e0 + g;
+    const size_t base = (size_t)e * plan.P + a.off;
+    float* tw = sw[g & 1];
+    float* tz = sz[g & 1];
+    philox::Evaluation ev = {};
+    if (!kNoise) ev = philox::evaluation(keys, (uint32_t)e, (uint32_t)k);
+#pragma unroll
+    for (int j = 0; j < kDrawRows; ++j) {
+      if (!ok[j]) continue;
+      const int at = (rq + j * (kDrawThreads / kDrawTile)) * kDrawPitch + c;
+      const float z = kNoise ? noise[base + idx[j]] : philox::normal(keys, el[j], ev);
+      tw[at] = fmaf(z, sd[j], mu[j]);
+      if (zout != nullptr) tz[at] = z;
+    }
+    __syncthreads();     // the other buffer is free: every thread passed this after its last store
+    if (q < nr) {
+      const int len = row_len(q);
+      const size_t at = base + (size_t)(r0 + q) * wcols + c0;
+      const float* row = tw + q * kDrawPitch;
+      if (w != nullptr) store_segment(w + at, row, 1, len, l);
+      if (zout != nullptr) store_segment(zout + at, tz + q * kDrawPitch, 1, len, l);
+      if (wb != nullptr) {
+        store_segment(wb + at, row, 1, len, l);
+        if (a.boff >= 0)
+          store_segment(bias + (size_t)e * plan.PB + a.boff + (at - base), row, 1, len, l);
+      }
+      if (wt != nullptr && flat) store_segment(wt + at, row, 1, len, l);
+    }
+    if (wt != nullptr && !flat && q < nc)      // column q of the tile is a row of w^T
+      store_segment(wt + base + (size_t)(c0 + q) * a.rows + r0, tw + q, kDrawPitch, nr, l);
+  }
+}
+
+// Reads the plan of n ints at v (ops/fused_bayes.py::DrawPlan.flat()) into p
+// and checks what the kernel relies on, for E evaluations of the n_arr packed
+// arrays (rows[k] x cols[k], P elements in all): its threads and tile size;
+// 1 <= group <= E and ceil(E / group) <= 65,535 (grid.y); each array's
+// offset, shape and bias offset (a bias is one row); the count of tiles, at
+// most kDrawMaxTiles.  Lays out the tile table, array by array, row by row.
+bool read_draw_plan(const int* v, int n, int E, int P, int n_arr, const int* rows,
+                    const int* cols, DrawPlan& p) {
+  constexpr int kHead = 9;
+  if (v == nullptr || n_arr < 1 || n_arr > kMaxArrays || n != kHead + 4 * n_arr) return false;
+  p = DrawPlan{};
+  const int threads = v[0], tile = v[1], groups = v[4];
+  p.E = v[2]; p.group = v[3]; p.P = v[5]; p.PB = v[6]; p.n_arr = v[7]; p.n_tiles = v[8];
+  if (threads != kDrawThreads || tile != kDrawTile || p.E != E || E < 1 || p.group < 1 ||
+      p.group > E || groups != (E - 1) / p.group + 1 || groups > 65535 || p.P != P || P < 1 ||
+      p.n_arr != n_arr)
+    return false;
+  const int* at = v + kHead;
+  long long off = 0, PB = 0;
+  int t = 0;
+  for (int k = 0; k < n_arr; ++k, at += 4) {
+    DrawArray& a = p.arr[k];
+    a = DrawArray{at[0], at[1], at[2], at[3]};
+    if (rows[k] < 0 || cols[k] < 1 || a.rows != rows[k] || a.cols != cols[k] || a.off != off ||
+        a.boff != (is_bias(k) ? PB : -1) || (is_bias(k) && a.rows != 1))
+      return false;
+    off += (long long)a.rows * a.cols;
+    if (is_bias(k)) PB += a.cols;
+    if (off > P) return false;
+    const int down = (walk_rows(a) + kDrawTile - 1) / kDrawTile;
+    const int across = (walk_cols(a) + kDrawTile - 1) / kDrawTile;
+    if (down * across > kDrawMaxTiles - t) return false;   // down x across <= P: no overflow
+    for (int tr = 0; tr < down; ++tr)
+      for (int tc = 0; tc < across; ++tc)
+        p.tile[t++] = (unsigned)k | (unsigned)tr << 8 | (unsigned)tc << 20;
+  }
+  return off == P && p.PB == PB && p.n_tiles == t;
 }
 
 // Offsets of a field's packed arrays (w0_head, w0_tail, b0, then each later
@@ -125,6 +306,51 @@ size_t packed_offsets(int R, int DT, int N0, int n0_fp, int n_fp, const int* fp_
 
 }  // namespace
 
+// The draw's function on its own, for counting what it issues: never
+// launched.  fiude_tpu_torch/utils/sass.py reads these kernels' SASS in the
+// built library and takes the instructions of one normal as the difference
+// between the evaluation loops of draw_normal_probe<2> and
+// draw_normal_probe<1>: Philox's rounds 2-9, the map of bits to uniforms, the
+// accurate logf, cosf and sqrtf (their hot paths) and the multiply-add that
+// makes a weight.  That is the least a draw of the same bits issues a weight;
+// the loop, the evaluation's part of Philox and whatever a draw kernel adds
+// to it (its tile, its stores, its register traffic) cancel in the
+// difference.  The draw's issue bound (sass.draw_bound) rests on this count,
+// not on bayes_draw_kernel's own.  They stand outside the anonymous namespace:
+// a kernel of internal linkage that nothing calls is left out of the build.
+
+// Each thread keeps kN weights (element i0 + j) through E evaluations of
+// array 0: w = fmaf(z, std, w), the weight's one multiply-add, chained so that
+// nothing else is needed to keep it.
+template <int kN>
+__global__ void draw_normal_probe(unsigned long long seed, const float* __restrict__ mean,
+                                  const float* __restrict__ stdabs, int E,
+                                  float* __restrict__ out) {
+  const philox::Keys keys = philox::keys(seed);
+  const int i0 = ((int)blockIdx.x * (int)blockDim.x + (int)threadIdx.x) * kN;
+  philox::Element el[kN];
+  float w[kN], sd[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    el[j] = philox::element(keys, (uint32_t)(i0 + j));
+    w[j] = mean[i0 + j];
+    sd[j] = stdabs[i0 + j];
+  }
+#pragma unroll 1
+  for (int e = 0; e < E; ++e) {
+    const philox::Evaluation ev = philox::evaluation(keys, (uint32_t)e, 0u);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) w[j] = fmaf(philox::normal(keys, el[j], ev), sd[j], w[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kN; ++j) out[i0 + j] = w[j];
+}
+
+template __global__ void draw_normal_probe<1>(unsigned long long, const float*, const float*,
+                                              int, float*);
+template __global__ void draw_normal_probe<2>(unsigned long long, const float*, const float*,
+                                              int, float*);
+
 extern "C" {
 
 // The effective weights of E evaluations.  mean, stdabs (P): the packed
@@ -132,29 +358,27 @@ extern "C" {
 // (E, P) or null (then Philox from `seed`); writes, each unless null, w (E, P),
 // wt (E, P), z (E, P), and for the bfloat16 compute mode wb (E, P) bfloat16
 // with bias (E, PB) float32, PB the total length of the bias arrays (b0, then
-// each later layer's).  Launches on `stream`; returns cudaGetLastError().
+// each later layer's).  plan (plan_len ints): ops/fused_bayes.py::
+// DrawPlan.flat(), refused (cudaErrorInvalidValue) where read_draw_plan finds
+// that the kernel cannot run it.  Launches on `stream`; returns
+// cudaGetLastError().
 int fused_bayes_draw(const float* mean, const float* stdabs, const float* noise,
                      unsigned long long seed, int E, int P, int n_arr, const int* rows,
-                     const int* cols, float* w, float* wt, float* z, void* wb, float* bias,
-                     void* stream) {
-  if (E < 1 || E > 65535 || P < 1 || n_arr < 1 || n_arr > kMaxArrays ||
-      (wb != nullptr) != (bias != nullptr))
+                     const int* cols, const int* plan, int plan_len, float* w, float* wt,
+                     float* z, void* wb, float* bias, void* stream) {
+  DrawPlan p;
+  if ((wb != nullptr) != (bias != nullptr) ||
+      !read_draw_plan(plan, plan_len, E, P, n_arr, rows, cols, p))
     return cudaErrorInvalidValue;
-  Packed pk = {};
-  pk.n = n_arr;
-  for (int k = 0; k < n_arr; ++k) {
-    if (rows[k] < 0 || cols[k] < 1) return cudaErrorInvalidValue;
-    pk.rows[k] = rows[k];
-    pk.cols[k] = cols[k];
-    pk.off[k + 1] = pk.off[k] + rows[k] * cols[k];
-    pk.boff[k] = -1;
-    if (is_bias(k)) { pk.boff[k] = pk.PB; pk.PB += cols[k]; }
-  }
-  if (pk.off[n_arr] != P) return cudaErrorInvalidValue;
-  const int threads = 256;
-  const dim3 grid((P + threads - 1) / threads, E);
-  bayes_draw_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      mean, stdabs, noise, seed, P, pk, w, wt, z, static_cast<__nv_bfloat16*>(wb), bias);
+  const dim3 grid(p.n_tiles, (E - 1) / p.group + 1);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* wb16 = static_cast<__nv_bfloat16*>(wb);
+  if (noise != nullptr)
+    bayes_draw_kernel<true><<<grid, kDrawThreads, 0, s>>>(mean, stdabs, noise, seed, p, w, wt,
+                                                          z, wb16, bias);
+  else
+    bayes_draw_kernel<false><<<grid, kDrawThreads, 0, s>>>(mean, stdabs, noise, seed, p, w, wt,
+                                                           z, wb16, bias);
   return cudaGetLastError();
 }
 

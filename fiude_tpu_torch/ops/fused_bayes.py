@@ -28,10 +28,12 @@ kernel writes the rounded weights once, as bfloat16, and the biases in
 float32 beside them.
 
 On the card :func:`bayes_draw_cuda` writes every evaluation's effective
-weights once for all blocks, then K7 (``csrc/fused_ude.cuh`` with kBayes)
-integrates.  :func:`bayes_trajectory_decode` dispatches strictly on the
-state's device: CPU tensors take :func:`bayes_trajectory_decode_plain`, CUDA
-tensors launch the kernels or raise.  ``bayes_draw_cuda.launches`` and
+weights once for all blocks (``bayes_draw_kernel``: tiles of one array over
+a group of evaluations, laid out by :func:`draw_plan`, the only planner),
+then K7 (``csrc/fused_ude.cuh`` with kBayes) integrates.
+:func:`bayes_trajectory_decode` dispatches strictly on the state's device:
+CPU tensors take :func:`bayes_trajectory_decode_plain`, CUDA tensors launch
+the kernels or raise.  ``bayes_draw_cuda.launches`` and
 ``bayes_trajectory_cuda.launches`` count the launches of both compute modes,
 ``.bf16_launches`` those in bfloat16.
 """
@@ -40,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Optional, Sequence, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -49,8 +51,8 @@ from fiude_tpu_torch.models.rhs import out_of_range_mask, sir_field
 from fiude_tpu_torch.ops import _build, philox
 from fiude_tpu_torch.ops.fused_gru import fused_encoder
 from fiude_tpu_torch.ops.fused_ude import (
-    FieldRecord, FieldWeights, _check_net, _later_layers, is_bf16, matmul, pack_layers, plan_for,
-    plan_ints, uniform_step,
+    _MAX_DEEP, FieldRecord, FieldWeights, _check_net, _later_layers, is_bf16, matmul, pack_layers,
+    plan_for, plan_ints, uniform_step,
 )
 from fiude_tpu_torch.ops.integrate import rk4_38_step
 
@@ -218,12 +220,98 @@ def bayes_trajectory_decode_plain(z0: torch.Tensor, w: BayesWeights, *, T: int, 
     return torch.stack(zs) @ w.dec_w + w.dec_b      # float32 in both compute modes
 
 
+DRAW_THREADS = 256          # kDrawThreads: a block of the draw
+DRAW_TILE = 32              # kDrawTile: a tile's rows and columns
+DRAW_MAX_TILES = 768        # kDrawMaxTiles: the tile table's room in the kernel's parameters
+DRAW_MAX_ARRAYS = 3 + 4 * _MAX_DEEP   # kMaxArrays
+DRAW_FILL_BLOCKS = 2112     # blocks the planner keeps: 16 on each of the H100's 132 SMs
+DRAW_MAX_GROUP = 4          # evaluations a block draws at most
+DRAW_GROUP_BYTES = 4        # a draw that writes more bytes a weight draws one evaluation a block
+
+
+class DrawPlan(NamedTuple):
+    """The draw kernel's launch plan (``bayes_draw_kernel`` in
+    ``csrc/fused_bayes.cu``; ``read_draw_plan`` there refuses a plan the kernel
+    cannot run, and lays out the tiles' table).  Block (x, y) draws tile x,
+    the tiles numbered array by array and row by row, for evaluations
+    ``[group * y, group * (y + 1))``."""
+    E: int
+    group: int                                      # consecutive evaluations a block draws
+    P: int
+    PB: int                                         # floats of all biases
+    arrays: Tuple[Tuple[int, int, int, int], ...]   # (offset, rows, cols, bias offset or -1)
+    n_tiles: int
+
+    @property
+    def groups(self) -> int:
+        return -(-self.E // self.group)
+
+    def flat(self) -> Tuple[int, ...]:
+        return ((DRAW_THREADS, DRAW_TILE, self.E, self.group, self.groups, self.P, self.PB,
+                 len(self.arrays), self.n_tiles)
+                + tuple(x for a in self.arrays for x in a))
+
+
+def is_bias(k: int) -> bool:
+    """Whether packed array ``k`` is a bias: b0 (array 2) and the second of
+    every later layer's (w, b) pair."""
+    return k == 2 or (k >= 3 and (k - 3) % 2 == 1)
+
+
+def walk_shape(rows: int, cols: int) -> Tuple[int, int]:
+    """The shape the draw's tiles walk: a matrix's own; a 1-row array (a bias,
+    which is its own transpose) as rows of :data:`DRAW_TILE` elements."""
+    return (-(-cols // DRAW_TILE), DRAW_TILE) if rows == 1 else (rows, cols)
+
+
+@functools.lru_cache(maxsize=64)
+def draw_plan(rows: Tuple[int, ...], cols: Tuple[int, ...], E: int,
+              out_bytes: int = 4) -> DrawPlan:
+    """The draw's plan for ``E`` evaluations of the packed arrays of
+    ``rows[k] x cols[k]`` elements, writing ``out_bytes`` a weight (w: 4; w,
+    w^T and z: 12; bfloat16 w: 2): every array cut into tiles of
+    :data:`DRAW_TILE` x :data:`DRAW_TILE` of its walk (:func:`walk_shape`), in
+    order, and the evaluations into groups.  A draw that writes more than
+    :data:`DRAW_GROUP_BYTES` a weight is bound by its stores, which go fastest
+    from blocks of one evaluation each; one that writes less is bound by its
+    instructions, and a block draws up to :data:`DRAW_MAX_GROUP` evaluations,
+    as many as keep the grid at :data:`DRAW_FILL_BLOCKS` blocks, loading its
+    means, |stds| and the elements' part of Philox once for all of them."""
+    rows, cols = tuple(int(r) for r in rows), tuple(int(c) for c in cols)
+    if E < 1 or not rows or len(rows) != len(cols) or len(rows) > DRAW_MAX_ARRAYS:
+        raise ValueError(f"the draw takes 1 to {DRAW_MAX_ARRAYS} arrays and E >= 1")
+    arrays, n_tiles, off, pb = [], 0, 0, 0
+    for k, (r, c) in enumerate(zip(rows, cols)):
+        if r < 0 or c < 1 or (is_bias(k) and r != 1):
+            raise ValueError(f"array {k} of {r} x {c}: the draw takes rows >= 0, cols >= 1, "
+                             "a bias of one row")
+        arrays.append((off, r, c, pb if is_bias(k) else -1))
+        off += r * c
+        pb += c if is_bias(k) else 0
+        vr, vc = walk_shape(r, c)
+        n_tiles += -(-vr // DRAW_TILE) * -(-vc // DRAW_TILE)
+    if off < 1 or n_tiles > DRAW_MAX_TILES:
+        raise ValueError(f"the draw takes 1 weight to {DRAW_MAX_TILES} tiles of {DRAW_TILE} x "
+                         f"{DRAW_TILE}; these arrays need {n_tiles}")
+    group = 1 if out_bytes > DRAW_GROUP_BYTES else \
+        max(1, min(DRAW_MAX_GROUP, E, n_tiles * E // DRAW_FILL_BLOCKS))
+    group = max(group, -(-E // 65535))          # grid.y
+    return DrawPlan(E, group, off, pb, tuple(arrays), n_tiles)
+
+
+@functools.lru_cache(maxsize=64)
+def _draw_plan_ints(rows: Tuple[int, ...], cols: Tuple[int, ...], E: int, out_bytes: int):
+    """The launcher's C arrays: the plan's ints and their count, rows, cols."""
+    flat = draw_plan(rows, cols, E, out_bytes).flat()
+    return _build.c_ints(flat), len(flat), _build.c_ints(rows), _build.c_ints(cols)
+
+
 @functools.cache
 def _launchers():
     lib = _build.library()
     ptr, ints, i, f = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float
     lib.fused_bayes_draw.argtypes = [ptr, ptr, ptr, ctypes.c_ulonglong, i, i, i, ints, ints,
-                                     ptr, ptr, ptr, ptr, ptr, ptr]
+                                     ints, i, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.fused_bayes_draw.restype = ctypes.c_int
     lib.fused_bayes_trajectory.argtypes = [ptr, ptr, i, i, f, f, i, i, i, i, i, ptr, i,
                                            i, ints, i, ints, ptr, ptr, ptr, ptr, ints, i, ptr]
@@ -264,14 +352,17 @@ def bayes_draw_cuda(mean_flat: torch.Tensor, std_flat: torch.Tensor, like: Field
     wt = new() if transposed else None
     z = new() if keep_noise else None
 
+    out_bytes = 2 if bf16 else 4 * (1 + transposed + keep_noise)
+    plan, plan_len, c_rows, c_cols = _draw_plan_ints(tuple(rows), tuple(cols), n_evals,
+                                                     out_bytes)
     lib = _launchers()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.fused_bayes_draw(
             mean_flat.data_ptr(), std_flat.data_ptr(), _build.ptr(noise),
             0 if seed is None else int(seed) & (2 ** 64 - 1), n_evals, P, len(arrays),
-            _build.c_ints(rows), _build.c_ints(cols), _build.ptr(w), _build.ptr(wt),
-            _build.ptr(z), _build.ptr(wb), _build.ptr(bias), stream)
+            c_rows, c_cols, plan, plan_len, _build.ptr(w), _build.ptr(wt), _build.ptr(z),
+            _build.ptr(wb), _build.ptr(bias), stream)
     _build.check(code, "fused_bayes_draw")
     bayes_draw_cuda.launches += 1
     return (DrawnBf16(wb, bias) if bf16 else w), wt, z

@@ -19,7 +19,10 @@ the kernel cannot run refused by the launcher.
 The Bayes kernels K7 (``csrc/fused_bayes.cu``) and K8/K9
 (``csrc/fused_train.cu`` with kBayes) are held to the same bounds against
 their twins in both noise modes (injected, and Philox from a seed on both
-sides), and the draw kernel's normals against ``ops/philox.py``.  K6/K9's
+sides), and the draw kernel's normals against ``ops/philox.py`` (at the
+test widths and at the `state` widths with 1, 28 and 336 evaluations, the
+bfloat16 draw the float32 one rounded, and plans the draw's launcher cannot
+run refused by it).  K6/K9's
 grouped contraction is held to its plain version on random workspaces at
 ragged widths and batches (rtol 1e-4, atol 1e-4 against float64 sums of
 E x Bp products), K6's gradients repeat bit for bit in both modes, a
@@ -437,27 +440,73 @@ def injected_noise(dev, like, n_evals, seed=5):
             for a in fused_bayes.field_arrays(like)]
 
 
-def test_draw_kernel_matches_philox_module(dev):
-    model = build(dev, "UONNb", R=3, L=6, net=(16, 16, 8))
+# the draw's widths: the test widths, and the `state` widths at one evaluation, a
+# weekly training step's 28 and a request's or daily step's 336
+DRAW_CASES = [(dict(R=3, L=6, net=(16, 16, 8)), 8), (dict(L=8, **STATE_ODE), 1),
+              (dict(L=8, **STATE_ODE), 28), (dict(L=8, **STATE_ODE), 336)]
+
+
+def draw_field(dev, widths):
+    model = build(dev, "UONNb", **widths)
     bw = fused_bayes.pack_bayes_field(model.ode)
-    mean, std = fused_bayes.flatten_field(bw.mean), fused_bayes.flatten_field(bw.std)
-    sizes = [a.numel() for a in fused_bayes.field_arrays(bw.mean)]
+    return bw, fused_bayes.flatten_field(bw.mean), fused_bayes.flatten_field(bw.std)
+
+
+# each training case keeps w^T and z (one evaluation a block); a request's draw at
+# the `state` widths keeps w alone, 4 evaluations a block
+@pytest.mark.parametrize("widths,E,train", [(w, E, True) for w, E in DRAW_CASES]
+                         + [(dict(L=8, **STATE_ODE), 336, False)])
+def test_draw_kernel_matches_philox_module(dev, widths, E, train):
+    bw, mean, std = draw_field(dev, widths)
+    arrays = fused_bayes.field_arrays(bw.mean)
+    sizes = [a.numel() for a in arrays]
     seed = (7 << 32) + 12345               # both key words in use
-    w, wt, z = fused_bayes.bayes_draw_cuda(mean, std, bw.mean, 8, seed=seed, transposed=True,
-                                           keep_noise=True)
-    want = philox.packed_normal(seed, torch.arange(8, device=dev).reshape(8, 1), sizes,
+    w, wt, z = fused_bayes.bayes_draw_cuda(mean, std, bw.mean, E, seed=seed, transposed=train,
+                                           keep_noise=train)
+    plan = fused_bayes.draw_plan(tuple(a.shape[0] if a.dim() == 2 else 1 for a in arrays),
+                                 tuple(a.shape[-1] for a in arrays), E, 12 if train else 4)
+    assert plan.group == (1 if train else 4)
+    want = philox.packed_normal(seed, torch.arange(E, device=dev).reshape(E, 1), sizes,
                                 device=dev)
-    assert (z - want).abs().max().item() < 1e-5
     torch.testing.assert_close(w, mean + want * std, rtol=1e-5, atol=1e-6)
+    if not train:
+        assert wt is None and z is None
+        return
+    assert (z - want).abs().max().item() < 1e-5
     off = 0
     for a in fused_bayes.field_arrays(bw.mean):        # each matrix transposed in its slot
         n = a.numel()
         if a.dim() == 2:
-            assert torch.equal(wt[:, off:off + n].reshape(8, a.shape[1], a.shape[0]),
-                               w[:, off:off + n].reshape(8, *a.shape).transpose(1, 2))
+            assert torch.equal(wt[:, off:off + n].reshape(E, a.shape[1], a.shape[0]),
+                               w[:, off:off + n].reshape(E, *a.shape).transpose(1, 2))
         else:
             assert torch.equal(wt[:, off:off + n], w[:, off:off + n])
         off += n
+
+
+def test_draw_launcher_refuses_a_plan_it_cannot_run(dev, monkeypatch):
+    bw, mean, std = draw_field(dev, dict(R=3, L=6, net=(16, 16, 8)))
+    E = 6
+    fused_bayes.bayes_draw_cuda(mean, std, bw.mean, E, seed=1)               # runs
+    plan = fused_bayes.draw_plan(*zip(*[(a.shape[0] if a.dim() == 2 else 1, a.shape[-1])
+                                        for a in fused_bayes.field_arrays(bw.mean)]), E)
+    assert len(plan.flat()) == 9 + 4 * len(plan.arrays)
+
+    def one_off(i, delta):
+        def ints(rows, cols, n_evals, out_bytes):
+            flat = list(fused_bayes.draw_plan(rows, cols, n_evals, out_bytes).flat())
+            flat[i] += delta
+            return (fused_bayes._build.c_ints(flat), len(flat), fused_bayes._build.c_ints(rows),
+                    fused_bayes._build.c_ints(cols))
+        return ints
+
+    # other threads, another E, a group too long for its count of groups, an
+    # array one row off, a bias offset off, a tile too many, a tile too few
+    for i, delta in ((0, 32), (2, 1), (3, 1), (9 + 4 + 1, 1), (9 + 4 * 2 + 3, 1), (8, 1),
+                     (8, -1)):
+        monkeypatch.setattr(fused_bayes, "_draw_plan_ints", one_off(i, delta))
+        with pytest.raises(RuntimeError, match="fused_bayes_draw"):
+            fused_bayes.bayes_draw_cuda(mean, std, bw.mean, E, seed=1)
 
 
 @pytest.mark.parametrize("ode_name,cfg,L,B,T,mode", [
@@ -941,12 +990,11 @@ def test_bf16_bayes_trajectory_kernel_matches_its_twin(dev, ode_name, cfg, L, B,
     assert_bf16_close(got, want)
 
 
-def test_bf16_draw_rounds_the_float32_draw(dev):
-    model = build(dev, "UONNb", R=3, L=6, net=(16, 16, 8))
-    bw = fused_bayes.pack_bayes_field(model.ode)
-    mean, std = fused_bayes.flatten_field(bw.mean), fused_bayes.flatten_field(bw.std)
-    w32, _, _ = fused_bayes.bayes_draw_cuda(mean, std, bw.mean, 8, seed=5)
-    drawn, _, _ = fused_bayes.bayes_draw_cuda(mean, std, bw.mean, 8, seed=5, bf16=True)
+@pytest.mark.parametrize("widths,E", DRAW_CASES)
+def test_bf16_draw_rounds_the_float32_draw(dev, widths, E):
+    bw, mean, std = draw_field(dev, widths)
+    w32, _, _ = fused_bayes.bayes_draw_cuda(mean, std, bw.mean, E, seed=5)
+    drawn, _, _ = fused_bayes.bayes_draw_cuda(mean, std, bw.mean, E, seed=5, bf16=True)
     assert drawn.w.dtype == torch.bfloat16 and torch.equal(drawn.w, w32.to(torch.bfloat16))
     arrays = fused_bayes.field_arrays(bw.mean)
     offs = np.cumsum([0] + [a.numel() for a in arrays])
