@@ -2203,15 +2203,18 @@ def epoch_spans(prof, span_name):
 
 def host_breakdown(prof, span_name: str, n_steps: int, span_us: float, top: int = 12) -> None:
     """The host's side of a traced run: the self CPU time a step of the
-    operators and runtime calls (dispatch and launch), of the epochs' spans
-    outside them (Python and autograd's engine), and the largest operators."""
+    operators and runtime calls (dispatch and launch), of the program's spans
+    outside them (the epoch span and the step's ``train.*`` spans: Python and
+    autograd's engine), and the largest operators."""
     rows = [r for r in prof.key_averages() if r.self_cpu_time_total > 0]
-    outside = sum(r.self_cpu_time_total for r in rows if r.key == span_name)
-    rows = [r for r in rows if r.key != span_name]
+    spans = {r.key: r.self_cpu_time_total for r in rows
+             if r.key == span_name or r.key.startswith("train.")}
+    rows = [r for r in rows if r.key not in spans]
     total = sum(r.self_cpu_time_total for r in rows)
+    own = ", ".join(f"{k} {v / 1e3 / n_steps:.4f}" for k, v in sorted(spans.items()))
     log(f"    host, traced: operators and runtime calls {total / 1e3 / n_steps:.4f} ms a step, "
-        f"the spans' own {outside / 1e3 / n_steps:.4f} ms a step (Python between operators, "
-        f"and the wait on autograd's device thread in backward), of a "
+        f"the spans' own {sum(spans.values()) / 1e3 / n_steps:.4f} ms a step ({own}; Python "
+        f"between operators, and the wait on autograd's device thread in backward), of a "
         f"{span_us / 1e3 / n_steps:.4f} ms span; the largest, self ms a step (calls a step):")
     for r in sorted(rows, key=lambda r: -r.self_cpu_time_total)[:top]:
         log(f"      {r.self_cpu_time_total / 1e3 / n_steps:8.4f} ({r.count / n_steps:6.1f})  "

@@ -55,6 +55,7 @@ from fiude_tpu_torch.ops.fused_ude import (
     plan_for, plan_ints, uniform_step,
 )
 from fiude_tpu_torch.ops.integrate import rk4_38_step
+from fiude_tpu_torch.utils.profiler import span
 
 
 class BayesField(NamedTuple):
@@ -516,13 +517,16 @@ class FusedBayesForecaster:
         varies the weight noise from call to call."""
         from fiude_tpu_torch.models.vae import reparam  # models import ops: import late
 
-        dt = uniform_step(t)
-        T = len(t)
-        n_samples, batch = eps.shape[0], eps.shape[1]
-        mean, std = self.encoder(x)
-        z = reparam(eps, std, mean) + self.model.ic_jitter
-        y = bayes_trajectory_decode(z, self.weights, T=T, dt=dt, fa_w=self.fa_w, seed=seed,
-                                    compute_dtype=self.compute_dtype)
-        y = y.reshape(T, n_samples, batch, self.model.n_regions)
-        return y.permute(2, 1, 0, 3)
+        with span("serve.request"):
+            dt = uniform_step(t)
+            T = len(t)
+            n_samples, batch = eps.shape[0], eps.shape[1]
+            with span("serve.encode"):
+                mean, std = self.encoder(x)
+            z = reparam(eps, std, mean) + self.model.ic_jitter
+            with span("serve.trajectory"):
+                y = bayes_trajectory_decode(z, self.weights, T=T, dt=dt, fa_w=self.fa_w,
+                                            seed=seed, compute_dtype=self.compute_dtype)
+            y = y.reshape(T, n_samples, batch, self.model.n_regions)
+            return y.permute(2, 1, 0, 3)
 

@@ -40,6 +40,7 @@ from fiude_tpu_torch.models.rhs import UDE, NeuralAug, SIRRates, out_of_range_ma
 from fiude_tpu_torch.ops import _build
 from fiude_tpu_torch.ops.fused_gru import fused_encoder
 from fiude_tpu_torch.ops.integrate import rk4_38_step
+from fiude_tpu_torch.utils.profiler import span
 
 _MAX_DEEP = 8   # kMaxDeep in csrc/fused_ude.cuh
 
@@ -655,15 +656,18 @@ class FusedForecaster:
         (T, S*B, R), the samples folded s-major into the rows."""
         from fiude_tpu_torch.models.vae import reparam  # models import ops: import late
 
-        mean, std = self.encoder(x)
+        with span("serve.encode"):
+            mean, std = self.encoder(x)
         z = reparam(eps, std, mean) + self.model.ic_jitter
-        return trajectory_decode(z, self.weights, T=T, dt=dt, fa_w=self.fa_w,
-                                 compute_dtype=self.compute_dtype, rounded=self.rounded)
+        with span("serve.trajectory"):
+            return trajectory_decode(z, self.weights, T=T, dt=dt, fa_w=self.fa_w,
+                                     compute_dtype=self.compute_dtype, rounded=self.rounded)
 
     def __call__(self, x: torch.Tensor, t, eps: torch.Tensor) -> torch.Tensor:
         """x: (B, T_in, F); t: uniform (T,) grid; eps: (S, B, R, Le)."""
-        T = len(t)
-        n_samples, batch = eps.shape[0], eps.shape[1]
-        y = self.solve(x, eps, T, uniform_step(t))
-        y = y.reshape(T, n_samples, batch, self.model.n_regions)
-        return y.permute(2, 1, 0, 3)
+        with span("serve.request"):
+            T = len(t)
+            n_samples, batch = eps.shape[0], eps.shape[1]
+            y = self.solve(x, eps, T, uniform_step(t))
+            y = y.reshape(T, n_samples, batch, self.model.n_regions)
+            return y.permute(2, 1, 0, 3)

@@ -54,7 +54,6 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from fiude_tpu_torch.models.bayes import variational_kl
 from fiude_tpu_torch.models.vae import UDEForecaster, grid_steps
@@ -66,6 +65,7 @@ from fiude_tpu_torch.train.losses import (
     AnnealConfig, LossConfig, LossConstants, compute_loss, kl_annealing, kl_z_loss,
     loss_constants,
 )
+from fiude_tpu_torch.utils import profiler
 from fiude_tpu_torch.utils.history import History
 from fiude_tpu_torch.utils.metrics import nll as nll_metric
 
@@ -129,7 +129,7 @@ def run_epoch(members: Sequence[Tuple["Trainer", StepConstants]], split: StagedS
     one more step) is taken by ``index_select`` once and every trainer steps
     on it in turn with no host read; all the trainers' stacked metrics come
     back in one read.  Returns each trainer's per-step metrics."""
-    with record_function(span):
+    with profiler.span(span):
         trainers = [tr for tr, _ in members]
         bs = split.batch_size
         n = -(-len(idx) // bs)
@@ -278,39 +278,44 @@ class Trainer:
         (loss, metrics)`` in place of :func:`compute_loss` and
         ``reduce_grad(opt) -> grad_norm``, which sums the gradient buffer over
         the ranks before the norm; None is this process alone."""
-        model = self.model
-        if eps is None:
-            eps = model.sample_eps(x.shape[0], n_samples, generator=self.generator,
-                                   dtype=self.dtype)
-        if self.loss_cfg.anneal:
-            tr_step = self.state.tr_step + 1
-            kl_w = float(kl_annealing(tr_step, self.anneal))   # float32, on the host
-        else:
-            tr_step, kl_w = self.state.tr_step, 1.0
-        kl_w = torch.full((), kl_w, dtype=self.dtype, device=self.device)
-        self.opt.zero_grad()
-        y_pred, extras = model(x, c.t, eps, fa_w=c.fa_w, time_mask=c.time_mask,
-                               noise_seed=noise_seed, dts=c.dts)
-        ode_kl = variational_kl(model.ode, model.ode.prior_std) if model.is_bayes else None
-        loss_fn = compute_loss if sharding is None else sharding.loss
-        loss, metrics = loss_fn(
-            self.loss_cfg, y_pred, y, extras, kl_w=kl_w, latent_dim=model.latent_dim,
-            len_tr=self.len_tr, consts=c.loss,
-            time_mask=c.time_mask, eval_mask=c.eval_mask, ode_kl=ode_kl)
-        loss.backward()
-        metrics["grad_norm"] = (self.opt.grad_norm() if sharding is None
-                                else sharding.reduce_grad(self.opt))
-        # the skip-not-clip rule (reference lib/VAE.py:208-212)
-        skip_count = self.state.skip_count
-        if epoch <= 3:
-            apply, skip_count = None, torch.zeros_like(skip_count)
-        else:
-            apply = (metrics["grad_norm"] < grad_lim) | (skip_count >= 4)
-            skip_count = torch.where(apply, 0, skip_count + 1).to(torch.int32)
-        self.opt.step(apply)
-        self.state = TrainState(tr_step=tr_step, skip_count=skip_count)
-        names = sorted(metrics)
-        return names, torch.stack([metrics[k].detach().reshape(()) for k in names])
+        with profiler.span("train.step"):
+            model = self.model
+            if eps is None:
+                eps = model.sample_eps(x.shape[0], n_samples, generator=self.generator,
+                                       dtype=self.dtype)
+            if self.loss_cfg.anneal:
+                tr_step = self.state.tr_step + 1
+                kl_w = float(kl_annealing(tr_step, self.anneal))   # float32, on the host
+            else:
+                tr_step, kl_w = self.state.tr_step, 1.0
+            kl_w = torch.full((), kl_w, dtype=self.dtype, device=self.device)
+            self.opt.zero_grad()
+            with profiler.span("train.loss"):
+                y_pred, extras = model(x, c.t, eps, fa_w=c.fa_w, time_mask=c.time_mask,
+                                       noise_seed=noise_seed, dts=c.dts)
+                ode_kl = (variational_kl(model.ode, model.ode.prior_std) if model.is_bayes
+                          else None)
+                loss_fn = compute_loss if sharding is None else sharding.loss
+                loss, metrics = loss_fn(
+                    self.loss_cfg, y_pred, y, extras, kl_w=kl_w, latent_dim=model.latent_dim,
+                    len_tr=self.len_tr, consts=c.loss,
+                    time_mask=c.time_mask, eval_mask=c.eval_mask, ode_kl=ode_kl)
+            with profiler.span("train.backward"):
+                loss.backward()
+            with profiler.span("train.adam"):
+                metrics["grad_norm"] = (self.opt.grad_norm() if sharding is None
+                                        else sharding.reduce_grad(self.opt))
+                # the skip-not-clip rule (reference lib/VAE.py:208-212)
+                skip_count = self.state.skip_count
+                if epoch <= 3:
+                    apply, skip_count = None, torch.zeros_like(skip_count)
+                else:
+                    apply = (metrics["grad_norm"] < grad_lim) | (skip_count >= 4)
+                    skip_count = torch.where(apply, 0, skip_count + 1).to(torch.int32)
+                self.opt.step(apply)
+            self.state = TrainState(tr_step=tr_step, skip_count=skip_count)
+            names = sorted(metrics)
+            return names, torch.stack([metrics[k].detach().reshape(()) for k in names])
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor, t, eps=None, *, epoch: int,
                    grad_lim: float, fa_w: Optional[float] = None, time_mask=None,
@@ -371,7 +376,7 @@ class Trainer:
                     ) -> List[Dict[str, float]]:
         """One epoch a step at a time, each batch uploaded and each step read;
         the seeds and eps drawn as :meth:`_run_epoch` draws them."""
-        with record_function(EPOCH_SPAN):
+        with profiler.span(EPOCH_SPAN):
             seeds = epoch_seeds([self], len(loader))
             pending = []
             for b, (x_b, y_b) in enumerate(loader):

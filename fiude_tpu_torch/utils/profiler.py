@@ -5,12 +5,26 @@
   before the device finishes);
 * :func:`throughput_fn` — calls a second with the calls queued back to back
   and one synchronise at the end;
-* :func:`solves_per_sec` — region x ensemble UDE trajectory solves a second;
 * :func:`param_count` — a module's parameter count;
 * :func:`trace` — a ``torch.profiler`` context over the CPU and, when there
   is one, the card;
 * :func:`host_syncs` — the synchronising CUDA runtime calls and the
-  device-to-host copies in such a trace.
+  device-to-host copies in such a trace;
+* :func:`span` — the program's own ``record_function`` span, recorded only
+  while a profiler records.
+
+The program's spans, each tied to its request or step by nesting in time on
+the calling thread:
+
+* ``serve.request`` — a forecaster's whole call: the grid check, encode,
+  reparam, trajectory and the (B, S, T, R) reshape; inside it
+  ``serve.encode`` (the encoder: K1 and its input projection) and
+  ``serve.trajectory`` (K2, or the weight draw and K7);
+* ``train.step`` — one step's or member-step's enqueue
+  (``Trainer._device_step``); inside it ``train.loss`` (the forward and the
+  loss), ``train.backward`` and ``train.adam`` (the grad norm, the skip rule
+  and Adam's step);
+* ``Trainer.epoch``, ``PopulationTrainer.epoch`` — an epoch of steps.
 """
 
 from __future__ import annotations
@@ -67,12 +81,6 @@ def throughput_fn(fn: Callable, *args, reps: int = 20, warmup: int = 2, **kwargs
     return reps / (time.perf_counter() - start)
 
 
-def solves_per_sec(forward: Callable, *args, n_samples: int, batch: int, n_regions: int,
-                   reps: int = 20) -> float:
-    """Region x ensemble UDE solves a second for a whole-forward callable."""
-    return throughput_fn(forward, *args, reps=reps) * n_samples * batch * n_regions
-
-
 def param_count(module: nn.Module) -> int:
     """The number of parameters of ``module``."""
     return int(sum(p.numel() for p in module.parameters()))
@@ -107,3 +115,15 @@ def host_syncs(events, start_us: float = float("-inf"), end_us: float = float("i
         else:
             calls += e.name in SYNC_CALLS
     return {"calls": calls, "dtoh": dtoh}
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records, so
+    that the span shares the device trace's clock; else one shared no-op
+    context, which costs a check of the profiler's state and nothing more."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

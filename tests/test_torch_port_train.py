@@ -41,7 +41,8 @@ from fiude_tpu_torch.models.vae import ForwardExtras
 from fiude_tpu_torch.ops import odeint_grid, stats
 from fiude_tpu_torch.train import TRAINING_INFO, Trainer, load_state_from_flat, losses
 from fiude_tpu_torch.train.checkpoint import flat_from_module
-from fiude_tpu_torch.utils import History, nll
+from fiude_tpu_torch.utils.history import History
+from fiude_tpu_torch.utils.metrics import nll
 
 torch.set_num_threads(1)
 
