@@ -307,6 +307,7 @@ STATE = dict(n_regions=49, latent_dim=8, n_qs=8,
                          "SIR_scaler": [0.1, 0.05, 1.0]},
              ode_params={"net_sizes": (64, 64, 32), "aug_net_sizes": (64, 64)})
 BATCH, SAMPLES, T_IN, T_OUT, DT = 32, 64, 42, 85, 1.0 / 7.0
+CELL_SAMPLES = 128   # a forecast cell's request: BATCH windows x 128 samples = 4096 rows
 REQUESTS = 4
 SMALL_B = 100   # CONN and SONN: a ragged tile count
 WEEKS = 8       # the training grid: 8 weekly points, dt = 1
@@ -346,6 +347,18 @@ def compare(name, got, ref, rows=None, limit=1.0, min_share=0.5) -> float:
     if limit is not None and worst > limit:
         raise RuntimeError(f"{name}: disagrees beyond {limit:g} x (rtol {RTOL}, atol {ATOL})")
     return max_abs
+
+
+def check_wide(kernel, wide, launches, rows, dev) -> None:
+    """Raise unless ``wide`` (the ``.wide_launches`` counter) of ``launches``
+    of K2 or K7 at ``rows`` rows is every launch where ``fused_ude.tile_for``
+    takes 32-row blocks on this card, and none elsewhere."""
+    from fiude_tpu_torch.ops import fused_ude
+    want = launches if fused_ude.tile_for(rows, fused_ude.sm_count(dev)) == fused_ude.WIDE_TILE \
+        else 0
+    if wide != want:
+        raise RuntimeError(f"{kernel}: {wide} of {launches} launches at {rows} rows took 32-row "
+                           f"blocks, expected {want}")
 
 
 def compare_grad(name, got, ref) -> float:
@@ -1157,12 +1170,14 @@ def contraction_check(dev, like, bayes, B, smi, tag):
 
 
 def trajectory_plan_report(w, tag, R, DT, R_out, bayes, smi):
-    """Print the plans K2 (K7 with ``bayes``) takes in both compute modes:
+    """Print the plans K2 (K7 with ``bayes``) takes in both compute modes,
+    and in float32 with the 32-row tile (``fused_ude.tile_for``): rows,
     threads, shared memory, resident or streamed weights, stages and chunks,
     and each pass's products as (K, N, warps, split)."""
     from fiude_tpu_torch.ops import fused_ude
-    for cd in ("float32", "bfloat16"):
-        plan = fused_ude.plan_for(w, R, DT, R_out, bayes=bayes, bf16=cd == "bfloat16")
+    for cd, tile in (("float32", fused_ude.TILE), ("float32", fused_ude.WIDE_TILE),
+                     ("bfloat16", fused_ude.TILE)):
+        plan = fused_ude.plan_for(w, R, DT, R_out, bayes=bayes, bf16=cd == "bfloat16", tile=tile)
         passes = " | ".join(", ".join(f"{j.K}x{j.N} on {j.warps}w/{j.split}" for j in jobs)
                             for jobs in plan.passes)
         log(f"  {tag} {cd} plan: {plan.tile} rows x {plan.threads} threads, {plan.smem_bytes} B "
@@ -1436,8 +1451,10 @@ def zero_std_twin(bayes, dev):
     return zero, plain
 
 
-def bayes_kernel_checks(dev, z0, grid):
-    """Phase 8: returns (the UONNb model, K7's max abs err, the draw's)."""
+def bayes_kernel_checks(dev, z0, z_wide, grid):
+    """Phase 8: returns (the UONNb model, K7's max abs err, the draw's, and
+    K7 on ``z_wide``, a forecast cell's 4096 rows: {rows, wide_launches,
+    max_abs_err})."""
     import torch
     from fiude_tpu_torch.models import UDEForecaster
     from fiude_tpu_torch.ops import fused_bayes, fused_ude, philox
@@ -1487,6 +1504,19 @@ def bayes_kernel_checks(dev, z0, grid):
                 k7_err = max(k7_err, err)
                 y_seed = y_k
 
+        # a forecast cell's 4096 rows: K7 in the blocks the launcher takes there
+        # (32 rows where 16-row blocks would need more than one wave)
+        fused_bayes.bayes_trajectory_cuda.wide_launches = 0
+        y_k = fused_bayes.bayes_trajectory_decode_cuda(z_wide, w, seed=SEED + 8, **kw)
+        k7_wide = {"rows": z_wide.shape[0],
+                   "wide_launches": fused_bayes.bayes_trajectory_cuda.wide_launches}
+        y_p = fused_bayes.bayes_trajectory_decode_plain(z_wide, w, seed=SEED + 8, **kw)
+        rows = held_rows(model.rhs_fn(1.0), z_wide, grid, noise_seed=SEED + 8)
+        k7_wide["max_abs_err"] = compare(
+            f"K7 fused_bayes UONNb seed mode B={z_wide.shape[0]} T={T_OUT} "
+            f"({k7_wide['wide_launches']} launch in 32-row blocks)", y_k, y_p, rows)
+        check_wide("K7", k7_wide["wide_launches"], 1, z_wide.shape[0], dev)
+
         # zero stds: K7 is K2
         zero, plain = zero_std_twin(model, dev)
         y_b = fused_bayes.bayes_trajectory_decode_cuda(
@@ -1503,7 +1533,7 @@ def bayes_kernel_checks(dev, z0, grid):
         if not torch.equal(y2[:, 40], y2[:, 3]) or not torch.equal(y2[:, 3], y_seed[:, 3]):
             raise RuntimeError("two blocks gave the same row different outputs")
         log("  K7: a row fed to two blocks (and in another launch) gives the same bits")
-    return model, k7_err, draw_err
+    return model, k7_err, draw_err, k7_wide
 
 
 def bayes_serving(dev, model, rng, grid, tmp):
@@ -1527,20 +1557,23 @@ def bayes_serving(dev, model, rng, grid, tmp):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     requests = [(torch.tensor(rng.uniform(0, 1, (BATCH, T_IN, served.encoder.input_size)),
                               dtype=torch.float32, device=dev),
-                 served.sample_eps(BATCH, SAMPLES, generator=gen), SEED + 100 + i)
+                 served.sample_eps(BATCH, CELL_SAMPLES, generator=gen), SEED + 100 + i)
                 for i in range(REQUESTS)]
     counters = {"K1": fused_gru.backgru_encode, "draw": fused_bayes.bayes_draw_cuda,
                 "K7": fused_bayes.bayes_trajectory_cuda}
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
+    fused_bayes.bayes_trajectory_cuda.wide_launches = 0
     answers = [forecaster(xr, grid, er, seed=sr) for xr, er, sr in requests]
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
+    launches["K7 wide"] = fused_bayes.bayes_trajectory_cuda.wide_launches
     log(f"  launches during the {REQUESTS} requests: {launches}")
     for k, n in launches.items():
-        if n < REQUESTS:
+        if k != "K7 wide" and n < REQUESTS:
             raise RuntimeError(f"{k} launched {n} times for {REQUESTS} requests")
+    check_wide("K7", launches["K7 wide"], launches["K7"], BATCH * CELL_SAMPLES, dev)
     xr, er, sr = requests[0]
     if not torch.equal(answers[0], forecaster(xr, grid, er, seed=sr)):
         raise RuntimeError("the same seed gave another answer")
@@ -1549,14 +1582,14 @@ def bayes_serving(dev, model, rng, grid, tmp):
     log("  the same seed repeats the answer bit for bit; another seed changes it")
     with torch.no_grad():
         for i, ((xr, er, sr), y) in enumerate(zip(requests, answers)):
-            if tuple(y.shape) != (BATCH, SAMPLES, T_OUT, served.n_regions):
+            if tuple(y.shape) != (BATCH, CELL_SAMPLES, T_OUT, served.n_regions):
                 raise RuntimeError(f"Bayes request {i}: shape {tuple(y.shape)}")
             y_ref, extras = served64(xr.double(), grid, er.double(), fa_w=1.0, noise_seed=sr)
             y_f32, _ = served(xr, grid, er, fa_w=1.0, noise_seed=sr)
             z_req = reparam(er.double(), extras.std, extras.mean) + served64.ic_jitter
             rows = held_rows(served64.rhs_fn(1.0), z_req, grid, noise_seed=sr)   # s-major
-            rows = rows.reshape(SAMPLES, BATCH).T.reshape(-1)                    # b-major, as y
-            flat = (BATCH * SAMPLES, T_OUT, served.n_regions)
+            rows = rows.reshape(CELL_SAMPLES, BATCH).T.reshape(-1)               # b-major, as y
+            flat = (BATCH * CELL_SAMPLES, T_OUT, served.n_regions)
             y, y_ref, y_f32 = (a.reshape(flat).transpose(0, 1) for a in (y, y_ref, y_f32))
             compare(f"Bayes request {i} (seed {sr}) vs UDEForecaster.forward(noise_seed=) in "
                     f"float64", y, y_ref, rows)
@@ -1602,7 +1635,8 @@ def bayes_train_kernel_checks(dev, model, z_train, rng):
     return k8_err, k9_err
 
 
-def bayes_times(dev, model, z0, z_train, forecaster, served, request, grid, step_inputs, smi):
+def bayes_times(dev, model, z0, z_wide, z_train, forecaster, served, request, grid, step_inputs,
+                smi):
     """Phase 12: a dict of (plain ms, kernel ms) pairs, bounds and other times."""
     import numpy as np
     import torch
@@ -1631,6 +1665,8 @@ def bayes_times(dev, model, z0, z_train, forecaster, served, request, grid, step
             lambda n: cuda_ms(lambda: fused_bayes.bayes_trajectory_cuda(z0, w, weff, **kw), n),
             2, 5)
         del noise
+        out["K7_wide"] = cuda_ms(lambda: fused_bayes.bayes_trajectory_cuda(z_wide, w, weff, **kw),
+                                 5)        # a forecast cell's 4096 rows
         out["K7_bound"] = bound_ms(
             2 * B * (E_d * hot + T_OUT * dec_macs),
             nbytes(z0, w.dec_w, w.dec_b) + 4 * E_d * P + 4 * T_OUT * B * w.dec_w.shape[1])
@@ -3928,9 +3964,26 @@ def main() -> int:
                           held_rows(m.rhs_fn(1.0), z0[:B], grid))
             if ode_name == "FaFp":
                 k2_err = err
+        # a forecast cell's request, 32 windows x 128 samples = 4096 rows: K2 in
+        # the blocks the launcher takes there (32 rows where 16-row blocks would
+        # need more than one wave)
+        eps_wide = torch.tensor(np.random.default_rng(SEED + 90).standard_normal(
+            (CELL_SAMPLES, BATCH, model.n_regions, model.encoder.latent_dim)),
+            dtype=torch.float32, device=dev)
+        z_wide = reparam(eps_wide, std, mean) + model.ic_jitter   # (4096, R, L)
+        w = fused_ude.pack_ude(model.ode, model.decoder)
+        fused_ude.trajectory_decode.wide_launches = 0
+        y_k = fused_ude.trajectory_decode_cuda(z_wide, w, T=T_OUT, dt=DT, fa_w=1.0)
+        k2_wide = {"rows": z_wide.shape[0],
+                   "wide_launches": fused_ude.trajectory_decode.wide_launches}
+        y_p = fused_ude.trajectory_decode_plain(z_wide, w, T=T_OUT, dt=DT, fa_w=1.0)
+        k2_wide["max_abs_err"] = compare(
+            f"K2 fused_ude FaFp B={z_wide.shape[0]} T={T_OUT} ({k2_wide['wide_launches']} "
+            f"launch in 32-row blocks)", y_k, y_p, held_rows(model.rhs_fn(1.0), z_wide, grid))
+        check_wide("K2", k2_wide["wide_launches"], 1, z_wide.shape[0], dev)
 
     # -- 3. serving end to end ---------------------------------------------------
-    log(f"phase 3: serving, {REQUESTS} requests of {BATCH} windows x {SAMPLES} samples")
+    log(f"phase 3: serving, {REQUESTS} requests of {BATCH} windows x {CELL_SAMPLES} samples")
     with tempfile.TemporaryDirectory() as tmp:
         save_params(f"{tmp}/state_", model)
         served = UDEForecaster.build(ode_name="FaFp", device=dev,
@@ -3944,28 +3997,31 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     requests = [(torch.tensor(rng.uniform(0, 1, (BATCH, T_IN, served.encoder.input_size)),
                               dtype=torch.float32, device=dev),
-                 served.sample_eps(BATCH, SAMPLES, generator=gen))
+                 served.sample_eps(BATCH, CELL_SAMPLES, generator=gen))
                 for _ in range(REQUESTS)]
     torch.cuda.synchronize()
     fused_gru.backgru_encode.launches = 0
     fused_ude.trajectory_decode.launches = 0
+    fused_ude.trajectory_decode.wide_launches = 0
     answers = [forecaster(xr, grid, er) for xr, er in requests]
     torch.cuda.synchronize()
     launches = {"K1": fused_gru.backgru_encode.launches,
-                "K2": fused_ude.trajectory_decode.launches}
+                "K2": fused_ude.trajectory_decode.launches,
+                "K2 wide": fused_ude.trajectory_decode.wide_launches}
     log(f"  launches during the {REQUESTS} requests: {launches}")
     for k, n in launches.items():
-        if n < REQUESTS:
+        if k != "K2 wide" and n < REQUESTS:
             raise RuntimeError(f"{k} launched {n} times for {REQUESTS} requests")
+    check_wide("K2", launches["K2 wide"], launches["K2"], BATCH * CELL_SAMPLES, dev)
     with torch.no_grad():
         for i, ((xr, er), y) in enumerate(zip(requests, answers)):
-            if tuple(y.shape) != (BATCH, SAMPLES, T_OUT, served.n_regions):
+            if tuple(y.shape) != (BATCH, CELL_SAMPLES, T_OUT, served.n_regions):
                 raise RuntimeError(f"request {i}: shape {tuple(y.shape)}")
             y_ref, extras = served(xr, grid, er, fa_w=1.0)
             z_req = reparam(er, extras.std, extras.mean) + served.ic_jitter
             rows = held_rows(served.rhs_fn(1.0), z_req, grid)     # s-major, as folded
-            rows = rows.reshape(SAMPLES, BATCH).T.reshape(-1)     # b-major, as y
-            flat = (BATCH * SAMPLES, T_OUT, served.n_regions)
+            rows = rows.reshape(CELL_SAMPLES, BATCH).T.reshape(-1)   # b-major, as y
+            flat = (BATCH * CELL_SAMPLES, T_OUT, served.n_regions)
             compare(f"request {i} vs UDEForecaster.forward",
                     y.reshape(flat).transpose(0, 1), y_ref.reshape(flat).transpose(0, 1),
                     rows)
@@ -3982,6 +4038,8 @@ def main() -> int:
                 z0, w, T=T_OUT, dt=DT, fa_w=1.0), n),
             lambda n: cuda_ms(lambda: fused_ude.trajectory_decode_cuda(
                 z0, w, T=T_OUT, dt=DT, fa_w=1.0), n), 2, 10)
+        k2_wide["ms"] = cuda_ms(lambda: fused_ude.trajectory_decode_cuda(
+            z_wide, w, T=T_OUT, dt=DT, fa_w=1.0), 10)         # a forecast cell's 4096 rows
         xr, er = requests[0]
         req_plain, req_ms = in_turns(
             lambda n: host_ms(lambda: served(xr, grid, er, fa_w=1.0), n),
@@ -4004,10 +4062,12 @@ def main() -> int:
         encoder_plan_alternatives(x, w_enc, smi)
     log(f"  K2 fused_ude z0 {tuple(z0.shape)}, T={T_OUT}: kernel {k2_ms:.4f} ms "
         f"({k2_ms * 1e3 / (4 * (T_OUT - 1)):.2f} us an evaluation), plain {k2_plain:.4f} ms, "
-        f"bound {k2_bound[0]:.4f} ms by {k2_bound[1]} [{smi}]")
+        f"bound {k2_bound[0]:.4f} ms by {k2_bound[1]}; at {k2_wide['rows']} rows "
+        f"{k2_wide['ms']:.4f} ms ({k2_wide['wide_launches']} launch in 32-row blocks in phase 2) "
+        f"[{smi}]")
     trajectory_plan_report(w, "K2", model.n_regions, model.n_regions * (z0.shape[2] - 3),
                            w.dec_w.shape[1], False, smi)
-    log(f"  request ({BATCH} windows x {SAMPLES} samples, T={T_OUT}): kernels "
+    log(f"  request ({BATCH} windows x {CELL_SAMPLES} samples, T={T_OUT}): kernels "
         f"{req_ms:.4f} ms, plain {req_plain:.4f} ms [{smi}]")
 
     # -- 5. training kernels vs plain twins ------------------------------------
@@ -4080,10 +4140,10 @@ def main() -> int:
     # -- 8. the Bayes serving kernel and the draw --------------------------------
     log(f"phase 8: the weight draw and K7 vs their plain versions, UONNb at the serving "
         f"shape ({z0.shape[0]} systems, T={T_OUT}), CONNb and SONNb at B={SMALL_B}")
-    bayes, k7_err, _ = bayes_kernel_checks(dev, z0, grid)
+    bayes, k7_err, _, k7_wide = bayes_kernel_checks(dev, z0, z_wide, grid)
 
     # -- 9. Bayes serving end to end ----------------------------------------------
-    log(f"phase 9: Bayes serving, {REQUESTS} requests of {BATCH} windows x {SAMPLES} samples, "
+    log(f"phase 9: Bayes serving, {REQUESTS} requests of {BATCH} windows x {CELL_SAMPLES} samples, "
         f"each with its own noise seed")
     with tempfile.TemporaryDirectory() as tmp:
         b_launches, b_forecaster, b_served, b_request = bayes_serving(dev, bayes, rng, grid, tmp)
@@ -4100,7 +4160,7 @@ def main() -> int:
 
     # -- 12. Bayes times ------------------------------------------------------------
     log(f"phase 12: Bayes times on {card}")
-    bt = bayes_times(dev, bayes, z0, z_train, b_forecaster, b_served, b_request, grid,
+    bt = bayes_times(dev, bayes, z0, z_wide, z_train, b_forecaster, b_served, b_request, grid,
                      b_step_inputs, smi)
     draws = bt["draw"]
     log(f"  draw: {draws['per_normal']} instructions a normal (the SASS of the function alone, "
@@ -4120,6 +4180,10 @@ def main() -> int:
         plain, ms = bt[key]
         bound = bt[key + "_bound"]
         per = f" ({ms * 1e3 / (4 * (T_OUT - 1)):.2f} us an evaluation)" if key == "K7" else ""
+        if key == "K7":
+            k7_wide["ms"] = bt["K7_wide"]
+            per += (f"; at {k7_wide['rows']} rows {k7_wide['ms']:.4f} ms "
+                    f"({k7_wide['wide_launches']} launch in 32-row blocks in phase 8)")
         log(f"  {name}: kernel {ms:.4f} ms{per}, plain {plain:.4f} ms, bound {bound[0]:.4f} ms "
             f"by {bound[1]} [{smi}]")
     k8_plan = fused_train.field_forward_plan(
@@ -4136,7 +4200,7 @@ def main() -> int:
     trajectory_plan_report(fused_bayes.pack_bayes_field(bayes.ode).mean, "K7", bayes.n_regions,
                            bayes.n_regions * (z0.shape[2] - 3), bayes.decoder.linear.out_features,
                            True, smi)
-    log(f"  Bayes request ({BATCH} windows x {SAMPLES} samples, T={T_OUT}): kernels "
+    log(f"  Bayes request ({BATCH} windows x {CELL_SAMPLES} samples, T={T_OUT}): kernels "
         f"{bt['request'][1]:.4f} ms, plain {bt['request'][0]:.4f} ms [{smi}]")
     log(f"  Bayes training step ({BATCH} windows x {SAMPLES} samples, {WEEKS} weekly points): "
         f"kernels {bt['step'][1]:.4f} ms, plain {bt['step'][0]:.4f} ms [{smi}]")
@@ -4271,7 +4335,7 @@ def main() -> int:
         entry("fused_backgru", "fused_gru.cu", "pallas_gru.py:127", launches["K1"], k1_err,
               k1_ms, k1_plain, k1_bound, k1_library),
         entry("fused_trajectory_decode", "fused_ude.cu", "pallas_ude.py:306", launches["K2"],
-              k2_err, k2_ms, k2_plain, k2_bound),
+              k2_err, k2_ms, k2_plain, k2_bound, wide=k2_wide),
         entry("fused_backgru_train_forward", "fused_gru.cu", "pallas_gru_train.py:282",
               train_launches["K3"], k3_err, k3_ms, k3_plain, k3_bound, k3_library),
         entry("fused_backgru_train_backward", "fused_gru_train.cu", "pallas_gru_train.py:302",
@@ -4284,7 +4348,8 @@ def main() -> int:
         entry("fused_train_cotangent_contraction", "fused_train.cu", "pallas_train.py:504",
               train_launches["contraction"], k6c_err, k6c_times[1], k6c_times[0], k6c_bound),
         entry("fused_bayes_trajectory_decode", "fused_bayes.cu", "pallas_bayes.py:237",
-              b_launches["K7"], k7_err, bt["K7"][1], bt["K7"][0], bt["K7_bound"]),
+              b_launches["K7"], k7_err, bt["K7"][1], bt["K7"][0], bt["K7_bound"],
+              wide=k7_wide),
         entry("fused_bayes_train_trajectory_forward", "fused_train.cu",
               "pallas_bayes_train.py:627", bt_launches["K8"], k8_err, bt["K8"][1], bt["K8"][0],
               bt["K8_bound"], **k8_extra),

@@ -12,11 +12,11 @@
 // Where the noise is made.  The TPU kernel materializes the effective
 // weights inside every batch-tile program from the on-core generator; its
 // tiles are 1024 rows, so the draw is small beside the products.  On the
-// card a block holds 16 rows: were every block to draw all P = 73,493
+// card a block holds 16 or 32 rows: were every block to draw all P = 73,493
 // normals itself per evaluation (the `state` config), ~100 integer and
-// transcendental operations a weight would stand against 16 multiply-adds a
-// weight, 128 blocks over, and the 294 KB of effective weights do not fit a
-// block's shared memory beside its state.  The noise is shared by all rows,
+// transcendental operations a weight would stand against 16 or 32
+// multiply-adds a weight, 128 blocks over, and the 294 KB of effective
+// weights do not fit a block's shared memory beside its state.  The noise is shared by all rows,
 // so it is drawn ONCE for all blocks: bayes_draw_kernel writes the effective
 // weights of every evaluation (E, P) to global memory (and, for training,
 // their transposes and the noise z itself), launched by the same wrapper on
@@ -31,7 +31,11 @@
 // instead of 147 x 128 multiply-adds a row in the first layer (72,960
 // multiply-adds a row an evaluation against K2's 41,600), and the L2 rate:
 // every block reads each evaluation's 294 KB (147 KB in bfloat16) into shared
-// memory, 12.6 GB a request of 128 blocks.  K7 streams them through two
+// memory: 12.6 GB a request of 128 blocks, whether 2048 rows in 16-row
+// blocks or 4096 in 32-row ones (25.3 GB for 4096 rows in 16-row blocks,
+// the tile K7 took before it had a wide one; ops/fused_ude.py::tile_for
+// takes 32 rows where 16-row blocks would need more than one wave of the
+// card's SMs).  K7 streams them through two
 // shared-memory stages with cp.async (fused_ude.cuh), the next chunk in
 // flight while the current one is read; the first layer is one pass over
 // [head | tail], 392 deep (the tail's rows follow the head's in the packed

@@ -13,20 +13,26 @@
 // (every hot weight used once a row), so at B = 2048, T = 85 a forecast is
 // ~60 GFLOP of thin products (K, N <= 147), which tensor cores would only
 // take in TF32 or lower precision; the serving path stays IEEE float32.  A
-// block of 16 rows re-reads every weight once an evaluation, so where the
-// weights come from decides the time: through L1 (an earlier design) they missed,
-// ~100 cycles a load.
+// block re-reads every weight once an evaluation for its 16 or 32 rows, so
+// where the weights come from decides the time: through L1 (an earlier
+// design) they missed, ~100 cycles a load.
 //
 // What the design does about it (details in fused_ude.cuh):
-//  * one block of 512 threads per tile of kTile = 16 ensemble rows (128
-//    blocks at B = 2048, one an SM); the ragged last tile is masked;
+//  * one block of 512 threads, one an SM, per tile of kTile = 16 ensemble
+//    rows while those blocks fit one wave of the card's SMs (128 blocks at
+//    B = 2048 on the H100's 132), else, in float32, of kWideTile = 32 rows
+//    (B = 4096, a forecast cell's request: 128 blocks, not 256 in two
+//    waves), a lane then computing its outputs for both 16-row halves; the
+//    rule is ops/fused_ude.py::tile_for, and a row's bits are the same in
+//    either tile; the ragged last tile is masked;
 //  * the tile's state head, the stages and every activation stay in shared
 //    memory for all T steps, feature-major ([feature][row]);
 //  * the weights are read from shared memory only: the float32 field's 166
 //    KB do not fit beside the tile and stream from L2 through two stages
 //    (cp.async, the next chunk in flight while the current one is read); in
 //    bfloat16 (83 KB) they stay resident, loaded once; the decoder (29 KB) is
-//    resident in both;
+//    resident in the 16-row tile and read through L2 (__ldg) in the 32-row
+//    one;
 //  * register tiles: a lane computes 4 rows x 4 columns from one 16-byte load
 //    of activations and one of weights, split lanes and a fixed shuffle tree
 //    where a product has few outputs; the rates net's and the Fa net's layer

@@ -21,10 +21,14 @@
 //
 // The launch plan (ops/fused_ude.py::trajectory_plan, the only planner; the
 // launcher checks it with read_plan) fixes everything but the number of blocks:
-//  * a block owns kTile = 16 ensemble rows on kThreads = 512 threads; the
-//    state, the stages and every activation stay in shared memory for all T
-//    steps, feature-major ([feature][16 rows] floats: one 16-byte load gives a
-//    lane one feature of 4 rows);
+//  * a block owns a tile of kTile = 16 ensemble rows on kThreads = 512
+//    threads, or, in float32, kWideTile = 32 rows (the launcher in Python
+//    takes it where 16-row blocks would need more than one wave of the
+//    card's SMs) on the same warps, jobs and splits: each lane then owns the
+//    same outputs of two 16-row halves, one weight load feeding both;
+//    the state, the stages and every activation stay in shared memory for
+//    all T steps, feature-major ([feature][tile rows] floats: one 16-byte load
+//    gives a lane one feature of 4 rows);
 //  * an RHS evaluation runs as passes ("steps" of the plan): the first layer
 //    (K7: over [head | tail], 3R + DT deep, the tail's rows being the next
 //    rows of the same packed matrix), then layer d of the rates net and of
@@ -36,15 +40,20 @@
 //    weights feed 16 FMAs); where a product has few outputs, `split` lanes
 //    share a tile, each summing every split-th k, and a fixed xor-shuffle
 //    tree adds their parts, so a row's bits depend on the widths alone,
-//    never on the batch; a bfloat16 job runs on the tensor cores, each warp
-//    owning 8-column tiles of all 16 rows;
+//    never on the batch or the tile; a bfloat16 job runs on the tensor cores,
+//    each warp owning 8-column tiles of all 16 rows;
 //  * the plan and the arguments are copied into shared memory first, so an
 //    index into them is a shared load;
 //  * the weights are read from shared memory, never through L1: resident
 //    (K2 where they fit beside the tile, loaded once) or streamed through two
 //    stages, the next chunk (a pass's rows, split to fit a stage) copied with
 //    cp.async while the current one is read.  Every chunk starts with one
-//    barrier, which also ends the previous pass; the combine has one more.
+//    barrier, which also ends the previous pass; the combine has one more;
+//  * the Kutta stages take two slots (stage 2 stores k2 + k3 in k2's, all
+//    that stage 3 reads of them) and a net's ping-pong halves only those it
+//    writes; the decoder is resident in the 16-row tile (measured faster
+//    there than through L2) and read from global memory in the 32-row one
+//    (offset `dec` 0), which leaves its weight stages ~25-33 KB.
 
 #pragma once
 
@@ -61,6 +70,7 @@ namespace {
 
 constexpr int kMaxDeep = 8;          // layers after the first, per net
 constexpr int kTile = 16;            // ensemble rows per block
+constexpr int kWideTile = 32;        // ... in the wide tile (float32 only)
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSmemLimit = 232448;   // dynamic shared memory a block can use
@@ -73,7 +83,7 @@ constexpr int kMaxChunks = 24;
 constexpr int kCols = 4;
 constexpr int kAcc = 4 * kCols;      // a lane's accumulators (also kCols m16n8 tiles' worth)
 // The bfloat16 mode's field products run on the tensor cores (mma.sync
-// m16n8k16, the tile's 16 rows as M); the activations they read (the stage
+// m16n8k16, the 16-row tile's rows as M); the activations they read (the stage
 // input zin, h0 and the inner layers' outputs) are stored as bfloat16 rows,
 // [16 rows][operand_stride(width)], not as float32 features.
 enum JobKind { kFirst, kFp, kAug, kDecode, kCt };
@@ -190,10 +200,11 @@ bool job_ok(const UdeArgs& a, bool bayes, bool bf16, const StepPlan& s, int j, i
 }
 
 // Reads the plan of n ints at v (TrajectoryPlan.flat()) into p and checks
-// what the kernel relies on: its tile and threads; every pass's products
-// those of these widths, in the kernel's order, each on warps of its own with
-// a lane for each output; each buffer 16-byte aligned and as large as the
-// kernel reads (the ping-pong halves included), in the layout's order; each
+// what the kernel relies on: its tile (16 rows, or 32 in float32) and
+// threads; every pass's products those of these widths, in the kernel's order,
+// each on warps of its own with a lane for each output; each buffer 16-byte
+// aligned and as large as the kernel reads for the tile's rows (the
+// ping-pong halves a net writes included), in the layout's order; each
 // pass's weight rows covered in order by its chunks, a chunk's rows inside
 // its stage (resident: side by side, none over another); no resident weights
 // for K7, whose weights are new every evaluation; and all of it inside
@@ -206,7 +217,8 @@ bool read_plan(const UdeArgs& a, bool bayes, bool bf16, const int* v, int n, Pla
                  &p.fa, &p.dec, &p.wts, &p.ldw_dec, &p.n_steps, &p.dec_step};
   for (int* f : head) *f = in.get();
   const int depth = a.fp.n > a.aug.n ? a.fp.n : a.aug.n, W3 = 3 * a.R;
-  if (!in.ok || p.tile != kTile || p.threads != kThreads || p.n_steps != depth + 1 ||
+  if (!in.ok || (p.tile != kTile && (p.tile != kWideTile || bf16)) ||
+      p.threads != kThreads || p.n_steps != depth + 1 ||
       p.n_steps > kMaxSteps || p.dec_step < 0 || p.dec_step >= p.n_steps ||
       p.ldw_dec != row_stride(a.R_out, false) || p.smem_bytes > kSmemLimit ||
       (p.resident != 0 && p.resident != 1) || (bayes && p.resident))
@@ -232,36 +244,44 @@ bool read_plan(const UdeArgs& a, bool bayes, bool bf16, const int* v, int n, Pla
       p.ctp.n_jobs != (bayes ? 0 : 1))
     return false;
   for (int j = 0; j < ds.n_jobs; ++j)
-    if (!job_ok(a, bayes, bf16, p.dec_jobs, j, ds.job[j].kind, ds.job[j].layer)) return false;
+    if (!job_ok(a, bayes, bf16, p.dec_jobs, j, ds.job[j].kind, ds.job[j].layer))
+      return false;
   if (!job_ok(a, bayes, bf16, p.dec_jobs, ds.n_jobs, kDecode, 0) ||
       !job_ok(a, bayes, bf16, p.final_dec, 0, kDecode, 0) ||
       (!bayes && !job_ok(a, bayes, bf16, p.ctp, 0, kCt, 0)))
     return false;
 
   // the tile: each buffer at least as large as the kernel uses it, in order
-  // (float32: the product reads the stage input itself, zs = zin)
-  const int row = kTile * 4;
+  // (float32: the product reads the stage input itself, zs = zin; a decoder
+  // at offset 0 is read from global memory and has no buffer)
+  const int row = p.tile * 4;
   auto operand = [&](int w) { return bf16 ? (w ? 2 * kTile * operand_stride(w) : 0) : w * row; };
+  auto halves = [](const Net& net) { return net.n > 2 ? 2 : net.n - 1 > 0 ? net.n - 1 : 0; };
   int fpw = 0, augw = 0;
   for (int d = 0; d + 1 < a.fp.n; ++d) fpw = a.fp.out[d] > fpw ? a.fp.out[d] : fpw;
   for (int d = 0; d + 1 < a.aug.n; ++d) augw = a.aug.out[d] > augw ? a.aug.out[d] : augw;
-  const int kb = bayes ? 3 * W3 : (3 * W3 > a.DT ? 3 * W3 : a.DT);
+  const int kb = bayes ? 2 * W3 : (2 * W3 > a.DT ? 2 * W3 : a.DT);
   const int offs[12] = {p.zh, p.zin, p.zs, p.kbuf, p.ct, p.h0, p.fpb, p.augb, p.rates, p.fa,
                         p.dec, p.wts};
-  const int sizes[11] = {W3 * row, operand(bayes ? W3 + a.DT : W3), bf16 ? W3 * row : 0,
-                         kb * row, bayes ? 0 : a.N0 * row, operand(a.N0), 2 * operand(fpw),
-                         2 * operand(augw), a.fp.n ? 2 * a.R * row : 0,
-                         a.aug.n ? W3 * row : 0, W3 * p.ldw_dec * 4};
+  const int sizes[12] = {W3 * row, operand(bayes ? W3 + a.DT : W3), bf16 ? W3 * row : 0,
+                         kb * row, bayes ? 0 : a.N0 * row, operand(a.N0),
+                         halves(a.fp) * operand(fpw), halves(a.aug) * operand(augw),
+                         a.fp.n ? 2 * a.R * row : 0, a.aug.n ? W3 * row : 0,
+                         p.dec ? W3 * p.ldw_dec * 4 : 0, 0};
+  // a net that writes two ping-pong halves: the kernel halves its gap
+  if ((halves(a.fp) == 2 && (p.augb - p.fpb) / 2 < operand(fpw)) ||
+      (halves(a.aug) == 2 && (p.rates - p.augb) / 2 < operand(augw)) ||
+      (p.augb - p.fpb) / 2 % 16 || (p.rates - p.augb) / 2 % 16)
+    return false;
   if (!bf16 && p.zs != p.zin) return false;
-  for (int o : offs)
-    if (o < kArgsBytes || o > p.smem_bytes) return false;
-  for (int i = 0; i < 11; ++i) {
-    if (!bf16 && i == 2) continue;
-    if (offs[i] % 16 || offs[i] + sizes[i] > offs[!bf16 && i == 1 ? 3 : i + 1]) return false;
+  int prev = -1;   // the buffers in order, zs (float32) and a global decoder skipped
+  for (int i = 0; i < 12; ++i) {
+    if ((!bf16 && i == 2) || (i == 10 && p.dec == 0)) continue;
+    if (offs[i] < kArgsBytes || offs[i] > p.smem_bytes || offs[i] % 16 ||
+        (prev >= 0 && offs[prev] + sizes[prev] > offs[i]))
+      return false;
+    prev = i;
   }
-  // the ping-pong halves: the kernel halves the gap to the next buffer
-  const int half_fp = (p.augb - p.fpb) / 2, half_aug = (p.rates - p.augb) / 2;
-  if (half_fp % 16 || half_aug % 16 || p.wts % 16) return false;
 
   // the weights: each pass's rows in order over its chunks, inside their stage
   p.n_chunks = in.get();
@@ -375,13 +395,19 @@ __device__ void copy_rows(unsigned char* dst, const unsigned char* src, int k0, 
 // its width N is odd.
 __device__ __forceinline__ int row_parity(int par0, int npar, int k) { return par0 ^ (k & npar); }
 
-template <bool kBayes, bool kBf16>
+template <bool kBayes, bool kBf16, int kRows>
 struct Traj {
   const UdeArgs& a;
   const Plan& p;
   int row0, B;
 
+  static_assert(kRows == kTile || (kRows == kWideTile && !kBf16),
+                "a tile of 16 rows, or 32 in float32");
   static constexpr int kEsize = kBf16 ? 2 : 4;
+  static constexpr int kGroups = kRows / 4;   // 4-row groups: float4s a feature
+  // A lane's tile of a CUDA-core product is 4 rows x kCols columns in each of
+  // kSets 16-row halves of the tile: row groups rg and rg + 4.
+  static constexpr int kSets = kRows / kTile;
 
   __device__ float4* buf(int off) const { return reinterpret_cast<float4*>(ude_smem + off); }
 
@@ -417,17 +443,18 @@ struct Traj {
   }
 
   // The input activations of a float32 field product (feature-major float4
-  // [K][4 row groups]).
+  // [K][kGroups row groups]).
   __device__ const float4* input(const JobPlan& j) const {
     switch (j.kind) {
       case kFirst: return buf(p.zin);
       case kFp: return j.layer == 0 ? buf(p.h0) : half(kFp, j.layer - 1);
-      default: return j.layer == 0 ? buf(p.h0) + a.n0_fp * 4 : half(kAug, j.layer - 1);
+      default: return j.layer == 0 ? buf(p.h0) + a.n0_fp * kGroups : half(kAug, j.layer - 1);
     }
   }
 
   // The ping-pong half that layer d of a net writes (when not its last) and
-  // layer d + 1 reads: each half as wide as the net's widest inner layer.
+  // layer d + 1 reads: each half as wide as the net's widest inner layer (a
+  // net of one inner layer writes half 0 alone).
   __device__ float4* half(int kind, int d) const {
     const int lo = kind == kFp ? p.fpb : p.augb, hi = kind == kFp ? p.augb : p.rates;
     return buf(lo + (d & 1) * ((hi - lo) / 2));
@@ -443,40 +470,57 @@ struct Traj {
       for (int q = 0; q < kCols; ++q) acc[r * kCols + q] = fmaf(xs[r], ws[q], acc[r * kCols + q]);
   }
 
-  // acc += in[k] x W[k] for this lane's k in [kb, ke) (k = s mod S), 4 rows x
-  // kCols columns from c; W's float32 row k at w + (k - kw) * ldw elements.
-  __device__ __forceinline__ void accumulate(float (&acc)[kAcc], const float4* in,
+  // acc += in[k] x W[k] for this lane's k in [kb, ke) (k = s mod S), 4 rows
+  // (row groups rg + 4t of the kSets halves) x kCols columns from c; W's
+  // float32 row k at w + (k - kw) * ldw elements.
+  __device__ __forceinline__ void accumulate(float (&acc)[kSets][kAcc], const float4* in,
                                              const unsigned char* w, int ldw, int kw, int kb,
                                              int ke, int S, int s, int rg, int c) const {
     int k = kb + ((s - kb) % S + S) % S;
 #pragma unroll 4
     for (; k < ke; k += S) {
-      const float4 x = in[k * 4 + rg];
+      float4 x[kSets];
+#pragma unroll
+      for (int t = 0; t < kSets; ++t) x[t] = in[k * kGroups + rg + 4 * t];
       const float4* wr = reinterpret_cast<const float4*>(w + ((size_t)(k - kw) * ldw + c) * 4);
       float ws[kCols];
 #pragma unroll
       for (int q = 0; q < kCols / 4; ++q)
         *reinterpret_cast<float4*>(ws + 4 * q) = wr[q];
-      fma_tile(acc, x, ws);
+#pragma unroll
+      for (int t = 0; t < kSets; ++t) fma_tile(acc[t], x[t], ws);
     }
   }
 
-  // K2's frozen-tail term from global memory (once a launch): the tail's rows
-  // of W are w0t's, read with __ldg.
-  __device__ void accumulate_global(float (&acc)[kAcc], const float4* in, int K, int N, int S,
-                                    int s, int rg, int c) const {
+  // A product whose K x N matrix W is read from global memory with __ldg (in
+  // bfloat16 with kWBf16), in the k order of accumulate: K2's frozen-tail
+  // term (once a launch; W = w0t) and the 32-row tile's decode (W = dec_w).
+  template <bool kWBf16>
+  __device__ void accumulate_global(float (&acc)[kSets][kAcc], const float4* in, const void* W,
+                                    int K, int N, int S, int s, int rg, int c) const {
     for (int k = s; k < K; k += S) {
-      const float4 x = in[k * 4 + rg];
       float ws[kCols];
 #pragma unroll
       for (int q = 0; q < kCols; ++q) {
         const size_t i = (size_t)k * N + c + q;
+        const unsigned short* wb = static_cast<const unsigned short*>(W);
         ws[q] = c + q >= N ? 0.f
-                : kBf16 ? __uint_as_float((unsigned)__ldg(static_cast<const unsigned short*>(a.w0t) + i) << 16)
-                        : __ldg(static_cast<const float*>(a.w0t) + i);
+                : kWBf16 ? __uint_as_float((unsigned)__ldg(wb + i) << 16)
+                         : __ldg(static_cast<const float*>(W) + i);
       }
-      fma_tile(acc, x, ws);
+#pragma unroll
+      for (int t = 0; t < kSets; ++t) fma_tile(acc[t], in[k * kGroups + rg + 4 * t], ws);
     }
+  }
+
+  // The decode's product of the state head: the decoder resident (p.dec, the
+  // 16-row tile) or read from global memory (the 32-row tile).
+  __device__ __forceinline__ void decode_products(float (&acc)[kSets][kAcc], const JobPlan& j,
+                                                  int S, int s, int rg, int c) const {
+    if (p.dec)
+      accumulate(acc, buf(p.zh), ude_smem + p.dec, p.ldw_dec, 0, 0, j.K, S, s, rg, c);
+    else
+      accumulate_global<false>(acc, buf(p.zh), a.dec_w, j.K, j.N, S, s, rg, c);
   }
 
   // The bfloat16 products on the tensor cores: this warp (wj of the job's nw)
@@ -580,7 +624,7 @@ struct Traj {
     bool act, rnd = kBf16;
     float* dst;
     if (j.kind == kFirst) {
-      v += kBayes ? bb : reinterpret_cast<const float*>(ude_smem + p.ct)[col * kTile + row];
+      v += kBayes ? bb : reinterpret_cast<const float*>(ude_smem + p.ct)[col * kRows + row];
       act = col < a.n0_fp ? a.fp.n >= 2 : a.aug.n >= 2;
       dst = reinterpret_cast<float*>(ude_smem + p.h0);
     } else {
@@ -597,7 +641,7 @@ struct Traj {
       const int lda = operand_stride(j.kind == kFirst ? a.N0 : inner_width(*net));
       reinterpret_cast<__nv_bfloat16*>(dst)[row * lda + col] = __float2bfloat16_rn(v);
     } else {
-      dst[col * kTile + row] = v;
+      dst[col * kRows + row] = v;
     }
   }
 
@@ -647,16 +691,18 @@ struct Traj {
   // Sum the split lanes' parts (a fixed xor tree), add the bias or addend,
   // apply ELU / rounding and store this lane's share of the tile: of the
   // kCols columns, those c' with c' mod min(S, kCols) = its split index.
-  __device__ __forceinline__ void finish(float (&acc)[kAcc], const JobPlan& j,
+  __device__ __forceinline__ void finish(float (&acc)[kSets][kAcc], const JobPlan& j,
                                          const float (&bb)[kAcc / 2], int t_out,
                                          float* __restrict__ out) const {
     const int lane = threadIdx.x & 31, S = j.split, q = 32 / S;
     for (int m = 16; m >= q; m >>= 1)
 #pragma unroll
-      for (int i = 0; i < kAcc; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], m);
+      for (int t = 0; t < kSets; ++t)
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) acc[t][i] += __shfl_xor_sync(0xffffffffu, acc[t][i], m);
     const int item = ((threadIdx.x >> 5) - j.warp0) * q + lane % q, s = lane / q;
     if (item >= 4 * ((j.N + kCols - 1) / kCols)) return;
-    const int rg = item & 3, c = (item >> 2) * kCols, share = S < kCols ? S : kCols;
+    const int c = (item >> 2) * kCols, share = S < kCols ? S : kCols;
     bool act = false, rnd = false;
     float4* dst = nullptr;
     const Net* net = j.kind == kFp ? &a.fp : &a.aug;
@@ -675,29 +721,33 @@ struct Traj {
     for (int cc = 0; cc < kCols; ++cc) {
       const int col = c + cc;
       if (cc % share != s || col >= j.N) continue;
-      float v[4];
-      if (j.kind == kFirst && !kBayes) {
-        const float4 ad = buf(p.ct)[col * 4 + rg];
-        v[0] = acc[cc] + ad.x; v[1] = acc[kCols + cc] + ad.y;
-        v[2] = acc[2 * kCols + cc] + ad.z; v[3] = acc[3 * kCols + cc] + ad.w;
-      } else {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) v[r] = acc[r * kCols + cc] + bb[cc];
-      }
       if (j.kind == kFirst) act = col < a.n0_fp ? a.fp.n >= 2 : a.aug.n >= 2;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        if (act) v[r] = eluf(v[r]);
-        if (rnd) v[r] = round_bf16(v[r]);
-      }
-      if (j.kind == kDecode) {
+      for (int t = 0; t < kSets; ++t) {
+        const int rg = (item & 3) + 4 * t;     // this half's row group
+        float v[4];
+        if (j.kind == kFirst && !kBayes) {
+          const float4 ad = buf(p.ct)[col * kGroups + rg];
+          v[0] = acc[t][cc] + ad.x; v[1] = acc[t][kCols + cc] + ad.y;
+          v[2] = acc[t][2 * kCols + cc] + ad.z; v[3] = acc[t][3 * kCols + cc] + ad.w;
+        } else {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) v[r] = acc[t][r * kCols + cc] + bb[cc];
+        }
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const int row = row0 + rg * 4 + r;
-          if (row < B) out[((size_t)t_out * B + row) * a.R_out + col] = v[r];
+          if (act) v[r] = eluf(v[r]);
+          if (rnd) v[r] = round_bf16(v[r]);
         }
-      } else {
-        dst[col * 4 + rg] = make_float4(v[0], v[1], v[2], v[3]);
+        if (j.kind == kDecode) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int row = row0 + rg * 4 + r;
+            if (row < B) out[((size_t)t_out * B + row) * a.R_out + col] = v[r];
+          }
+        } else {
+          dst[col * kGroups + rg] = make_float4(v[0], v[1], v[2], v[3]);
+        }
       }
     }
   }
@@ -711,9 +761,11 @@ struct Traj {
     int jx = -1;
     for (int j = 0; j < sp.n_jobs; ++j)
       if (warp >= sp.job[j].warp0 && warp < sp.job[j].warp0 + sp.job[j].warps) jx = j;
-    float acc[kAcc];
+    float acc[kSets][kAcc];
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    for (int t = 0; t < kSets; ++t)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc[t][i] = 0.f;
     const JobPlan* j = jx >= 0 ? &sp.job[jx] : nullptr;
     int S = 1, sl = 0, rg = 0, c = 0, par0 = 0, npar = 0;
     bool active = false;
@@ -745,12 +797,11 @@ struct Traj {
       if (!active && !mma) continue;        // a warp's mma takes all its lanes
       const ChunkPlan& ch = p.chunk[ci];
       if (j->kind == kDecode) {
-        if (ci + 1 == c_end)
-          accumulate(acc, buf(p.zh), ude_smem + p.dec, p.ldw_dec, 0, 0, j->K, S, sl, rg, c);
+        if (ci + 1 == c_end) decode_products(acc, *j, S, sl, rg, c);
       } else if (mma) {
         int lda, koff;
         const unsigned short* x = operand(*j, lda, koff);
-        accumulate_mma(acc, x, lda, koff, chunk_base(g) + ch.off[jx], j->ldw, ch.k0[jx],
+        accumulate_mma(acc[0], x, lda, koff, chunk_base(g) + ch.off[jx], j->ldw, ch.k0[jx],
                        ch.k0[jx], ch.k1[jx], j->N, warp - j->warp0, j->warps, par0, npar);
       } else {
         accumulate(acc, input(*j), chunk_base(g) + ch.off[jx], j->ldw, ch.k0[jx], ch.k0[jx],
@@ -758,29 +809,29 @@ struct Traj {
       }
     }
     if (mma)
-      finish_mma(acc, *j, bb);
+      finish_mma(acc[0], *j, bb);
     else if (j != nullptr)
       finish(acc, *j, bb, t_out, out);
     return g;
   }
 
   // The decode alone (the last point, or every point when T == 1): float32
-  // in both modes, its weights resident.
+  // in both modes.
   __device__ void run_decode(int t_out, float* __restrict__ out) const {
     const JobPlan& j = p.final_dec.job[0];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     if (warp < j.warp0 || warp >= j.warp0 + j.warps) return;
-    float acc[kAcc];
+    float acc[kSets][kAcc];
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    for (int t = 0; t < kSets; ++t)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc[t][i] = 0.f;
     const int q = 32 / j.split, item = (warp - j.warp0) * q + lane % q;
     const bool active = item < 4 * ((j.N + kCols - 1) / kCols);
     const int c = (item >> 2) * kCols;
     float bb[kAcc / 2];
     load_bias(j, 0, false, active, c, bb);
-    if (active)
-      accumulate(acc, buf(p.zh), ude_smem + p.dec, p.ldw_dec, 0, 0, j.K, j.split, lane / q,
-                 item & 3, c);
+    if (active) decode_products(acc, j, j.split, lane / q, item & 3, c);
     finish(acc, j, bb, t_out, out);
   }
 
@@ -789,47 +840,50 @@ struct Traj {
     const JobPlan& j = p.ctp.job[0];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     if (warp < j.warp0 || warp >= j.warp0 + j.warps) return;
-    float acc[kAcc];
+    float acc[kSets][kAcc];
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    for (int t = 0; t < kSets; ++t)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc[t][i] = 0.f;
     const int q = 32 / j.split, item = (warp - j.warp0) * q + lane % q;
     const bool active = item < 4 * ((j.N + kCols - 1) / kCols);
     const int c = (item >> 2) * kCols;
     float bb[kAcc / 2];
     load_bias(j, 0, false, active, c, bb);
-    if (active) accumulate_global(acc, buf(p.kbuf), j.K, j.N, j.split, lane / q, item & 3, c);
+    if (active)
+      accumulate_global<kBf16>(acc, buf(p.kbuf), a.w0t, j.K, j.N, j.split, lane / q, item & 3, c);
     finish(acc, j, bb, 0, nullptr);
   }
 
   // The field at this stage's input from the rates and Fa just computed, the
-  // freeze mask, and the Kutta 3/8 stage update fused in: k_stage (stages
-  // 0-2), the next stage's input (zs, and its rounded copy zin with kBf16),
-  // and at stage 3 the new state.
+  // freeze mask, and the Kutta 3/8 stage update fused in: k1 (stage 0), k2
+  // (stage 1), k2 + k3 in k2's slot (stage 2: stage 3 reads them as that sum,
+  // the same float addition as summing them there), the next stage's input
+  // (zs, and its rounded copy zin with kBf16), and at stage 3 the new state.
   __device__ void combine(int stage, float dt, float fa_w) const {
     const bool mech = a.n0_fp > 0, has_aug = a.aug.n > 0;
     float4* zh = buf(p.zh);
     float4* zs = buf(p.zs);
     float4* zin = buf(p.zin);
     float4* k1 = buf(p.kbuf);
-    float4* k2 = k1 + 3 * a.R * 4;
-    float4* k3 = k2 + 3 * a.R * 4;
+    float4* k2 = k1 + 3 * a.R * kGroups;
     const float4* rt = buf(p.rates);
     const float4* fa = buf(p.fa);
     const float third = 1.f / 3.f;
     const int lda = operand_stride(kBayes ? 3 * a.R + a.DT : 3 * a.R);
     // a thread a (region, group of 4 rows): the region's S, I, R as float4s
-    for (int idx = threadIdx.x; idx < a.R * 4; idx += kThreads) {
-      const int r = idx >> 2, rg = idx & 3, i0 = 3 * r * 4 + rg;
+    for (int idx = threadIdx.x; idx < a.R * kGroups; idx += kThreads) {
+      const int r = idx / kGroups, rg = idx % kGroups, i0 = 3 * r * kGroups + rg;
       float z[3][4], f[3][4], beta[4], gamma[4];
 #pragma unroll
-      for (int q = 0; q < 3; ++q) *reinterpret_cast<float4*>(z[q]) = zs[i0 + 4 * q];
+      for (int q = 0; q < 3; ++q) *reinterpret_cast<float4*>(z[q]) = zs[i0 + kGroups * q];
       if (mech) {
-        *reinterpret_cast<float4*>(beta) = rt[2 * r * 4 + rg];
-        *reinterpret_cast<float4*>(gamma) = rt[(2 * r + 1) * 4 + rg];
+        *reinterpret_cast<float4*>(beta) = rt[2 * r * kGroups + rg];
+        *reinterpret_cast<float4*>(gamma) = rt[(2 * r + 1) * kGroups + rg];
       }
       if (has_aug)
 #pragma unroll
-        for (int q = 0; q < 3; ++q) *reinterpret_cast<float4*>(f[q]) = fa[i0 + 4 * q];
+        for (int q = 0; q < 3; ++q) *reinterpret_cast<float4*>(f[q]) = fa[i0 + kGroups * q];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         if (mech) {
@@ -845,7 +899,7 @@ struct Traj {
       }
 #pragma unroll
       for (int q = 0; q < 3; ++q) {
-        const int i = i0 + 4 * q;
+        const int i = i0 + kGroups * q;
         const float4 kv = *reinterpret_cast<const float4*>(f[q]), h = zh[i];
         float4 nz;
         if (stage == 0) {
@@ -859,15 +913,15 @@ struct Traj {
                            h.z + dt * (kv.z - third * a1.z), h.w + dt * (kv.w - third * a1.w));
         } else if (stage == 2) {
           const float4 a1 = k1[i], a2 = k2[i];
-          k3[i] = kv;
+          k2[i] = make_float4(a2.x + kv.x, a2.y + kv.y, a2.z + kv.z, a2.w + kv.w);
           nz = make_float4(h.x + dt * (a1.x - a2.x + kv.x), h.y + dt * (a1.y - a2.y + kv.y),
                            h.z + dt * (a1.z - a2.z + kv.z), h.w + dt * (a1.w - a2.w + kv.w));
         } else {
-          const float4 a1 = k1[i], a2 = k2[i], a3 = k3[i];
-          nz = make_float4(h.x + dt * (a1.x + 3.f * (a2.x + a3.x) + kv.x) * 0.125f,
-                           h.y + dt * (a1.y + 3.f * (a2.y + a3.y) + kv.y) * 0.125f,
-                           h.z + dt * (a1.z + 3.f * (a2.z + a3.z) + kv.z) * 0.125f,
-                           h.w + dt * (a1.w + 3.f * (a2.w + a3.w) + kv.w) * 0.125f);
+          const float4 a1 = k1[i], a23 = k2[i];
+          nz = make_float4(h.x + dt * (a1.x + 3.f * a23.x + kv.x) * 0.125f,
+                           h.y + dt * (a1.y + 3.f * a23.y + kv.y) * 0.125f,
+                           h.z + dt * (a1.z + 3.f * a23.z + kv.z) * 0.125f,
+                           h.w + dt * (a1.w + 3.f * a23.w + kv.w) * 0.125f);
           zh[i] = nz;
         }
         zs[i] = nz;
@@ -882,11 +936,12 @@ struct Traj {
   }
 };
 
-template <bool kBayes, bool kBf16>
+template <bool kBayes, bool kBf16, int kRows>
 __global__ void __launch_bounds__(kThreads, 1)
 ude_trajectory_kernel(const float* __restrict__ zh0, const float* __restrict__ ztail, int B, int T,
                       float dt, float fa_w, const __grid_constant__ UdeArgs args,
                       const __grid_constant__ Plan plan, float* __restrict__ out) {
+  using Tr = Traj<kBayes, kBf16, kRows>;
   unsigned char* smem = ude_smem;
   // the plan and the arguments into shared memory (the first kArgsBytes):
   // read there, an index into them is a shared load, not a generic one into
@@ -901,41 +956,42 @@ ude_trajectory_kernel(const float* __restrict__ zh0, const float* __restrict__ z
   }
   const Plan& p = *reinterpret_cast<const Plan*>(smem);
   const UdeArgs& a = *reinterpret_cast<const UdeArgs*>(smem + sizeof(Plan));
-  const Traj<kBayes, kBf16> tr{a, p, (int)blockIdx.x * kTile, B};
+  const Tr tr{a, p, (int)blockIdx.x * kRows, B};
   const int W3 = 3 * a.R, row0 = tr.row0;
   float* zh = reinterpret_cast<float*>(smem + p.zh);
   float* zs = reinterpret_cast<float*>(smem + p.zs);
   float* zin = reinterpret_cast<float*>(smem + p.zin);
-  constexpr bool kRows = kBf16;   // the tensor cores' bfloat16 rows
+  constexpr bool kMmaRows = kBf16;   // the tensor cores' bfloat16 rows
   const int lda = operand_stride(kBayes ? W3 + a.DT : W3);
   __nv_bfloat16* zin_rows = reinterpret_cast<__nv_bfloat16*>(zin);
-  if (kRows) {      // they start as zeros, and their padding stays so
+  if (kMmaRows) {   // they start as zeros, and their padding stays so
     for (int o = p.zin + 16 * threadIdx.x; o < p.zs; o += 16 * kThreads)
       *reinterpret_cast<float4*>(smem + o) = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int o = p.h0 + 16 * threadIdx.x; o < p.rates; o += 16 * kThreads)
       *reinterpret_cast<float4*>(smem + o) = make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
   }
-  for (int idx = threadIdx.x; idx < kTile * W3; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < kRows * W3; idx += kThreads) {
     const int row = idx / W3, c = idx % W3;
     const float v = row0 + row < B ? zh0[(size_t)(row0 + row) * W3 + c] : 0.f;
-    zh[c * kTile + row] = v;
-    zs[c * kTile + row] = v;
-    if (kRows) zin_rows[row * lda + c] = __float2bfloat16_rn(v);
+    zh[c * kRows + row] = v;
+    zs[c * kRows + row] = v;
+    if (kMmaRows) zin_rows[row * lda + c] = __float2bfloat16_rn(v);
   }
   // the tail only feeds a product: K7's after the head in zin, K2's in kbuf
-  float* tl = kBayes ? zin + W3 * kTile : reinterpret_cast<float*>(smem + p.kbuf);
-  for (int idx = threadIdx.x; idx < kTile * a.DT; idx += kThreads) {
+  float* tl = kBayes ? zin + W3 * kRows : reinterpret_cast<float*>(smem + p.kbuf);
+  for (int idx = threadIdx.x; idx < kRows * a.DT; idx += kThreads) {
     const int row = idx / a.DT, c = idx % a.DT;
     const float v = row0 + row < B ? ztail[(size_t)(row0 + row) * a.DT + c] : 0.f;
-    if (kRows && kBayes)
+    if (kMmaRows && kBayes)
       zin_rows[row * lda + W3 + c] = __float2bfloat16_rn(v);
     else
-      tl[c * kTile + row] = kBf16 ? round_bf16(v) : v;
+      tl[c * kRows + row] = kBf16 ? round_bf16(v) : v;
   }
   const int E = 4 * (T - 1);
-  copy_rows<4>(smem + p.dec, reinterpret_cast<const unsigned char*>(a.dec_w), 0, W3, W3, a.R_out,
-               p.ldw_dec);
+  if (p.dec)
+    copy_rows<4>(smem + p.dec, reinterpret_cast<const unsigned char*>(a.dec_w), 0, W3, W3,
+                 a.R_out, p.ldw_dec);
   if (E > 0) {
     if (p.resident)
       for (int c = 0; c < p.n_chunks; ++c) tr.copy_chunk(c, 0, 0);
@@ -959,23 +1015,32 @@ ude_trajectory_kernel(const float* __restrict__ zh0, const float* __restrict__ z
   tr.run_decode(T - 1, out);
 }
 
+template <bool kBayes, bool kBf16, int kRows>
+int launch_tile(const float* zh0, const float* ztail, int B, int T, float dt, float fa_w,
+                const UdeArgs& a, const Plan& p, float* out, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(ude_trajectory_kernel<kBayes, kBf16, kRows>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = (B + kRows - 1) / kRows;
+  ude_trajectory_kernel<kBayes, kBf16, kRows><<<blocks, kThreads, p.smem_bytes,
+                                                static_cast<cudaStream_t>(stream)>>>(
+      zh0, ztail, B, T, dt, fa_w, a, p, out);
+  return cudaGetLastError();
+}
+
 // Launch on `stream` with the plan of plan_len ints at `plan`
-// (ops/fused_ude.py::TrajectoryPlan.flat()); refuse a plan read_plan does not
-// take.
+// (ops/fused_ude.py::TrajectoryPlan.flat()), in blocks of the plan's tile;
+// refuse a plan read_plan does not take.
 template <bool kBayes, bool kBf16>
 int launch_trajectory(const float* zh0, const float* ztail, int B, int T, float dt, float fa_w,
                       const UdeArgs& a, const int* plan, int plan_len, float* out, void* stream) {
   Plan p;
   if (plan == nullptr || !read_plan(a, kBayes, kBf16, plan, plan_len, p))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ude_trajectory_kernel<kBayes, kBf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
-  if (err != cudaSuccess) return err;
-  const int blocks = (B + kTile - 1) / kTile;
-  ude_trajectory_kernel<kBayes, kBf16><<<blocks, kThreads, p.smem_bytes,
-                                         static_cast<cudaStream_t>(stream)>>>(
-      zh0, ztail, B, T, dt, fa_w, a, p, out);
-  return cudaGetLastError();
+  if constexpr (!kBf16)
+    if (p.tile == kWideTile)
+      return launch_tile<kBayes, kBf16, kWideTile>(zh0, ztail, B, T, dt, fa_w, a, p, out, stream);
+  return launch_tile<kBayes, kBf16, kTile>(zh0, ztail, B, T, dt, fa_w, a, p, out, stream);
 }
 
 }  // namespace

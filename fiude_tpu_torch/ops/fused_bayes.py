@@ -35,7 +35,8 @@ then K7 (``csrc/fused_ude.cuh`` with kBayes) integrates.
 CPU tensors take :func:`bayes_trajectory_decode_plain`, CUDA tensors launch
 the kernels or raise.  ``bayes_draw_cuda.launches`` and
 ``bayes_trajectory_cuda.launches`` count the launches of both compute modes,
-``.bf16_launches`` those in bfloat16.
+``.bf16_launches`` those in bfloat16, ``bayes_trajectory_cuda.wide_launches``
+those of K7 in blocks of 32 rows (``fused_ude.tile_for``).
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ from fiude_tpu_torch.models.rhs import out_of_range_mask, sir_field
 from fiude_tpu_torch.ops import _build, philox
 from fiude_tpu_torch.ops.fused_gru import fused_encoder
 from fiude_tpu_torch.ops.fused_ude import (
-    _MAX_DEEP, FieldRecord, FieldWeights, _check_net, _later_layers, is_bf16, matmul, pack_layers,
-    plan_for, plan_ints, uniform_step,
+    _MAX_DEEP, WIDE_TILE, FieldRecord, FieldWeights, _check_net, _later_layers, is_bf16, matmul,
+    pack_layers, plan_for, plan_ints, sm_count, tile_for, uniform_step,
 )
 from fiude_tpu_torch.ops.integrate import rk4_38_step
 from fiude_tpu_torch.utils.profiler import span
@@ -393,7 +394,8 @@ def bayes_trajectory_cuda(z0: torch.Tensor, w: BayesWeights,
                           dt: float, fa_w: float = 1.0,
                           stage_bytes: Optional[int] = None) -> torch.Tensor:
     """Launch K7 on the drawn weights ``weff`` (4(T-1), P): z0 (B, R, L) ->
-    (T, B, R_out); in the bfloat16 compute mode when ``weff`` is a
+    (T, B, R_out), in blocks of ``tile_for`` rows; in the bfloat16 compute
+    mode when ``weff`` is a
     :class:`DrawnBf16`.  ``stage_bytes`` goes to
     :func:`~fiude_tpu_torch.ops.fused_ude.trajectory_plan` (None: its default)."""
     if z0.dim() != 3 or z0.dtype != torch.float32:
@@ -423,7 +425,8 @@ def bayes_trajectory_cuda(z0: torch.Tensor, w: BayesWeights,
         raise ValueError(f"the drawn weights must be (4(T-1), P) = {(4 * (T - 1), P)}, got "
                          f"{tuple(weff.shape)}")
     _build.check_weights([w.dec_w, w.dec_b], z0.device)
-    plan = plan_for(m, R, R * (L - 3), R_out, bayes=True, bf16=bf16, stage_bytes=stage_bytes)
+    plan = plan_for(m, R, R * (L - 3), R_out, bayes=True, bf16=bf16, stage_bytes=stage_bytes,
+                    tile=tile_for(B, sm_count(z0.device), bf16))
     plan_c, plan_len = plan_ints(plan)
     out = torch.empty(T, B, R_out, device=z0.device, dtype=torch.float32)
     head = z0[..., :3].reshape(B, 3 * R).contiguous()
@@ -441,11 +444,13 @@ def bayes_trajectory_cuda(z0: torch.Tensor, w: BayesWeights,
     _build.check(code, "fused_bayes_trajectory")
     bayes_trajectory_cuda.launches += 1
     bayes_trajectory_cuda.bf16_launches += int(bf16)
+    bayes_trajectory_cuda.wide_launches += int(plan.tile == WIDE_TILE)
     return out
 
 
 bayes_trajectory_cuda.launches = 0
 bayes_trajectory_cuda.bf16_launches = 0
+bayes_trajectory_cuda.wide_launches = 0
 
 
 def bayes_trajectory_decode_cuda(z0: torch.Tensor, w: BayesWeights, *, T: int, dt: float,

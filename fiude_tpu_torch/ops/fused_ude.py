@@ -24,7 +24,9 @@ activations where it stores them and sums in float32 on the tensor cores.
 :func:`trajectory_decode` dispatches strictly on the state's device: a CPU
 tensor takes :func:`trajectory_decode_plain`, a CUDA tensor launches the
 kernel or raises.  ``trajectory_decode.launches`` counts kernel launches of
-both compute modes, ``trajectory_decode.bf16_launches`` those in bfloat16.
+both compute modes, ``trajectory_decode.bf16_launches`` those in bfloat16,
+``trajectory_decode.wide_launches`` those in blocks of 32 rows
+(:func:`tile_for`).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ Layer = Tuple[torch.Tensor, torch.Tensor]
 # alone; the C launcher checks that the kernel can run it (read_plan) and
 # refuses it otherwise.
 TILE = 16              # kTile: ensemble rows a block
+WIDE_TILE = 32         # kWideTile: ... in float32 where 16-row blocks need more than one wave
 THREADS = 512          # kThreads: sixteen warps
 WARPS = THREADS // 32
 SMEM_LIMIT = 232_448   # dynamic shared memory a block can use (kSmemLimit)
@@ -90,7 +93,8 @@ class Chunk(NamedTuple):
 
 class TrajectoryPlan(NamedTuple):
     """How ``ude_trajectory_kernel`` (K2, K7) is launched: a pure function of
-    the widths and the mode (:func:`trajectory_plan`), never of the batch."""
+    the widths, the mode and the tile (:func:`trajectory_plan`), never of the
+    batch; the tiles' plans sum every product in the same order."""
     tile: int
     threads: int
     smem_bytes: int
@@ -98,7 +102,8 @@ class TrajectoryPlan(NamedTuple):
     stages: int          # weight chunks in shared memory at once
     stage_bytes: int     # bytes of the largest chunk
     offsets: Tuple[int, ...]   # byte offsets: zh, zin, zs, kbuf, ct, h0, fpb, augb,
-    #                            rates, fa, dec, wts (see ``LAYOUT``)
+    #                            rates, fa, dec, wts (see ``LAYOUT``); dec 0: the
+    #                            decoder is read from global memory
     ldw_dec: int
     passes: Tuple[Tuple[Job, ...], ...]   # an evaluation's passes, without the decode
     dec_pass: int                         # the pass that also decodes, in stage 1
@@ -196,14 +201,24 @@ def _chunk_rows(K: int, n: int, c: int) -> Tuple[int, int]:
 def trajectory_plan(R: int, DT: int, N0: int, n0_fp: int, R_out: int,
                     fp_out: Sequence[int], aug_out: Sequence[int], *, bayes: bool,
                     bf16: bool, resident: Optional[bool] = None,
-                    stage_bytes: Optional[int] = None) -> TrajectoryPlan:
+                    stage_bytes: Optional[int] = None, tile: int = TILE) -> TrajectoryPlan:
     """The launch plan of K2 (``bayes=False``) or K7 for a field of ``R``
     regions, frozen tail ``DT``, first layer ``N0`` wide (``n0_fp`` rates
     columns first), later layers ``fp_out`` / ``aug_out`` and ``R_out``
-    decoder outputs, in float32 or (``bf16``) bfloat16.
+    decoder outputs, in float32 or (``bf16``) bfloat16, for blocks of
+    ``tile`` rows.
 
-    A block takes 16 ensemble rows on 512 threads.  Each RHS evaluation runs
-    as passes: the first layer (K7: over [head | tail], 3R + DT deep), then
+    A block takes ``tile`` ensemble rows on 512 threads: 16, or, in float32,
+    32 (:func:`tile_for` picks it from the batch).  The 32-row plan's jobs
+    are the 16-row plan's, on the same warps with the same splits; a lane
+    computes its outputs for both 16-row halves of the tile, so every row is
+    summed in the same order in either.  The buffers hold the tile's rows:
+    the state, its stage input, two Kutta slots, K2's tail term, the first
+    layer's output, a net's ping-pong halves as many as it writes (one for a
+    net of one inner layer), the rates and Fa, and in the 16-row tile the
+    decoder (faster there than read from global memory, as the 32-row tile
+    reads it to leave its weight stages room).  Each RHS evaluation runs as
+    passes: the first layer (K7: over [head | tail], 3R + DT deep), then
     layer d of both nets side by side, then the SIR combine; the decode of the
     state rides in one pass of every step's first evaluation.  The field's
     weights sit in shared memory: ``resident`` (K2 where they fit beside the
@@ -216,9 +231,12 @@ def trajectory_plan(R: int, DT: int, N0: int, n0_fp: int, R_out: int,
     n_fp, n_aug = len(fp_out), len(aug_out)
     if bayes and resident:
         raise ValueError("K7's weights are new every evaluation: they cannot stay resident")
+    if tile not in (TILE, WIDE_TILE) or (bf16 and tile != TILE):
+        raise ValueError(f"a block takes {TILE} rows, or {WIDE_TILE} in float32; got a tile of "
+                         f"{tile} rows{' in bfloat16' if bf16 else ''}")
     esize = 2 if bf16 else 4
     W3 = 3 * R
-    row = TILE * 4
+    row = tile * 4
     ldw = lambda n: row_stride(n, bf16)              # noqa: E731
 
     # an evaluation's passes: the first layer, then layer d of each net
@@ -256,14 +274,16 @@ def trajectory_plan(R: int, DT: int, N0: int, n0_fp: int, R_out: int,
     final = plan_of([], decode)
     ct = () if bayes else plan_of([(DT, N0, CT, 0)])      # DT = 0: the bias alone
 
-    # the tile, feature-major [feature][16 rows] floats
+    # the tile, feature-major [feature][tile rows] floats
     # (bytes; the tensor cores' inputs in bfloat16 as rows of operand_stride)
     operand = lambda w: (2 * TILE * operand_stride(w) if w else 0) if bf16 else w * row  # noqa
+    halves = lambda n: min(2, max(n - 1, 0))      # noqa: E731
     wf, wa = max(fp_out[:-1], default=0), max(aug_out[:-1], default=0)
     sizes = {
         "zh": W3 * row, "zin": operand(K0), "zs": W3 * row if bf16 else 0,
-        "kbuf": max(3 * W3, 0 if bayes else DT) * row, "ct": 0 if bayes else N0 * row,
-        "h0": operand(N0), "fpb": 2 * operand(wf), "augb": 2 * operand(wa),
+        "kbuf": max(2 * W3, 0 if bayes else DT) * row,
+        "ct": 0 if bayes else N0 * row, "h0": operand(N0),
+        "fpb": halves(n_fp) * operand(wf), "augb": halves(n_aug) * operand(wa),
         "rates": 2 * R * row if n_fp else 0, "fa": W3 * row if n_aug else 0,
     }
     offsets, off = {}, ARGS_BYTES
@@ -273,8 +293,8 @@ def trajectory_plan(R: int, DT: int, N0: int, n0_fp: int, R_out: int,
     if not bf16:
         offsets["zs"] = offsets["zin"]       # float32: the product reads the stage input itself
     ldw_dec = row_stride(R_out, False)
-    offsets["dec"] = off
-    off += W3 * ldw_dec * 4
+    offsets["dec"] = off if tile == TILE else 0
+    off += W3 * ldw_dec * 4 if tile == TILE else 0
     offsets["wts"] = off
 
     pass_bytes = [sum(j.K * j.ldw * esize for j in p if j.kind != DECODE) for p in plans]
@@ -316,7 +336,7 @@ def trajectory_plan(R: int, DT: int, N0: int, n0_fp: int, R_out: int,
     if smem > SMEM_LIMIT:
         raise ValueError(f"the plan takes {smem} bytes of shared memory; a block has "
                          f"{SMEM_LIMIT}")
-    return TrajectoryPlan(TILE, THREADS, smem, bool(resident), stages, stage,
+    return TrajectoryPlan(tile, THREADS, smem, bool(resident), stages, stage,
                           tuple(offsets[k] for k in LAYOUT), ldw_dec, tuple(plans), dec_pass,
                           with_dec[dec_pass], final, ct, tuple(chunks))
 
@@ -328,21 +348,40 @@ def _pad2(k0, k1, off):
 
 
 def plan_for(w, R: int, DT: int, R_out: int, *, bayes: bool, bf16: bool,
-             resident: Optional[bool] = None,
-             stage_bytes: Optional[int] = None) -> TrajectoryPlan:
+             resident: Optional[bool] = None, stage_bytes: Optional[int] = None,
+             tile: int = TILE) -> TrajectoryPlan:
     """:func:`trajectory_plan` for the packed field ``w`` (:class:`FieldWeights`
     or :class:`UDEWeights`) and a decoder of ``R_out`` outputs."""
     return _plan_cached(R, DT, w.w0_head.shape[1], w.n0_fp, R_out,
                         tuple(wl.shape[1] for wl, _ in w.fp),
                         tuple(wl.shape[1] for wl, _ in w.aug), bayes, bf16, resident,
-                        stage_bytes)
+                        stage_bytes, tile)
 
 
 @functools.lru_cache(maxsize=64)
 def _plan_cached(R, DT, N0, n0_fp, R_out, fp_out, aug_out, bayes, bf16, resident,
-                 stage_bytes) -> TrajectoryPlan:
+                 stage_bytes, tile) -> TrajectoryPlan:
     return trajectory_plan(R, DT, N0, n0_fp, R_out, fp_out, aug_out, bayes=bayes, bf16=bf16,
-                           resident=resident, stage_bytes=stage_bytes)
+                           resident=resident, stage_bytes=stage_bytes, tile=tile)
+
+
+def tile_for(B: int, sms: int, bf16: bool = False) -> int:
+    """The rows a block of K2 or K7 takes for a batch of ``B`` rows on a card
+    of ``sms`` SMs (a block fills an SM): :data:`WIDE_TILE` in float32 where
+    blocks of :data:`TILE` rows would need more than one wave
+    (ceil(B / 16) > sms), else :data:`TILE`.  A row's bits are the same in
+    either tile."""
+    return WIDE_TILE if not bf16 and -(-B // TILE) > sms else TILE
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of the CUDA ``device`` (the current one when it has no index)."""
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
 class UDEWeights(NamedTuple):
@@ -536,10 +575,10 @@ def trajectory_decode_cuda(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: float
                            fa_w: float = 1.0, compute_dtype: str = "float32",
                            rounded=None, resident: Optional[bool] = None,
                            stage_bytes: Optional[int] = None) -> torch.Tensor:
-    """Launch K2 on ``z0``'s device and current stream; in the bfloat16
-    compute mode on ``rounded`` (:func:`bf16_matrices` of ``w``, made here
-    when None).  ``resident`` and ``stage_bytes`` go to :func:`trajectory_plan`
-    (None: its defaults)."""
+    """Launch K2 on ``z0``'s device and current stream, in blocks of
+    :func:`tile_for` rows; in the bfloat16 compute mode on ``rounded``
+    (:func:`bf16_matrices` of ``w``, made here when None).  ``resident`` and
+    ``stage_bytes`` go to :func:`trajectory_plan` (None: its defaults)."""
     bf16 = is_bf16(compute_dtype)
     if z0.dim() != 3 or z0.dtype != torch.float32:
         raise ValueError(f"z0 must be a float32 (B, R, L) tensor, got {z0.dtype} "
@@ -560,7 +599,7 @@ def trajectory_decode_cuda(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: float
                          + [t for layer in layers for t in layer], z0.device)
 
     plan = plan_for(w, R, R * (L - 3), R_out, bayes=False, bf16=bf16, resident=resident,
-                    stage_bytes=stage_bytes)
+                    stage_bytes=stage_bytes, tile=tile_for(B, sm_count(z0.device), bf16))
     plan_c, plan_len = plan_ints(plan)
     launch = _launcher()
     head = z0[..., :3].reshape(B, 3 * R).contiguous()
@@ -592,6 +631,7 @@ def trajectory_decode_cuda(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: float
     _build.check(code, "fused_ude_trajectory")
     trajectory_decode.launches += 1
     trajectory_decode.bf16_launches += int(bf16)
+    trajectory_decode.wide_launches += int(plan.tile == WIDE_TILE)
     return out
 
 
@@ -614,6 +654,7 @@ def trajectory_decode(z0: torch.Tensor, w: UDEWeights, *, T: int, dt: float,
 
 trajectory_decode.launches = 0
 trajectory_decode.bf16_launches = 0
+trajectory_decode.wide_launches = 0
 
 
 def uniform_step(t) -> float:

@@ -8,20 +8,26 @@ holding two checkouts against each other in one call.
 For each ROOT (default: this checkout) in turn, in a process of its own,
 imports that checkout's ``fiude_tpu_torch``, builds its kernels there, and
 prints one line: K2 (``trajectory_decode_cuda``) and K7 (``bayes_trajectory_cuda``
-on weights drawn once) in float32 and in bfloat16, each the mean of 5 calls
-after a warm-up (CUDA events), best of 3 such runs, with the time of one RHS
-evaluation (the kernel's time over 4 (T - 1) = 336 evaluations); UONN and
-UONNb at the `state` widths (49 regions, latent 8, ``Fp_net`` 392->64->64->32->98,
-``aug_net`` 392->64->64->147), 2048 systems, T = 85, dt = 1/7, weights random
-from seed 0.  Name the roots parent, change, change, parent to compare two
-trees.
+on weights drawn once) in float32 at each count of :data:`ROWS` and in
+bfloat16 at 2048, each the mean of 5 calls after a warm-up (CUDA events), best
+of 3 such runs, with the time of one RHS evaluation (the kernel's time over
+4 (T - 1) = 336 evaluations) and the rows a block took, read from the
+``wide_launches`` counters (16 in a checkout without them); UONN and UONNb at
+the `state` widths (49 regions, latent 8, ``Fp_net`` 392->64->64->32->98,
+``aug_net`` 392->64->64->147), T = 85, dt = 1/7, weights random from seed 0.
+In float32 each count runs twice where the checkout has ``fused_ude.tile_for``:
+in the tile the launchers take, and with ``tile_for`` replaced in this
+process by one giving the other tile.  Name the roots parent, change, change,
+parent to compare two trees.
 
 With ``--probe``, this checkout's ``csrc/fused_ude.cuh`` is rewritten into a
 copy whose kernel records ``clock64()`` in thread 0 of block 0 at the points
 of every weight chunk (start, copies waited for, barrier passed, products
 done, and after a pass's last chunk its epilogue done) and of the combine
 (start, barrier passed, done), built apart into ``_build/probe``, and prints
-their medians over the evaluations 8-327 for K2 and K7 in both modes.
+their medians over the evaluations 8-327 for K2 and K7 in both modes at 2048
+rows and in float32 at 4096 (block 0 then holds the 32-row tile where the
+launcher takes it).
 
 Imports no JAX; needs one card and nvcc.
 """
@@ -40,8 +46,20 @@ STATE = dict(n_regions=49, latent_dim=8, n_qs=8,
              enc_params={"q_sizes": (256, 128), "ff_sizes": (64, 64),
                          "SIR_scaler": [0.1, 0.05, 1.0]},
              ode_params={"net_sizes": (64, 64, 32), "aug_net_sizes": (64, 64)})
-B, T, DT = 2048, 85, 1.0 / 7.0
+T, DT = 85, 1.0 / 7.0
 EVALS = 4 * (T - 1)
+# float32 rows: one wave of 16-row blocks on the H100's 132 SMs (2048), just over
+# it (2113, 2213: a ragged last 32-row tile), a forecast cell's request (4096,
+# 32 windows x 128 samples), a sweep's test forecast (27136: a test season's 212
+# windows x 128 samples, parallel/sweep.py)
+ROWS = (2048, 2113, 2213, 4096, 27136)
+# (kernel and mode, rows, the other tile than the launchers'): float32 at every
+# count of ROWS in both tiles, bfloat16 (16-row blocks only) at 2048
+CASES = ([(name, B, other) for name in ("K2 f32", "K7 f32") for B in ROWS
+          for other in (False, True)]
+         + [("K2 bf16", 2048, False), ("K7 bf16", 2048, False)])
+PROBE_CASES = [("K2 f32", 2048, False), ("K2 f32", 4096, False), ("K2 bf16", 2048, False),
+               ("K7 f32", 2048, False), ("K7 f32", 4096, False), ("K7 bf16", 2048, False)]
 
 PROBE = "if (threadIdx.x == 0 && blockIdx.x == 0 && e < 336) g_probe[e][{}][{}] = clock64();"
 PROBE_EDITS = [
@@ -94,41 +112,34 @@ def probe_build(root: Path) -> None:
     _build.BUILD_DIR = root / "fiude_tpu_torch" / "_build" / "probe"
 
 
-def inputs(dev):
-    import numpy as np
+def kernels(dev):
+    """A function of (name, z0) giving a zero-argument launch of K2 or K7 in
+    either mode on ``z0``'s rows."""
     import torch
 
     from fiude_tpu_torch.models import UDEForecaster
     from fiude_tpu_torch.ops import fused_bayes, fused_ude
 
-    rng = np.random.default_rng(0)
-    z0 = torch.tensor(rng.uniform(0.0, 0.6, (B, 49, 8)), dtype=torch.float32, device=dev)
     ude = UDEForecaster.build(ode_name="UONN", device=dev,
                               generator=torch.Generator().manual_seed(0), **STATE)
     bayes = UDEForecaster.build(ode_name="UONNb", device=dev,
                                 generator=torch.Generator().manual_seed(0), **STATE)
     w = fused_ude.pack_ude(ude.ode, ude.decoder)
     wb = fused_bayes.pack_bayes(bayes.ode, bayes.decoder)
-    return z0, w, wb
-
-
-def kernels(z0, w, wb):
-    """{name: zero-argument launch} for K2 and K7 in both modes."""
-    from fiude_tpu_torch.ops import fused_bayes, fused_ude
-
     kw = dict(T=T, dt=DT, fa_w=1.0)
     rounded = fused_ude.bf16_matrices(w)
     bw = wb.field
     mean, std = fused_bayes.flatten_field(bw.mean), fused_bayes.flatten_field(bw.std)
     w32, _, _ = fused_bayes.bayes_draw_cuda(mean, std, bw.mean, EVALS, seed=0)
     w16, _, _ = fused_bayes.bayes_draw_cuda(mean, std, bw.mean, EVALS, seed=0, bf16=True)
-    return {
-        "K2 f32": lambda: fused_ude.trajectory_decode_cuda(z0, w, **kw),
-        "K2 bf16": lambda: fused_ude.trajectory_decode_cuda(
+    launch = {
+        "K2 f32": lambda z0: fused_ude.trajectory_decode_cuda(z0, w, **kw),
+        "K2 bf16": lambda z0: fused_ude.trajectory_decode_cuda(
             z0, w, compute_dtype="bfloat16", rounded=rounded, **kw),
-        "K7 f32": lambda: fused_bayes.bayes_trajectory_cuda(z0, wb, w32, **kw),
-        "K7 bf16": lambda: fused_bayes.bayes_trajectory_cuda(z0, wb, w16, **kw),
+        "K7 f32": lambda z0: fused_bayes.bayes_trajectory_cuda(z0, wb, w32, **kw),
+        "K7 bf16": lambda z0: fused_bayes.bayes_trajectory_cuda(z0, wb, w16, **kw),
     }
+    return lambda name, z0: (lambda: launch[name](z0))
 
 
 def cuda_ms(fn, n: int = 5) -> float:
@@ -150,7 +161,54 @@ def smi_line() -> str:
                           check=True).stdout.strip()
 
 
-def probe(fns, smi: str) -> None:
+def pinned(fn, tile: int):
+    """``fn`` run with the launchers' tile rule (``tile_for``, read by name in
+    ``fused_ude`` and ``fused_bayes``) giving ``tile`` rows."""
+    from fiude_tpu_torch.ops import fused_bayes, fused_ude
+
+    def run():
+        rule = fused_ude.tile_for
+        fused_ude.tile_for = fused_bayes.tile_for = lambda *args: tile
+        try:
+            return fn()
+        finally:
+            fused_ude.tile_for = fused_bayes.tile_for = rule
+    return run
+
+
+def tile_taken(name: str, fn) -> int:
+    """The rows a block took in one call of ``fn``, from the ``wide_launches``
+    counter of its kernel (16 in a checkout without it)."""
+    from fiude_tpu_torch.ops import fused_bayes, fused_ude
+    counter = fused_ude.trajectory_decode if name.startswith("K2") \
+        else fused_bayes.bayes_trajectory_cuda
+    before = getattr(counter, "wide_launches", None)
+    fn()
+    return 16 if before is None or counter.wide_launches == before else 32
+
+
+def launches(dev, cases):
+    """[(name, rows, tile, launch)] of ``cases`` this checkout can run: the
+    other tile only where it has ``fused_ude.tile_for``."""
+    import numpy as np
+    import torch
+
+    from fiude_tpu_torch.ops import fused_ude
+    launch = kernels(dev)
+    rows = np.random.default_rng(0).uniform(0.0, 0.6, (max(B for _, B, _ in cases), 49, 8))
+    z0 = torch.tensor(rows, dtype=torch.float32, device=dev)
+    out = []
+    for name, B, other in cases:
+        if other and not hasattr(fused_ude, "tile_for"):
+            continue
+        fn = launch(name, z0[:B])
+        if other:
+            fn = pinned(fn, 48 - tile_taken(name, fn))
+        out.append((name, B, tile_taken(name, fn), fn))
+    return out
+
+
+def probe(cases, smi: str) -> None:
     """Run each launch once in the probed build and print the medians."""
     import ctypes
 
@@ -159,7 +217,7 @@ def probe(fns, smi: str) -> None:
 
     from fiude_tpu_torch.ops import _build
     lib = _build.library()
-    for name, fn in fns.items():
+    for name, B, tile, fn in cases:
         fn()
         torch.cuda.synchronize()
         buf = np.zeros((336, 26, 5), dtype=np.int64)
@@ -180,8 +238,8 @@ def probe(fns, smi: str) -> None:
             parts.append(part)
         comb = (np.median(ev[:, 25, 1] - ev[:, 25, 0]), np.median(ev[:, 25, 2] - ev[:, 25, 1]))
         whole = np.median(buf[9:328, 0, 0] - buf[8:327, 0, 0])
-        print(f"  probe {name} (block 0, thread 0, median cycles over evaluations 8-327): "
-              f"an evaluation {whole:.0f}; " + "; ".join(parts)
+        print(f"  probe {name} at {B} rows (tile {tile}; block 0, thread 0, median "
+              f"cycles over evaluations 8-327): an evaluation {whole:.0f}; " + "; ".join(parts)
               + f"; combine: barrier {comb[0]:.0f}, work {comb[1]:.0f} [{smi}]", flush=True)
 
 
@@ -198,13 +256,14 @@ def measure(root: str, probed: bool = False) -> int:
     from fiude_tpu_torch.ops import _build
     _build.library()
     dev = torch.device("cuda", 0)
-    fns = kernels(*inputs(dev))
     if probed:
-        probe(fns, smi_line())
+        probe(launches(dev, PROBE_CASES), smi_line())
         return 0
-    times = {name: min(cuda_ms(fn) for _ in range(3)) for name, fn in fns.items()}
-    print(f"{root}: " + "; ".join(f"{name} {ms:.4f} ms ({ms * 1e3 / EVALS:.2f} us an evaluation)"
-                                 for name, ms in times.items()) + f" [{smi_line()}]", flush=True)
+    times = [(name, B, tile, min(cuda_ms(fn) for _ in range(3)))
+             for name, B, tile, fn in launches(dev, CASES)]
+    print(f"{root}: " + "; ".join(
+        f"{name} at {B} (tile {tile}) {ms:.4f} ms ({ms * 1e3 / EVALS:.2f} us an "
+        "evaluation)" for name, B, tile, ms in times) + f" [{smi_line()}]", flush=True)
     return 0
 
 

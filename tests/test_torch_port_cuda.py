@@ -15,7 +15,10 @@ cotangents) the same bits alone as in a batch of 37, two launches equal bit
 for bit; and K2/K7's (``fused_ude.trajectory_plan``): both kernels at the
 `state` widths in both modes with a ragged batch of 37, a row alone the same
 bits as in it, resident and streamed weights against the twin, and plans
-the kernel cannot run refused by the launcher.
+the kernel cannot run refused by the launcher; in float32 also the 32-row
+tile the launchers take above one wave of 16-row blocks (B = 2213, a ragged
+last tile, and 4096) against the twin, its rows the same bits as each row
+launched alone in a 16-row block, and its launches counted.
 The Bayes kernels K7 (``csrc/fused_bayes.cu``) and K8/K9
 (``csrc/fused_train.cu`` with kBayes) are held to the same bounds against
 their twins in both noise modes (injected, and Philox from a seed on both
@@ -1113,6 +1116,75 @@ def test_plans_the_kernel_cannot_run_are_refused(dev, kernel, monkeypatch):
             launch(z0, "float32")
     monkeypatch.setattr(module, "plan_for", lambda *args, **kw: plan)
     assert torch.isfinite(launch(z0, "float32")).all()        # the plan itself runs
+
+
+# -- the 32-row tile (fused_ude.tile_for: above one wave of 16-row blocks) ----------------
+
+def counters(kernel):
+    fn = fused_ude.trajectory_decode if kernel == "K2" else fused_bayes.bayes_trajectory_cuda
+    return fn.launches, fn.wide_launches
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K7"])
+@pytest.mark.parametrize("B,rows", [(2213, (0, 1000, 2212)), (4096, (0, 2000, 4095))])
+def test_wide_tile_matches_the_twin_and_a_row_alone(dev, kernel, B, rows):
+    """K2 and K7 in float32 at the `state` widths in blocks of 32 rows (2213:
+    a ragged last tile) against their twins, and rows of the batch the same
+    bits as each launched alone, in a 16-row block."""
+    w, launch, twin = state_models(dev, kernel)
+    wide = fused_ude.tile_for(B, fused_ude.sm_count(dev)) == fused_ude.WIDE_TILE
+    assert wide or B == 2213          # a card of 139 SMs or more takes 2213 rows in one wave
+    z0 = on(dev, np.random.default_rng(8).uniform(0.0, 0.6, (B, 49, 8)))
+    before = counters(kernel)
+    got = launch(z0, "float32")
+    assert counters(kernel) == (before[0] + 1, before[1] + int(wide))
+    torch.testing.assert_close(got, twin(z0, "float32"), rtol=RTOL, atol=ATOL)
+    for row in rows:
+        alone = launch(z0[row:row + 1].contiguous(), "float32")
+        assert torch.equal(alone[:, 0], got[:, row]), row
+    assert counters(kernel)[1] == before[1] + int(wide)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K7"])
+def test_wide_launches_count_the_32_row_tile(dev, kernel):
+    """4096 rows take the 32-row tile on the H100 (132 SMs), 2048 the
+    16-row one; bfloat16 always the 16-row one."""
+    w, launch, _ = state_models(dev, kernel)
+    sms = fused_ude.sm_count(dev)
+    for B, cd in ((2048, "float32"), (4096, "float32"), (4096, "bfloat16")):
+        z0 = on(dev, np.random.default_rng(9).uniform(0.0, 0.6, (B, 49, 8)))
+        before = counters(kernel)
+        launch(z0, cd)
+        wide = cd == "float32" and -(-B // 16) > sms
+        assert counters(kernel) == (before[0] + 1, before[1] + int(wide)), (B, cd)
+    if sms == 132:
+        assert fused_ude.tile_for(4096, sms) == 32 and fused_ude.tile_for(2048, sms) == 16
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K7"])
+def test_wide_plans_the_kernel_cannot_run_are_refused(dev, kernel, monkeypatch):
+    """The launcher refuses a 32-row plan with the 16-row plan's buffers, a
+    16-row plan read as a 32-row one, a tile of neither 16 nor 32 rows and a
+    32-row tile on other than 512 threads; the 32-row plan itself runs at any
+    batch."""
+    w, launch, twin = state_models(dev, kernel)
+    field = w if kernel == "K2" else w.field.mean
+    kw = dict(bayes=kernel == "K7", bf16=False)
+    narrow = fused_ude.plan_for(field, 49, 245, 49, **kw)
+    wide = fused_ude.plan_for(field, 49, 245, 49, tile=fused_ude.WIDE_TILE, **kw)
+    z0 = on(dev, np.random.default_rng(10).uniform(0.0, 0.6, (40, 49, 8)))
+    module = fused_ude if kernel == "K2" else fused_bayes
+    bad = [wide._replace(offsets=narrow.offsets, smem_bytes=narrow.smem_bytes,
+                         stage_bytes=narrow.stage_bytes),
+           narrow._replace(tile=fused_ude.WIDE_TILE),
+           narrow._replace(tile=24),
+           wide._replace(threads=1024)]
+    for p in bad:
+        monkeypatch.setattr(module, "plan_for", lambda *args, p=p, **k: p)
+        with pytest.raises(RuntimeError):
+            launch(z0, "float32")
+    monkeypatch.setattr(module, "plan_for", lambda *args, **k: wide)
+    torch.testing.assert_close(launch(z0, "float32"), twin(z0, "float32"), rtol=RTOL, atol=ATOL)
 
 
 # -- K5/K8, the training forward (forward_plan) ---------------------------------------

@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 
 from fiude_tpu_torch.ops.fused_ude import (
-    ARGS_BYTES, AUG, COLS, CT, DECODE, FIRST, FP, LAYOUT, SMEM_LIMIT, THREADS, TILE, WARPS,
-    row_stride, trajectory_plan,
+    ARGS_BYTES, AUG, COLS, CT, DECODE, FIRST, FP, LAYOUT, MAX_CHUNKS, SMEM_LIMIT, THREADS, TILE,
+    WARPS, WIDE_TILE, row_stride, tile_for, trajectory_plan,
 )
 
 # the `state` preset: 49 regions, latent 8, Fp_net 392->64->64->32->98, aug_net 392->64->64->147
@@ -65,13 +65,16 @@ def test_row_strides_are_aligned_and_spread_over_the_banks(n, bf16):
     assert len({(k * units) % 8 for k in range(8)}) == 8
 
 
-def kernel_sizes(w, bayes, bf16):
+def kernel_sizes(w, bayes, bf16, tile=TILE):
     """The bytes the kernel uses of each buffer of ``LAYOUT`` but ``wts``
     (the sizes ``read_plan`` in csrc/fused_ude.cuh checks): feature-major
-    buffers of 16 rows x 4 bytes a feature, the tensor cores' inputs in
-    bfloat16 rows, then the decoder."""
-    W3, row = 3 * w["R"], TILE * 4
+    buffers of ``tile`` rows x 4 bytes a feature, the tensor cores' inputs
+    in bfloat16 rows, two Kutta slots, a net's ping-pong halves as many as
+    it writes, then the decoder in the 16-row tile (the 32-row tile reads it
+    from global memory)."""
+    W3, row = 3 * w["R"], tile * 4
     inner = lambda outs: max(outs[:-1], default=0)      # noqa: E731
+    halves = lambda outs: min(2, max(len(outs) - 1, 0))  # noqa: E731
 
     def operand(width):      # bfloat16: [16 rows][16 ceil(width / 16) + 24] for the mma
         if not bf16:
@@ -79,10 +82,11 @@ def kernel_sizes(w, bayes, bf16):
         return 2 * TILE * (16 * -(-width // 16) + 24) if width else 0
 
     return [W3 * row, operand(W3 + (w["DT"] if bayes else 0)), W3 * row if bf16 else 0,
-            (3 * W3 if bayes else max(3 * W3, w["DT"])) * row, 0 if bayes else w["N0"] * row,
-            operand(w["N0"]), 2 * operand(inner(w["fp_out"])),
-            2 * operand(inner(w["aug_out"])), 2 * w["R"] * row if w["fp_out"] else 0,
-            W3 * row if w["aug_out"] else 0, W3 * row_stride(w["R_out"], False) * 4]
+            (2 * W3 if bayes else max(2 * W3, w["DT"])) * row, 0 if bayes else w["N0"] * row,
+            operand(w["N0"]), halves(w["fp_out"]) * operand(inner(w["fp_out"])),
+            halves(w["aug_out"]) * operand(inner(w["aug_out"])),
+            2 * w["R"] * row if w["fp_out"] else 0, W3 * row if w["aug_out"] else 0,
+            W3 * row_stride(w["R_out"], False) * 4 if tile == TILE else 0]
 
 
 @pytest.mark.parametrize("widths", [STATE] + SMALL)
@@ -229,3 +233,88 @@ def test_bf16_rows_read_back_from_any_alignment(start, K, N):
     assert 8 * -(-N // 8) - 1 + par.max() < rows.shape[1]
     x = rng.standard_normal((TILE, K))
     np.testing.assert_allclose(x @ back, x @ exact, rtol=1e-12, atol=0)
+
+
+# -- the 32-row tile: taken where 16-row blocks need more than one wave -------------------
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("B", [1, 2112, 2113, 4096, 4224, 8192])
+def test_the_wide_tile_is_taken_above_one_wave_of_16_row_blocks(B, sms):
+    wide = -(-B // 16) > sms
+    assert tile_for(B, sms) == (WIDE_TILE if wide else TILE)
+    assert tile_for(B, sms, bf16=True) == TILE          # bfloat16 keeps 16 rows
+    # on the H100 (132 SMs) 2112 rows are the last batch of one wave of 16-row blocks
+    if sms == 132:
+        assert wide == (B > 2112)
+
+
+@pytest.mark.parametrize("widths", [STATE] + SMALL)
+@pytest.mark.parametrize("bayes", [False, True])
+@pytest.mark.parametrize("stage_bytes", [None, 16384])
+def test_wide_plans_fit_and_hold_32_rows(widths, bayes, stage_bytes):
+    """The float32 32-row plans of K2 and K7: inside the block's shared memory,
+    every buffer the room of 32 rows in order, every output of a 16-row half
+    a lane (which takes the same outputs of the other half), the chunks every
+    weight row once inside a stage."""
+    kw = {} if stage_bytes is None else dict(stage_bytes=stage_bytes, resident=False)
+    plan = plan_of(widths, bayes, False, tile=WIDE_TILE, **kw)
+    assert (plan.tile, plan.threads) == (WIDE_TILE, THREADS)
+    assert plan.smem_bytes <= SMEM_LIMIT and len(plan.chunks) <= MAX_CHUNKS
+    off = dict(zip(LAYOUT, plan.offsets))
+    sizes = dict(zip(LAYOUT, kernel_sizes(widths, bayes, False, WIDE_TILE)))
+    assert off["zs"] == off["zin"] and off["dec"] == 0       # the decoder read from L2
+    names = [n for n in LAYOUT if n not in ("zs", "dec")]
+    assert off["zh"] >= ARGS_BYTES and all(off[n] % 16 == 0 for n in names)
+    for a, b in zip(names, names[1:]):
+        assert off[a] + sizes[a] <= off[b], (a, b)
+    if not plan.resident:
+        assert plan.smem_bytes == off["wts"] + 2 * plan.stage_bytes
+    groups = list(plan.passes) + [plan.dec_jobs, plan.final] + ([plan.ct] if plan.ct else [])
+    for jobs in groups:
+        warps = [w for j in jobs for w in range(j.warp0, j.warp0 + j.warps)]
+        assert len(warps) == len(set(warps)) and max(warps) < WARPS
+        for j in jobs:       # every 4-row x COLS output tile of a half on one lane group
+            assert j.warps * 32 // j.split >= 4 * -(-j.N // COLS)
+    for s, jobs in enumerate(plan.passes):
+        chunks = [c for c in plan.chunks if c.step == s]
+        for m, job in enumerate(jobs):
+            rows = [(c.k0[m], c.k1[m]) for c in chunks]
+            assert rows[0][0] == 0 and rows[-1][1] == job.K
+            assert all(a[1] == b[0] and b[1] > b[0] for a, b in zip(rows, rows[1:]))
+        for c in chunks:
+            end = max(c.off[m] + (c.k1[m] - c.k0[m]) * job.ldw * 4 for m, job in enumerate(jobs))
+            assert plan.resident or end <= plan.stage_bytes
+
+
+@pytest.mark.parametrize("widths", [STATE] + SMALL)
+@pytest.mark.parametrize("bayes", [False, True])
+def test_wide_plan_sums_every_product_as_the_16_row_plan(widths, bayes):
+    """A row's bits do not depend on the tile: every product of the 32-row
+    plan has the 16-row plan's depth, width, split and row stride (its lanes
+    sum the same k in the same order and the same shuffle tree adds them), on
+    the same warps; the decode rides in the same pass."""
+    narrow = plan_of(widths, bayes, False)
+    wide = plan_of(widths, bayes, False, tile=WIDE_TILE)
+    pairs = list(zip(narrow.passes, wide.passes)) + [
+        (narrow.dec_jobs, wide.dec_jobs), (narrow.final, wide.final), (narrow.ct, wide.ct)]
+    assert len(narrow.passes) == len(wide.passes) and wide.dec_pass == narrow.dec_pass
+    for a, b in pairs:
+        assert [(j.kind, j.layer, j.K, j.N, j.split, j.ldw) for j in a] == \
+            [(j.kind, j.layer, j.K, j.N, j.split, j.ldw) for j in b]
+        assert [(j.warp0, j.warps) for j in a] == [(j.warp0, j.warps) for j in b]
+
+
+@pytest.mark.parametrize("bayes", [False, True])
+def test_the_state_wide_plans_stream_in_few_chunks(bayes):
+    """At the `state` widths the 32-row plans keep K7 at 14 chunks an
+    evaluation (K2 at 8): two stages of 25-33 KB."""
+    plan = plan_of(STATE, bayes, False, tile=WIDE_TILE)
+    assert not plan.resident and len(plan.chunks) == (14 if bayes else 8)
+    assert 25_000 <= plan.stage_bytes <= 33_000
+
+
+@pytest.mark.parametrize("tile,bf16", [(24, False), (64, False), (WIDE_TILE, True), (8, True)])
+def test_tiles_the_kernel_does_not_take_are_refused(tile, bf16):
+    with pytest.raises(ValueError, match="rows"):
+        plan_of(STATE, False, bf16, tile=tile)
+
